@@ -1,0 +1,333 @@
+"""Dataset: dict-like view of one TX-RX pair's ray data, rendered on torch.
+
+Counterpart of ``deepmimo_tpu/generator/dataset.py``: the same keys,
+aliases and ``compute_channels`` contract, with the channel render
+running through the PyTorch renderer (the CUDA kernel on a card) on
+masked ``PathData`` — in one launch, or streamed over user blocks when the
+output exceeds ``config['max_device_output_bytes']``.
+
+This first slice carries the core interface and channel computation;
+derived attributes (rotated angles, FoV, pathloss, LoS, grid, subsets)
+are ROADMAP port item 2.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from .. import consts as c
+from ..config import config
+from ..ops.channel import (not_ported, render_channels_planes,
+                           render_out_shape, unpack_planes_np)
+from ..ops.types import AntennaPanel, PathData
+from ..utils import DotDict
+from .params import ChannelGenParameters
+
+
+class Dataset(DotDict):
+    """Dict-like dataset with lazily computed attributes.
+
+    Primary (loaded) keys: power, phase, delay, aoa_az/el, aod_az/el,
+    rx_pos, tx_pos, inter, inter_pos. Derived keys are computed on first
+    access and cached.
+    """
+
+    def __init__(self, data: Optional[Dict[str, Any]] = None):
+        super().__init__(data or {})
+
+    def __getattr__(self, key: str) -> Any:
+        try:
+            return super().__getitem__(key)
+        except KeyError:
+            pass
+        try:
+            return self._resolve_key(key)
+        except KeyError:
+            raise AttributeError(key) from None
+
+    def __getitem__(self, key: str) -> Any:
+        try:
+            return super().__getitem__(key)
+        except KeyError:
+            return self._resolve_key(key)
+
+    def _resolve_key(self, key: str) -> Any:
+        resolved = c.DATASET_ALIASES.get(key, key)
+        if resolved != key:
+            key = resolved
+            try:
+                return super().__getitem__(key)
+            except KeyError:
+                pass
+        if key in self._computed_attributes:
+            value = getattr(self, self._computed_attributes[key])()
+            self[key] = value
+            return value
+        raise KeyError(key)
+
+    def __dir__(self):
+        return list(set(list(super().__dir__()) +
+                        list(self._computed_attributes.keys()) +
+                        list(c.DATASET_ALIASES.keys())))
+
+    # ------------------------------------------------------------------
+    # Channel computation
+    # ------------------------------------------------------------------
+
+    def set_channel_params(self, params: Optional[ChannelGenParameters]
+                           = None) -> ChannelGenParameters:
+        """Validate and store (a copy of) the channel parameters."""
+        if params is None:
+            params = ChannelGenParameters()
+        params.validate(self.n_ue)
+        self[c.CH_PARAMS_PARAM_NAME] = params.deepcopy()
+        return params
+
+    def compute_channels(self, params: Optional[ChannelGenParameters] = None,
+                         to_device: bool = False, out=None):
+        """Compute MIMO channels for every user (the hot path).
+
+        Renders on ``config['device']`` — in ONE kernel launch when the
+        output fits ``config['max_device_output_bytes']``, otherwise over
+        ``config['user_block']`` blocks with each block's device->host copy
+        overlapping the next block's render — and returns a numpy complex
+        array [n_ue, n_rx_ant, n_tx_ant, K], cached under
+        ``dataset.channel``.
+
+        Args:
+            params: channel-generation parameters (defaults applied).
+            to_device: return the raw planes tensor on the device instead
+                (no host copy; not cached). Its layout is the renderer's
+                (see ``ops.channel.render_channels_planes``); convert
+                with ``ops.channel.unpack_planes_np``.
+            out: a planes tensor from a previous identical call. When its
+                shape and dtype match, the new result is written into it
+                in place — the previous result is overwritten — so serving
+                loops run in constant device memory. Ignored otherwise.
+        """
+        if params is None:
+            stored = self.get(c.CH_PARAMS_PARAM_NAME)
+            params = ChannelGenParameters() if stored is None else stored
+        params = self.set_channel_params(params)
+        if params.get(c.PARAMSET_POLAR_EN, 0):
+            raise not_ported("Dual-polarization channels", "5 (dual-polar)")
+
+        # Deterministic per-user random rotations (toolchain convention).
+        np.random.seed(1001)
+        ue_rotation = params.resolve_ue_rotation(self.n_ue)
+        cfg, bs_panel, ue_panel = params.to_config(
+            self.n_ue, bs_fov=self.get("bs_fov"), ue_fov=self.get("ue_fov"),
+            ue_rotation=ue_rotation, dtype=config.get("compute_dtype"))
+
+        if cfg.freq_domain:
+            # Memoized per (n_fft, bandwidth): serving loops re-call
+            # compute_channels back-to-back.
+            cache = self.get("_clip_report_cache") or {}
+            ck = (cfg.subcarriers, cfg.bandwidth)
+            if ck not in cache:
+                cache[ck] = delay_clipping_report(
+                    np.asarray(self[c.DELAY_PARAM_NAME]),
+                    np.asarray(self[c.POWER_PARAM_NAME]),
+                    cfg.subcarriers, cfg.bandwidth)
+                self["_clip_report_cache"] = cache
+                if cache[ck] is not None:
+                    _print_delay_clipping_warning(cache[ck])
+            if cache[ck] is not None:
+                self["clipping_report"] = cache[ck]
+
+        channel = _render_streamed(self._path_data(), bs_panel, ue_panel,
+                                   cfg, to_device=to_device, out=out)
+        if to_device:
+            return channel
+        self[c.CHANNEL_PARAM_NAME] = channel
+        return channel
+
+    def compute_beam_gains(self, *args, **kwargs):
+        raise not_ported("Beam-gain maps", "7 (beam-gain kernel)")
+
+    def _path_data(self) -> PathData:
+        """Masked PathData of this dataset on ``config['device']``
+        (cached per device and dtype)."""
+        dev = torch.device(config.get("device"))
+        dtype = (torch.float64 if config.get("compute_dtype") == "complex128"
+                 else torch.float32)
+        cached = self.get("_path_data_cache")
+        if cached is not None and cached[0] == (dev, dtype):
+            return cached[1]
+        pd = PathData.from_numpy(
+            power=self[c.POWER_PARAM_NAME],
+            phase=self[c.PHASE_PARAM_NAME],
+            delay=self[c.DELAY_PARAM_NAME],
+            aoa_az=self[c.AOA_AZ_PARAM_NAME],
+            aoa_el=self[c.AOA_EL_PARAM_NAME],
+            aod_az=self[c.AOD_AZ_PARAM_NAME],
+            aod_el=self[c.AOD_EL_PARAM_NAME],
+            doppler_vel=self.get(c.DOPPLER_VEL_PARAM_NAME),
+            doppler_acc=self.get(c.DOPPLER_ACC_PARAM_NAME),
+            dtype=dtype, device=dev)
+        self["_path_data_cache"] = ((dev, dtype), pd)
+        return pd
+
+    def _compute_n_ue(self) -> int:
+        return np.asarray(self[c.RX_POS_PARAM_NAME]).shape[0]
+
+    _computed_attributes = {
+        c.N_UE_PARAM_NAME: "_compute_n_ue",
+        c.CHANNEL_PARAM_NAME: "compute_channels",
+        c.CH_PARAMS_PARAM_NAME: "set_channel_params",
+    }
+
+
+# ============================================================================
+# Delay clipping report
+# ============================================================================
+
+def delay_clipping_report(delays_s, powers_dbw, n_fft: int,
+                          bandwidth: float):
+    """Aggregate over-OFDM-symbol stats, or None when nothing clips.
+
+    OFDM path construction zeroes paths whose delay exceeds the symbol
+    duration N/B; this reports how many paths and how much power that
+    drops.
+    """
+    delays = np.asarray(delays_s, dtype=np.float64)
+    powers = np.asarray(powers_dbw, dtype=np.float64)
+    symbol_t = n_fft / bandwidth
+    valid = ~np.isnan(delays)
+    clipped = valid & (delays >= symbol_t)
+    if not clipped.any():
+        return None
+
+    p_lin = np.where(valid, 10.0 ** (powers / 10.0), 0.0)
+    total_pwr = p_lin.sum(axis=1)
+    clip_pwr = np.where(clipped, p_lin, 0.0).sum(axis=1)
+    users_hit = clipped.any(axis=1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        frac = np.where(total_pwr > 0, clip_pwr / total_pwr, 0.0)
+    return {
+        "symbol_duration_s": symbol_t,
+        "subcarriers": n_fft,
+        "bandwidth_hz": bandwidth,
+        "max_delay_s": float(np.nanmax(delays)),
+        "n_clipped_paths": int(clipped.sum()),
+        "n_total_paths": int(valid.sum()),
+        "n_users_affected": int(users_hit.sum()),
+        "n_users": int(delays.shape[0]),
+        "mean_clipped_power_pct": float(100 * frac[users_hit].mean()),
+        "max_clipped_power_pct": float(100 * frac.max()),
+    }
+
+
+def _print_delay_clipping_warning(r: dict) -> None:
+    sc_spacing = r["bandwidth_hz"] / r["subcarriers"]
+    print("\nWarning: Some path delays exceed the OFDM symbol duration")
+    print("-" * 50)
+    print(f"- Subcarriers (N): {r['subcarriers']}, bandwidth (B): "
+          f"{r['bandwidth_hz']/1e6:.1f} MHz, subcarrier spacing: "
+          f"{sc_spacing/1e3:.1f} kHz")
+    print(f"- Symbol duration (N/B): {r['symbol_duration_s']*1e6:.1f} us, "
+          f"max path delay: {r['max_delay_s']*1e6:.1f} us")
+    print(f"- Clipped paths: {r['n_clipped_paths']}/{r['n_total_paths']} "
+          f"across {r['n_users_affected']}/{r['n_users']} users")
+    print(f"- Clipped power (affected users): "
+          f"mean {r['mean_clipped_power_pct']:.2f}%, "
+          f"max {r['max_clipped_power_pct']:.2f}%")
+    print("Paths arriving after the symbol duration are zeroed. To avoid "
+          "clipping: increase subcarriers (N), decrease bandwidth (B), or "
+          "switch to time-domain generation (ch_params['freq_domain'] = 0).")
+    print("-" * 50)
+
+
+# ============================================================================
+# Streaming renderer (host-side batching over user blocks)
+# ============================================================================
+
+def _get_complex(planes: torch.Tensor, cfg) -> np.ndarray:
+    return unpack_planes_np(planes.cpu().numpy(), cfg)
+
+
+def _render_streamed(path_data: PathData, bs_panel, ue_panel, cfg,
+                     to_device: bool = False, out=None):
+    """Render all users' channels.
+
+    Single launch (the output fits ``config['max_device_output_bytes']``,
+    or ``to_device``): the whole user batch renders at once; ``out``, if
+    its shape and dtype match, receives the result in place (the previous
+    contents are overwritten), else it is ignored.
+
+    Streamed: ``config['user_block']`` blocks render in turn on the
+    current stream; each block's device->host copy runs on a side stream
+    into pinned memory while the next block renders, with at most two
+    blocks in flight.
+    """
+    n_ue = path_data.n_ue
+    shape = render_out_shape(n_ue, cfg)
+    out_bytes = int(np.prod(shape)) * 4
+    if to_device or out_bytes <= int(config.get("max_device_output_bytes")):
+        dev = path_data.valid.device
+        if out is not None and (tuple(out.shape) != shape or
+                                out.dtype != torch.float32 or
+                                out.device != dev or
+                                not out.is_contiguous()):
+            out = None                   # config changed: nothing to reuse
+        h = render_channels_planes(path_data, bs_panel, ue_panel, cfg,
+                                   out=out)
+        return h if to_device else _get_complex(h, cfg)
+
+    block = int(config.get("user_block"))
+    per_user_rot = bs_panel.rotation_deg.dim() == 2 or \
+        ue_panel.rotation_deg.dim() == 2
+    cuda = path_data.valid.device.type == "cuda"
+    copy_stream = torch.cuda.Stream(path_data.valid.device) if cuda else None
+    chunks: list = []
+    inflight: list = []                  # (chunk index, host planes, event)
+
+    def collect(entry):
+        idx, host, done = entry
+        if done is not None:
+            done.synchronize()
+        chunks[idx] = unpack_planes_np(host.numpy(), cfg)
+
+    for start in range(0, n_ue, block):
+        size = min(block, n_ue - start)
+        pd, bsp, uep = _slice_block(path_data, bs_panel, ue_panel,
+                                    per_user_rot, start, size)
+        h = render_channels_planes(pd, bsp, uep, cfg)
+        if cuda:
+            host = torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
+            copy_stream.wait_stream(torch.cuda.current_stream(h.device))
+            with torch.cuda.stream(copy_stream):
+                host.copy_(h, non_blocking=True)
+                h.record_stream(copy_stream)
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+        else:
+            host, done = h, None
+        chunks.append(None)
+        inflight.append((len(chunks) - 1, host, done))
+        if len(inflight) >= 2:           # bound the blocks in flight
+            collect(inflight.pop(0))
+    for entry in inflight:
+        collect(entry)
+    return np.concatenate(chunks, axis=0)
+
+
+def _slice_block(path_data: PathData, bs_panel: AntennaPanel,
+                 ue_panel: AntennaPanel, per_user_rot: bool, start: int,
+                 size: int):
+    """Users [start, start + size) of the path data and of per-user panel
+    rotations. Eager PyTorch needs no fixed block shape, so the last block
+    is not padded."""
+    pd = path_data.slice_users(start, size)
+    if not per_user_rot:
+        return pd, bs_panel, ue_panel
+
+    def panel(p):
+        if p.rotation_deg.dim() != 2:
+            return p
+        return AntennaPanel(rotation_deg=p.rotation_deg[start:start + size],
+                            spacing=p.spacing)
+    return pd, panel(bs_panel), panel(ue_panel)

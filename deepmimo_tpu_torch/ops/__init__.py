@@ -1,0 +1,25 @@
+"""PyTorch compute core: channel synthesis on tensors.
+
+Counterpart of ``deepmimo_tpu.ops``. Inside ops: radians and linear power;
+validity masks instead of NaN padding. The hand-written CUDA kernels live
+in ``ops.kernels``.
+"""
+
+from .types import AntennaPanel, ChannelConfig, PathData, state_from_numpy
+from .geometry import (
+    ant_indices,
+    apply_fov,
+    array_response_planes,
+    rotate_angles,
+    rotate_unit_vec,
+    safe_arccos,
+)
+from .patterns import PATTERN_REGISTRY, pattern_gain
+from .channel import render_channels_planes, unpack_planes_np
+
+__all__ = [
+    "AntennaPanel", "ChannelConfig", "PathData", "state_from_numpy",
+    "ant_indices", "apply_fov", "array_response_planes", "rotate_angles",
+    "rotate_unit_vec", "safe_arccos", "PATTERN_REGISTRY", "pattern_gain",
+    "render_channels_planes", "unpack_planes_np",
+]

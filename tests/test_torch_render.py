@@ -1,0 +1,168 @@
+"""Fused render kernel of the PyTorch port: plain version vs the JAX
+kernel (Pallas in interpret mode) and its XLA reference, the wrapper's
+dispatch and checks, and — on a CUDA card only — the CUDA kernel vs its
+plain version.
+
+JAX is imported only inside the tests that use it, so the ``gpu`` tests
+also run where JAX is not installed:
+``python -m pytest -m gpu --noconftest tests/test_torch_render.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deepmimo_tpu_torch.ops.kernels import _build
+from deepmimo_tpu_torch.ops.kernels import render as kr
+
+torch.set_num_threads(1)
+RTOL = 3e-5      # relative to max|H|: the kernel's bound in test_pallas.py
+
+# name: (rx_shape, tx_shape, U, K, S, per-slot amp, packed)
+CASES = {
+    "headline": ((1, 1), (8, 8), 16, 64, 1, False, True),
+    "mimo": ((2, 2), (4, 2), 16, 16, 1, False, False),
+    "ragged_u": ((2, 2), (4, 2), 13, 64, 1, False, True),
+    "two_slots": ((1, 1), (4, 4), 16, 32, 2, True, True),
+    "two_slots_stacked": ((2, 1), (2, 2), 11, 16, 2, False, False),
+}
+P = 25
+
+
+def _inputs(u, s, per_slot, seed=0):
+    """Per-path scalars at the main path's ranges; invalid paths zeroed."""
+    rng = np.random.RandomState(seed)
+    valid = (np.arange(P)[None, :] <
+             rng.randint(1, P + 1, size=(u, 1))).astype(np.float32)
+
+    def mk(lo, hi, reps=1):
+        x = rng.uniform(lo, hi, (u, reps * P)).astype(np.float32)
+        return x * np.tile(valid, (1, reps))
+
+    return ([mk(-np.pi, np.pi) for _ in range(4)] +
+            [mk(0, 1e-4, s if per_slot else 1), mk(-np.pi, np.pi, s),
+             mk(0, 2 * np.pi * 40 / 512)])
+
+
+def _stacked(h, packed, sk):
+    """Kernel layout -> stacked [2, U, Q, S*K] numpy."""
+    h = np.asarray(h)
+    return np.stack((h[..., :sk], h[..., sk:])) if packed else h
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_reference_matches_jax_reference(name):
+    import jax.numpy as jnp
+    from deepmimo_tpu.ops.pallas.render import _reference_impl
+
+    rx, tx, u, k, s, per_slot, packed = CASES[name]
+    arrs = _inputs(u, s, per_slot)
+    want = np.stack([np.asarray(x) for x in _reference_impl(
+        *[jnp.asarray(a) for a in arrs], rx, tx, k)])
+    got = kr.fused_render_reference(*[torch.from_numpy(a) for a in arrs],
+                                    rx, tx, k, packed)
+    q = rx[0] * rx[1] * tx[0] * tx[1]
+    assert tuple(got.shape) == ((u, q, 2 * s * k) if packed
+                                else (2, u, q, s * k))
+    np.testing.assert_allclose(_stacked(got, packed, s * k), want,
+                               atol=RTOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_reference_matches_jax_kernel_interpret(name):
+    """Against the TPU kernel itself, run in interpret mode on the CPU."""
+    import jax.numpy as jnp
+    from deepmimo_tpu.ops.pallas.render import fused_render
+
+    rx, tx, u, k, s, per_slot, packed = CASES[name]
+    arrs = _inputs(u, s, per_slot, seed=1)
+    want = fused_render(*[jnp.asarray(a) for a in arrs], rx, tx, k,
+                        user_tile=8, interpret=True, packed=packed)
+    got = kr.fused_render(*[torch.from_numpy(a) for a in arrs], rx, tx, k,
+                          packed)
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=RTOL * np.abs(want).max())
+
+
+def test_cpu_wrapper_uses_plain_version_and_writes_out():
+    rx, tx, u, k, s, per_slot, packed = CASES["headline"]
+    args = [torch.from_numpy(a) for a in _inputs(u, s, per_slot, seed=2)]
+    before = kr.LAUNCHES
+    ref = kr.fused_render_reference(*args, rx, tx, k, packed)
+    out = torch.full_like(ref, float("nan"))
+    got = kr.fused_render(*args, rx, tx, k, packed, out=out)
+    assert got is out and torch.equal(out, ref)
+    assert torch.equal(kr.fused_render(*args, rx, tx, k, packed), ref)
+    assert kr.LAUNCHES == before        # no kernel launch on the CPU
+
+
+@pytest.mark.parametrize("bad", ["float64", "strided", "short_row",
+                                 "amp_width", "out_shape", "meta"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    rx, tx, u, k = (1, 1), (4, 2), 6, 16
+    args = [torch.from_numpy(a) for a in _inputs(u, 1, False, seed=3)]
+    kw = {}
+    if bad == "float64":
+        args[0] = args[0].double()
+    elif bad == "strided":
+        args[2] = torch.cat([args[2], args[2]], 1)[:, ::2]
+    elif bad == "short_row":
+        args[3] = args[3][:, :-1].contiguous()
+    elif bad == "amp_width":
+        args[4] = torch.cat([args[4]] * 3, 1)
+    elif bad == "out_shape":
+        kw["out"] = torch.empty(u, 8, 2 * k + 1)
+    else:
+        args = [a.to("meta") for a in args]
+    with pytest.raises((TypeError, ValueError)):
+        kr.fused_render(*args, rx, tx, k, True, **kw)
+
+
+def test_kernel_fits_is_the_shared_memory_bound():
+    assert kr.smem_bytes(64, 64, 25) == 25_600          # headline: 25.6 KB
+    assert kr.kernel_fits((1, 1), (8, 8), 25, 64)
+    assert kr.kernel_fits((1, 1), (8, 8), 227, 64)
+    assert not kr.kernel_fits((1, 1), (8, 8), 228, 64)
+    assert not kr.kernel_fits((4, 4), (16, 16), 25, 64)
+    assert kr.kernel_fits((2, 2), (8, 8), 25, 64, n_snap=4)
+
+
+def test_build_is_keyed_by_source_hash():
+    src, lib, log = _build._paths("render_fwd")
+    assert src.endswith("render_fwd.cu") and lib.startswith(_build.BUILD_DIR)
+    assert _build._paths("render_fwd") == (src, lib, log)
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    with open(src) as f:
+        text = f.read()
+    assert 'extern "C" int render_fwd_launch' in text
+    # accurate trig only: omega*k reaches ~31 rad at the headline
+    assert "__sincosf" not in text
+    assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_cuda_kernel_matches_plain_version(cuda, name):
+    rx, tx, u, k, s, per_slot, packed = CASES[name]
+    u *= 257                              # several blocks, ragged
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _inputs(u, s, per_slot, seed=4)]
+    before = kr.LAUNCHES
+    got = kr.fused_render(*args, rx, tx, k, packed)
+    ref = kr.fused_render_reference(*args, rx, tx, k, packed)
+    torch.cuda.synchronize()
+    assert kr.LAUNCHES == before + 1
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= RTOL * scale
