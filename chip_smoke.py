@@ -7,18 +7,31 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. Card and toolchain: ``nvidia-smi`` name and power limit, torch/CUDA.
-2. Build: compiles every kernel of the main path from ``csrc/`` with nvcc
-   for sm_90a and prints the ptxas report.
+2. Build: compiles every kernel (``render_fwd``, ``render_bwd``,
+   ``pathsum``) from ``csrc/`` with nvcc for sm_90a, one nvcc per source,
+   all started together, and prints the ptxas report.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
-   card at the main path's shapes, max abs error <= 3e-5 * max|H|, with
-   CUDA-event times of both.
-4. Main path: four 131,072-user x 25-path datasets (synthetic, seed 7)
+   card at the main paths' shapes (``KERNEL_CASES``), with CUDA-event
+   times of both at the headline width: the forward render and the path
+   sum within 3e-5 * max|H|, the render's backward within 3e-4 * max|g|
+   for each of its 7 gradients.
+4. Serving path: four 131,072-user x 25-path datasets (synthetic, seed 7)
    through ``Dataset.compute_channels(params, to_device=True, out=prev)``
    — one kernel launch per call — checked for shape and finiteness and on
    64 users per dataset against the float64 oracle ``tests/oracle.py``;
    then a timed sweep.
 5. Streamed path: ``to_device=False`` over 3 user blocks must equal the
    single-dispatch result exactly.
+6. Training path: the calibration step ``training_step_planes`` with the
+   fused backend at the headline width (BS rotated 10 degrees in the
+   target, calibration from 0): the first step's gradients of every
+   ``CalibParams`` leaf on 4,096 users against the plain versions
+   (3e-4 * max|g|); 5 steps at lr 3e-3 with a finite, decreasing loss and
+   exactly one forward and one backward launch per step; ms per step,
+   peak device memory and the step's split.
+7. The ``pallas`` trainer: ``training_step`` at the same width, one
+   path-sum launch per step, first loss equal to the planes loss at rtol
+   1e-4.
 
 The line before the last is a JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the
@@ -31,6 +44,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -45,6 +59,13 @@ N_FFT = 512
 N_SC = 64
 BANDWIDTH = 10e6
 KERNEL_RTOL = 3e-5       # kernel vs plain, relative to max|H|
+GRAD_RTOL = 3e-4         # backward kernel vs plain, relative to max|g|
+KERNELS = ("render_fwd", "render_bwd", "pathsum")
+TRAIN_STEPS = 5
+PALLAS_STEPS = 3
+LR = 3e-3
+GRAD_USERS = 4096        # users of the kernel-vs-plain gradient check
+DEV = "cuda"
 ORACLE_RTOL = 5e-5       # main path vs float64 oracle, relative to max|H|
 N_ORACLE = 64            # users per dataset checked against the oracle
 
@@ -115,12 +136,15 @@ def phase_card(torch):
 def phase_build():
     from deepmimo_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
-    lib = _build.build("render_fwd")
-    log(f"[build] render_fwd -> {os.path.relpath(lib, HERE)} "
-        f"({time.perf_counter() - t0:.1f} s)")
-    for line in _build.build_log("render_fwd").splitlines():
-        if "ptxas" in line:
-            log(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = list(pool.map(_build.build, KERNELS))
+    log(f"[build] {len(KERNELS)} kernels in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, lib in zip(KERNELS, libs):
+        log(f"[build] {name} -> {os.path.relpath(lib, HERE)}")
+        for line in _build.build_log(name).splitlines():
+            if "ptxas" in line and ("registers" in line or "spill" in line):
+                log(f"[build] {name}: {line.strip()}")
 
 
 def _render_inputs(torch, u, p, n_s, n_sa, seed):
@@ -136,7 +160,7 @@ def _render_inputs(torch, u, p, n_s, n_sa, seed):
     arrs = [mk(-math.pi, math.pi) for _ in range(4)]        # gry..gtz
     arrs += [mk(0, 1e-4, n_sa), mk(-math.pi, math.pi, n_s),  # amp, psi
              mk(0, 2 * math.pi * 40 / N_FFT)]                # omega
-    return [torch.from_numpy(a).cuda() for a in arrs]
+    return [torch.from_numpy(a).to(DEV) for a in arrs]
 
 
 KERNEL_CASES = [
@@ -178,6 +202,132 @@ def phase_kernels(torch):
                 f"({gbps:.1f} GB/s of H written), plain {plain_ms:.4f} ms")
             headline = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
         del h, ref, args
+        torch.cuda.empty_cache()
+    return headline
+
+
+def _cuda_rand(torch, shape, gen, lo=-1.0, hi=1.0):
+    return torch.rand(shape, generator=gen, device=DEV) * (hi - lo) + lo
+
+
+def largest_fitting_ms(torch, make_fn, u_max, reps):
+    """CUDA-event time of ``make_fn(u)()`` at the largest user count from
+    ``u_max`` down (halving) whose plain version fits in device memory."""
+    u = u_max
+    while True:
+        try:
+            return event_ms(torch, make_fn(u), reps), u
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            if u <= 1024:
+                raise
+            u //= 2
+
+
+def phase_bwd_kernels(torch):
+    """The render's backward kernel vs its plain version (the VJP of the
+    plain forward) at every KERNEL_CASES shape."""
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+    headline = None
+    for name, u, p, rx, tx, k, s, per_slot, packed in KERNEL_CASES:
+        args = _render_inputs(torch, u, p, s, s if per_slot else 1,
+                              seed=len(name) + 100)
+        q = rx[0] * rx[1] * tx[0] * tx[1]
+        gen = torch.Generator(device=DEV).manual_seed(len(name))
+        ct = _cuda_rand(torch, (u, q, 2 * s * k) if packed
+                        else (2, u, q, s * k), gen)
+        got = kr.fused_render_bwd(*args, ct, rx, tx, k, packed)
+        want = kr.fused_render_bwd_reference(*args, ct, rx, tx, k, packed)
+        torch.cuda.synchronize()
+        errs, worst = [], 0.0
+        for gname, g, w in zip(("gry", "grz", "gty", "gtz", "amp", "psi",
+                                "omega"), got, want):
+            err = float((g - w).abs().max())
+            scale = float(w.abs().max())
+            rel = err / scale if scale > 0 else err
+            errs.append(f"{gname} {rel:.2e}")
+            worst = max(worst, err)
+            if not (math.isfinite(err) and err <= GRAD_RTOL * scale + 1e-30):
+                raise AssertionError(f"fused_render_bwd {name}: d{gname} "
+                                     f"disagrees with its plain version "
+                                     f"(err {err:.3e}, max|g| {scale:.3e})")
+        log(f"[kernel] fused_render_bwd {name}: U={u} P={p} rx={rx} tx={tx} "
+            f"K={k} S={s} packed={packed} rel err per grad: "
+            f"{', '.join(errs)} (limit {GRAD_RTOL:g})")
+        del got, want
+        if name == "headline":
+            ms = event_ms(torch, lambda: kr.fused_render_bwd(
+                *args, ct, rx, tx, k, packed), reps=20)
+            plain_ms, plain_u = largest_fitting_ms(
+                torch, lambda n: lambda: kr.fused_render_bwd_reference(
+                    *[a[:n] for a in args], ct[:n], rx, tx, k, packed),
+                u, reps=3)
+            gbps = ct.numel() * 4 / (ms * 1e-3) / 1e9
+            log(f"[kernel] fused_render_bwd headline: kernel {ms:.4f} ms "
+                f"({gbps:.1f} GB/s of ct read), plain {plain_ms:.4f} ms at "
+                f"{plain_u} users")
+            headline = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                            plain_users=plain_u)
+        del args, ct
+        torch.cuda.empty_cache()
+    return headline
+
+
+def _pathsum_inputs(torch, u, p, r, t, k_sel, seed):
+    """Array-response planes and per-path scalars at realistic ranges;
+    invalid paths zeroed. Made on the card from a seeded generator."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    valid = (torch.arange(p, device=DEV)[None, :] <
+             torch.randint(1, p + 1, (u, 1), generator=gen,
+                           device=DEV)).float()
+
+    def planes(n):
+        ph = _cuda_rand(torch, (u, n, p), gen, -math.pi, math.pi)
+        return torch.cos(ph) * valid[:, None], torch.sin(ph) * valid[:, None]
+
+    return [*planes(r), *planes(t),
+            _cuda_rand(torch, (u, p), gen, 0, 1e-4) * valid,
+            _cuda_rand(torch, (u, p), gen, -math.pi, math.pi) * valid,
+            _cuda_rand(torch, (u, p), gen, 0, 2 * math.pi * 40 / N_FFT)
+            * valid,
+            torch.as_tensor(k_sel, dtype=torch.float32, device=DEV)]
+
+
+def phase_pathsum_kernels(torch):
+    """The path-sum kernel vs its plain version at the KERNEL_CASES shapes
+    (R*T antennas, S*K subcarriers); the two-slot case selects a
+    non-arithmetic set of subcarriers."""
+    from deepmimo_tpu_torch.ops.kernels import pathsum as kp
+    headline = None
+    for name, u, p, rx, tx, k, s, per_slot, _ in KERNEL_CASES:
+        r, t = rx[0] * rx[1], tx[0] * tx[1]
+        if per_slot:
+            rng = np.random.RandomState(5)
+            k_sel = np.sort(rng.choice(N_FFT, s * k, replace=False))
+        else:
+            k_sel = np.arange(s * k)
+        args = _pathsum_inputs(torch, u, p, r, t, k_sel, seed=len(name))
+        got = kp.fused_path_sum(*args)
+        want = kp.fused_path_sum_reference(*args)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        scale = max(float(w.abs().max()) for w in want)
+        log(f"[kernel] fused_path_sum {name}: U={u} P={p} R={r} T={t} "
+            f"K={len(k_sel)} arithmetic={not per_slot} "
+            f"max_abs_err={err:.3e} max|H|={scale:.3e} "
+            f"rel={err / scale:.3e} (limit {KERNEL_RTOL:g})")
+        if not (math.isfinite(err) and err <= KERNEL_RTOL * scale):
+            raise AssertionError(f"fused_path_sum {name}: kernel disagrees "
+                                 f"with its plain version")
+        del got, want
+        if name == "headline":
+            ms = event_ms(torch, lambda: kp.fused_path_sum(*args), reps=20)
+            plain_ms = event_ms(
+                torch, lambda: kp.fused_path_sum_reference(*args), reps=3)
+            log(f"[kernel] fused_path_sum headline: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms")
+            headline = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        del args
         torch.cuda.empty_cache()
     return headline
 
@@ -286,6 +436,150 @@ def phase_streamed(torch, dmt, datasets, params):
         f"{streamed.dtype} equals the single dispatch exactly")
 
 
+def _train_config(dmt, backend):
+    return dmt.ChannelConfig(
+        bs_shape=BS_SHAPE, ue_shape=UE_SHAPE, subcarriers=N_FFT,
+        selected_subcarriers=tuple(range(N_SC)), bandwidth=BANDWIDTH,
+        num_paths=MAX_PATHS, backend=backend, planes_layout="packed")
+
+
+def _to_cpu_params(sh, params):
+    return sh.CalibParams.from_leaves([x.cpu() for x in params.leaves()])
+
+
+def _launch_counts():
+    from deepmimo_tpu_torch.ops.kernels import pathsum as kp
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+    return kr.LAUNCHES, kr.BWD_LAUNCHES, kp.LAUNCHES
+
+
+def run_steps(torch, step, params, n, per_step):
+    """``n`` calls ``params, loss = step(params)``, each timed with CUDA
+    events; fails unless every step launches exactly ``per_step``
+    (forward render, backward render, path sum) kernels. Returns the
+    losses, the ms per step and the peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for i in range(n):
+        before = _launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, loss = step(params)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        made = tuple(a - b for a, b in zip(_launch_counts(), before))
+        if made != per_step:
+            raise AssertionError(f"step {i}: launches (fwd, bwd, path sum) "
+                                 f"{made}, expected {per_step}")
+    return losses, step_ms, torch.cuda.max_memory_allocated()
+
+
+def phase_train(torch, dmt, fwd_ms, bwd_ms):
+    """The calibration step on the planes path: fused fwd + bwd kernels."""
+    from deepmimo_tpu_torch.ops.channel import render_channels_planes
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+    from deepmimo_tpu_torch.parallel import sharded as sh
+
+    d = make_data(CHUNK, MAX_PATHS, seed=11)
+    paths = dmt.PathData.from_numpy(
+        d["power"], d["phase"], d["delay"], d["aoa_az"], d["aoa_el"],
+        d["aod_az"], d["aod_el"], device=DEV)
+    ue = dmt.AntennaPanel.make(device=DEV)
+    bs0 = dmt.AntennaPanel.make((0.0, 0.0, 0.0), device=DEV)
+    cfg = _train_config(dmt, "fused")
+    with torch.no_grad():
+        target = render_channels_planes(
+            paths, dmt.AntennaPanel.make((0.0, 0.0, 10.0), device=DEV),
+            ue, cfg)
+    params = sh.init_calib_params(paths, bs0, ue)
+
+    # First step's gradients on a slice: kernels (card) vs plain (CPU).
+    sub = paths.slice_users(0, GRAD_USERS)
+    p_sub = sh.init_calib_params(sub, bs0, ue)
+    t_sub = target[:GRAD_USERS]
+    loss_k, g_k = sh.calib_value_and_grad(sh.calib_loss_planes, p_sub, sub,
+                                          t_sub, cfg)
+    loss_p, g_p = sh.calib_value_and_grad(
+        sh.calib_loss_planes, _to_cpu_params(sh, p_sub),
+        sub._map(lambda x: x.cpu()), t_sub.cpu(), cfg)
+    names = ("bs.rotation_deg", "bs.spacing", "ue.rotation_deg",
+             "ue.spacing", "d_power_dbw", "d_phase_deg", "d_delay_ns",
+             "d_angles_deg")
+    rels = []
+    for name, a, b in zip(names, g_k.leaves(), g_p.leaves()):
+        err = float((a.cpu() - b).abs().max())
+        scale = float(b.abs().max())
+        rels.append(f"{name} {err / scale if scale else err:.2e}")
+        if not (math.isfinite(err) and err <= GRAD_RTOL * scale + 1e-30):
+            raise AssertionError(f"training gradient {name}: kernels "
+                                 f"{err:.3e} off the plain versions "
+                                 f"(max|g| {scale:.3e})")
+    log(f"[train] {GRAD_USERS}-user gradients, kernels vs plain, rel err "
+        f"per leaf: {', '.join(rels)} (limit {GRAD_RTOL:g}); loss "
+        f"{float(loss_k):.6f} vs {float(loss_p):.6f}")
+    del g_k, g_p, t_sub, sub, p_sub
+
+    # The training path, counted: one forward + one backward per step.
+    kr.LAUNCHES = kr.BWD_LAUNCHES = 0
+    losses, step_ms, peak = run_steps(
+        torch, lambda p: sh.training_step_planes(p, paths, target, cfg,
+                                                 lr=LR),
+        params, TRAIN_STEPS, per_step=(1, 1, 0))
+    launches = (kr.LAUNCHES, kr.BWD_LAUNCHES)
+    log(f"[train] {TRAIN_STEPS} training_step_planes steps, {CHUNK} users, "
+        f"lr {LR}: losses {['%.7f' % x for x in losses]}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError("training loss not finite and decreasing")
+    steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    log(f"[train] ms per step (CUDA events): "
+        f"{', '.join('%.4f' % x for x in step_ms)}; median of steps 2-"
+        f"{TRAIN_STEPS} {steady:.4f} ms = fwd kernel {fwd_ms:.4f} + bwd "
+        f"kernel {bwd_ms:.4f} + rest {steady - fwd_ms - bwd_ms:.4f} "
+        f"(kernel times from phase 3); peak device memory "
+        f"{peak / 2**30:.3f} GiB; launches fwd {launches[0]}, "
+        f"bwd {launches[1]}")
+    first_loss = losses[0]
+    del target
+    torch.cuda.empty_cache()
+    return paths, launches, first_loss
+
+
+def phase_train_pallas(torch, dmt, paths, planes_loss):
+    """training_step with backend "pallas": the path-sum kernel."""
+    from deepmimo_tpu_torch.ops.channel import render_channels
+    from deepmimo_tpu_torch.ops.kernels import pathsum as kp
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+    from deepmimo_tpu_torch.parallel import sharded as sh
+
+    cfg = _train_config(dmt, "pallas")
+    ue = dmt.AntennaPanel.make(device=DEV)
+    with torch.no_grad():
+        target = render_channels(
+            paths, dmt.AntennaPanel.make((0.0, 0.0, 10.0), device=DEV),
+            ue, cfg)
+    params = sh.init_calib_params(
+        paths, dmt.AntennaPanel.make((0.0, 0.0, 0.0), device=DEV), ue)
+    kp.LAUNCHES = 0
+    losses, step_ms, peak = run_steps(
+        torch, lambda p: sh.training_step(p, paths, target, cfg, lr=LR),
+        params, PALLAS_STEPS, per_step=(0, 0, 1))
+    rel = abs(losses[0] - planes_loss) / abs(planes_loss)
+    log(f"[train-pallas] {PALLAS_STEPS} training_step steps: losses "
+        f"{['%.7f' % x for x in losses]}; first loss vs planes "
+        f"{planes_loss:.7f}: rel {rel:.2e} (limit 1e-4); ms per step "
+        f"{', '.join('%.4f' % x for x in step_ms)}; peak device memory "
+        f"{peak / 2**30:.3f} GiB; path-sum launches {kp.LAUNCHES}")
+    if not (all(math.isfinite(x) for x in losses) and rel <= 1e-4):
+        raise AssertionError("pallas trainer loss differs from the planes "
+                             "loss")
+    return kp.LAUNCHES
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -297,15 +591,38 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_card(torch)
     phase_build()
-    headline = phase_kernels(torch)
-    datasets, params, launches = phase_main(torch, dmt)
+    fwd = phase_kernels(torch)
+    bwd = phase_bwd_kernels(torch)
+    psum = phase_pathsum_kernels(torch)
+    datasets, params, serve_launches = phase_main(torch, dmt)
     phase_streamed(torch, dmt, datasets, params)
-    kernels = [{
-        "name": "fused_render", "route": "cuda",
-        "source": "deepmimo_tpu_torch/csrc/render_fwd.cu",
-        "replaces": "deepmimo_tpu/ops/pallas/render.py:432",
-        "launches": launches, "max_abs_err": headline["max_abs_err"],
-        "ms": headline["ms"], "plain_ms": headline["plain_ms"]}]
+    del datasets
+    torch.cuda.empty_cache()
+    paths, (train_fwd, train_bwd), planes_loss = phase_train(
+        torch, dmt, fwd["ms"], bwd["ms"])
+    pallas_launches = phase_train_pallas(torch, dmt, paths, planes_loss)
+    log(f"[launches] fused_render: serving {serve_launches} + training "
+        f"{train_fwd}; fused_render_bwd: training {train_bwd}; "
+        f"fused_path_sum: pallas training {pallas_launches}")
+    src = "deepmimo_tpu_torch/csrc/"
+    kernels = [
+        {"name": "fused_render", "route": "cuda",
+         "source": src + "render_fwd.cu",
+         "replaces": "deepmimo_tpu/ops/pallas/render.py:432",
+         "launches": serve_launches + train_fwd,
+         "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
+         "plain_ms": fwd["plain_ms"]},
+        {"name": "fused_render_bwd", "route": "cuda",
+         "source": src + "render_bwd.cu",
+         "replaces": "deepmimo_tpu/ops/pallas/render.py:659",
+         "launches": train_bwd, "max_abs_err": bwd["max_abs_err"],
+         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"]},
+        {"name": "fused_path_sum", "route": "cuda",
+         "source": src + "pathsum.cu",
+         "replaces": "deepmimo_tpu/ops/pallas/pathsum.py:66",
+         "launches": pallas_launches, "max_abs_err": psum["max_abs_err"],
+         "ms": psum["ms"], "plain_ms": psum["plain_ms"]},
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

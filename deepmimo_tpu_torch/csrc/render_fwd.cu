@@ -19,26 +19,19 @@
 //   - one block per user; E and g of all P paths are built once in shared
 //     memory (8*P*(Q + SK) bytes, 25.6 KB at the headline), so the trig
 //     runs (Q + SK)*P times per user, not Q*SK*P;
-//   - each of the 256 threads owns a 4 x 4 register tile of complex
-//     outputs per 64 x 64 output tile: 16 shared-memory loads feed 64 FMAs,
-//     and the loads are warp broadcasts (E) or consecutive words (g);
-//   - neighbouring threads own neighbouring kk, so each store row is
-//     contiguous in both layouts;
+//   - the path sum is the shared tile loop of path_sum_tile.cuh (4 x 4
+//     complex register tiles, contiguous store rows);
 //   - phases use sincosf (full range reduction): omega*k reaches ~31 rad at
 //     the headline, where the fast intrinsics lose digits.
 // Ragged U needs no mask: the grid has exactly one block per user.
 
 #include <cuda_runtime.h>
 
+#include "path_sum_tile.cuh"
+
 namespace {
 
-constexpr int kThreadsK = 16;                  // threads along kk
-constexpr int kThreadsQ = 16;                  // threads along q
-constexpr int kTileK = 4;                      // outputs per thread along kk
-constexpr int kTileQ = 4;                      // outputs per thread along q
-constexpr int kThreads = kThreadsK * kThreadsQ;
-constexpr int kBlockK = kThreadsK * kTileK;    // output tile width
-constexpr int kBlockQ = kThreadsQ * kTileQ;    // output tile height
+using path_sum::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
 render_fwd_kernel(const float* __restrict__ gry, const float* __restrict__ grz,
@@ -101,60 +94,7 @@ render_fwd_kernel(const float* __restrict__ gry, const float* __restrict__ grz,
   float* out_i = packed ? out_r + SK
                         : out + (static_cast<size_t>(n_users) + u) * Q * SK;
 
-  const int tx = tid % kThreadsK;
-  const int ty = tid / kThreadsK;
-  for (int q0 = 0; q0 < Q; q0 += kBlockQ) {
-    for (int k0 = 0; k0 < SK; k0 += kBlockK) {
-      int qi[kTileQ], ki[kTileK];
-#pragma unroll
-      for (int i = 0; i < kTileQ; ++i) qi[i] = min(q0 + ty + i * kThreadsQ, Q - 1);
-#pragma unroll
-      for (int j = 0; j < kTileK; ++j) ki[j] = min(k0 + tx + j * kThreadsK, SK - 1);
-
-      float hr[kTileQ][kTileK], hi[kTileQ][kTileK];
-#pragma unroll
-      for (int i = 0; i < kTileQ; ++i) {
-#pragma unroll
-        for (int j = 0; j < kTileK; ++j) {
-          hr[i][j] = 0.f;
-          hi[i][j] = 0.f;
-        }
-      }
-      for (int p = 0; p < P; ++p) {
-        float a_r[kTileQ], a_i[kTileQ], b_r[kTileK], b_i[kTileK];
-#pragma unroll
-        for (int i = 0; i < kTileQ; ++i) {
-          a_r[i] = er[p * Q + qi[i]];
-          a_i[i] = ei[p * Q + qi[i]];
-        }
-#pragma unroll
-        for (int j = 0; j < kTileK; ++j) {
-          b_r[j] = gr[p * SK + ki[j]];
-          b_i[j] = gi[p * SK + ki[j]];
-        }
-#pragma unroll
-        for (int i = 0; i < kTileQ; ++i) {
-#pragma unroll
-          for (int j = 0; j < kTileK; ++j) {
-            hr[i][j] = fmaf(a_r[i], b_r[j], fmaf(-a_i[i], b_i[j], hr[i][j]));
-            hi[i][j] = fmaf(a_r[i], b_i[j], fmaf(a_i[i], b_r[j], hi[i][j]));
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kTileQ; ++i) {
-        const int q = q0 + ty + i * kThreadsQ;
-        if (q >= Q) continue;
-#pragma unroll
-        for (int j = 0; j < kTileK; ++j) {
-          const int kk = k0 + tx + j * kThreadsK;
-          if (kk >= SK) continue;
-          out_r[q * stride + kk] = hr[i][j];
-          out_i[q * stride + kk] = hi[i][j];
-        }
-      }
-    }
-  }
+  path_sum::store_tiles(er, ei, gr, gi, P, Q, SK, out_r, out_i, stride);
 }
 
 }  // namespace

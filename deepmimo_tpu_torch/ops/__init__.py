@@ -5,7 +5,8 @@ validity masks instead of NaN padding. The hand-written CUDA kernels live
 in ``ops.kernels``.
 """
 
-from .types import AntennaPanel, ChannelConfig, PathData, state_from_numpy
+from .types import (AntennaPanel, ChannelConfig, PathData,
+                    calib_params_from_numpy, state_from_numpy)
 from .geometry import (
     ant_indices,
     apply_fov,
@@ -15,11 +16,14 @@ from .geometry import (
     safe_arccos,
 )
 from .patterns import PATTERN_REGISTRY, pattern_gain
-from .channel import render_channels_planes, unpack_planes_np
+from .channel import (render_channels, render_channels_and_grads,
+                      render_channels_planes, unpack_planes_np)
 
 __all__ = [
     "AntennaPanel", "ChannelConfig", "PathData", "state_from_numpy",
+    "calib_params_from_numpy",
     "ant_indices", "apply_fov", "array_response_planes", "rotate_angles",
     "rotate_unit_vec", "safe_arccos", "PATTERN_REGISTRY", "pattern_gain",
+    "render_channels", "render_channels_and_grads",
     "render_channels_planes", "unpack_planes_np",
 ]

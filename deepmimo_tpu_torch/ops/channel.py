@@ -1,11 +1,13 @@
-"""Path -> channel renderer (PyTorch): the frequency-domain planes path.
+"""Path -> channel renderer (PyTorch): the frequency-domain paths.
 
 Synthesizes MIMO channel matrices from per-path ray data,
 
     H[u, r, t, k] = sum_p  a_rx[u, r, p] * a_tx[u, t, p] * g[u, p, k],
 
-as real/imag float32 planes. Counterpart of the complex64, OFDM branch of
-``deepmimo_tpu/ops/channel.py::render_channels_planes``:
+as real/imag float32 planes (:func:`render_channels_planes`) or complex64
+(:func:`render_channels`, with :func:`render_channels_and_grads`).
+Counterpart of the complex64, OFDM branches of
+``deepmimo_tpu/ops/channel.py``. ``render_channels_planes``:
 
 - the fused backend (``backend`` "fused"/"pallas", the product default)
   rotates the path directions to unit-vector phase steps and hands seven
@@ -15,6 +17,12 @@ as real/imag float32 planes. Counterpart of the complex64, OFDM branch of
   eager planes path (rotated angles, FoV, pattern gains, array responses,
   OFDM gains, four real batched products).
 
+``render_channels`` always goes through angle space and the array-response
+planes; its path sum is the eager planes product, or with ``backend``
+"pallas" the hand-written CUDA path-sum kernel (``ops/kernels/pathsum.py``).
+Both renderers are differentiable; on CUDA the fused render's gradient is
+its backward kernel.
+
 Configurations outside this slice raise ``NotImplementedError`` naming
 the ROADMAP item that ports them.
 """
@@ -22,7 +30,8 @@ the ROADMAP item that ports them.
 from __future__ import annotations
 
 import math
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +40,7 @@ from .. import consts as c
 from .geometry import (apply_fov, array_response_planes, is_full_fov,
                        rotate_angles, rotate_unit_vec)
 from .kernels import render as _render
+from .kernels.pathsum import fused_path_sum
 from .patterns import pattern_gain
 from .types import AntennaPanel, ChannelConfig, PathData
 
@@ -41,8 +51,8 @@ def not_ported(what: str, item: str):
         f"(ROADMAP.md, port queue item {item})")
 
 
-def check_in_slice(cfg: ChannelConfig) -> None:
-    """Raise NotImplementedError for configurations not yet ported."""
+def _check_complex_path(cfg: ChannelConfig) -> None:
+    """The configurations :func:`render_channels` does not take yet."""
     if not cfg.freq_domain:
         raise not_ported("Time-domain rendering", "9 (non-fused paths)")
     if cfg.rx_filter:
@@ -51,14 +61,20 @@ def check_in_slice(cfg: ChannelConfig) -> None:
     if cfg.dtype != "complex64":
         raise not_ported(f"compute_dtype={cfg.dtype!r}",
                           "9 (non-fused paths)")
+    if cfg.matmul_dtype != "float32":
+        raise not_ported(f"matmul_dtype={cfg.matmul_dtype!r}",
+                          "4 (forward variants)")
+
+
+def check_in_slice(cfg: ChannelConfig) -> None:
+    """Raise NotImplementedError for planes configurations not yet
+    ported."""
+    _check_complex_path(cfg)
     if cfg.enable_doppler and len(cfg.doppler_times) > 1:
         raise not_ported("Doppler with several snapshots",
                           "4 (forward variants)")
     if cfg.out_dtype != "float32":
         raise not_ported(f"out_dtype={cfg.out_dtype!r}",
-                          "4 (forward variants)")
-    if cfg.matmul_dtype != "float32":
-        raise not_ported(f"matmul_dtype={cfg.matmul_dtype!r}",
                           "4 (forward variants)")
     if cfg.backend in ("pallas", "fused") and _fused_render_eligible(cfg) \
             and _angles_needed(cfg):
@@ -144,6 +160,30 @@ def _path_sum_planes_ri(arx, atx, gr, gi):
     hi = mm(er, gi) + mm(ei, gr)
     k = gr.shape[-1]
     return hr.reshape(u, r, t, k), hi.reshape(u, r, t, k)
+
+
+def _path_sum_pallas(cfg: ChannelConfig, arx, atx, powers_lin,
+                     paths: PathData, valid, t_snap):
+    """Complex [U, R, T, K] through the path-sum kernel (E and g never
+    leave the chip)."""
+    n_fft = cfg.subcarriers
+    k_sel = torch.as_tensor(np.asarray(cfg.selected_subcarriers,
+                                       dtype=np.float64),
+                            dtype=cfg.rdtype, device=paths.delay_s.device)
+    delay_n = paths.delay_s / (1.0 / cfg.bandwidth)
+    pvalid = valid & (delay_n < n_fft)
+    amp = torch.where(pvalid, torch.sqrt(powers_lin / n_fft),
+                      torch.zeros_like(powers_lin))
+    psi = torch.deg2rad(paths.phase_deg)
+    if cfg.enable_doppler and paths.doppler_vel is not None:
+        psi = psi + _doppler_phase(cfg, paths.doppler_vel, paths.doppler_acc,
+                                   paths.delay_s + t_snap)
+    omega = (2 * math.pi / n_fft) * delay_n
+    (arx_r, arx_i), (atx_r, atx_i) = arx, atx
+    u, r, _ = arx_r.shape
+    hr, hi = fused_path_sum(*(x.contiguous() for x in (
+        arx_r, arx_i, atx_r, atx_i, amp, psi, omega)), k_sel)
+    return torch.complex(hr, hi).reshape(u, r, atx_r.shape[1], -1)
 
 
 def _k_progression(cfg: ChannelConfig):
@@ -334,6 +374,78 @@ def render_channels_planes(paths: PathData, bs: AntennaPanel,
     h = torch.cat((hr, hi), dim=-1) if _packed_layout(cfg) else \
         torch.stack((hr, hi))
     return h if out is None else out.copy_(h)
+
+
+def render_channels(paths: PathData, bs: AntennaPanel, ue: AntennaPanel,
+                    cfg: ChannelConfig) -> torch.Tensor:
+    """Render complex64 MIMO channels [U, R, T, K] (frequency domain).
+
+    With Doppler over several snapshots a trailing time axis is added:
+    [U, R, T, K, len(cfg.doppler_times)]. ``backend`` "pallas" takes the
+    path-sum kernel; any other backend the eager planes product.
+    """
+    _check_complex_path(cfg)
+    paths = paths.trim_paths(cfg.num_paths)
+    aod_theta, aod_phi, aoa_theta, aoa_phi = _rotated_angles(paths, bs, ue)
+    valid = _fov_valid(cfg, paths.valid, aod_theta, aod_phi, aoa_theta,
+                       aoa_phi)
+    powers_lin = _powers_linear(cfg, paths, valid, aod_theta, aod_phi,
+                                aoa_theta, aoa_phi)
+    arx = array_response_planes(cfg.ue_shape, ue.spacing, aoa_theta,
+                                aoa_phi, valid)
+    atx = array_response_planes(cfg.bs_shape, bs.spacing, aod_theta,
+                                aod_phi, valid)
+    snapshots = cfg.doppler_times if cfg.enable_doppler else (0.0,)
+    outs = []
+    for t_snap in snapshots:
+        if cfg.backend == "pallas":
+            h = _path_sum_pallas(cfg, arx, atx, powers_lin, paths, valid,
+                                 t_snap)
+        else:
+            gr, gi = _ofdm_gain_planes(cfg, powers_lin, paths.delay_s,
+                                       paths.phase_deg, valid, t_snap,
+                                       paths)
+            h = torch.complex(*_path_sum_planes_ri(arx, atx, gr, gi))
+        outs.append(h)
+    return torch.stack(outs, dim=-1) if len(outs) > 1 else outs[0]
+
+
+def _grad_leaf(x):
+    if x is None or not torch.is_floating_point(x):
+        return x
+    return x.detach().requires_grad_(True)
+
+
+def render_channels_and_grads(paths: PathData, bs: AntennaPanel,
+                              ue: AntennaPanel, cfg: ChannelConfig,
+                              cotangent: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, Tuple]:
+    """Forward channels plus the VJP w.r.t. (paths, bs, ue) for a
+    cotangent (ones when None): d Re(sum(H * cot)) / d params, the JAX
+    package's convention. JAX's VJP with cotangent c is PyTorch's backward
+    with grad_output ``c.conj()``.
+
+    Returns ``(h, (path_grads, bs_grads, ue_grads))``: a PathData and two
+    AntennaPanels of gradients, with None for ``valid`` and absent fields.
+    """
+    objs = [type(o)(**{f.name: _grad_leaf(getattr(o, f.name))
+                       for f in dataclasses.fields(o)})
+            for o in (paths, bs, ue)]
+    leaves = [(i, f.name, getattr(o, f.name)) for i, o in enumerate(objs)
+              for f in dataclasses.fields(o)
+              if getattr(getattr(o, f.name), "requires_grad", False)]
+    with torch.enable_grad():
+        h = render_channels(*objs, cfg)
+        ct = torch.ones_like(h) if cotangent is None else \
+            torch.as_tensor(cotangent, device=h.device).to(h.dtype)
+        grads = torch.autograd.grad(h, [x for _, _, x in leaves], ct.conj(),
+                                    allow_unused=True)
+    found = {(i, name): torch.zeros_like(x) if g is None else g
+             for (i, name, x), g in zip(leaves, grads)}
+    out = tuple(type(o)(**{f.name: found.get((i, f.name))
+                           for f in dataclasses.fields(o)})
+                for i, o in enumerate(objs))
+    return h.detach(), out
 
 
 def unpack_planes_np(arr, cfg: ChannelConfig) -> np.ndarray:

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher. At first
 use it is compiled for Hopper (``sm_90a``) into ``build/kernels/`` beside
-the package, under a file name keyed by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused. The
+the package, under a file name keyed by a hash of the source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edit rebuilds and an
+unchanged source is reused. The
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is kept
 beside the library; :func:`build_log` returns it.
 
@@ -14,6 +15,7 @@ nothing here runs when a module is imported.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -42,8 +44,10 @@ def _nvcc() -> str:
 
 def _paths(name: str):
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}")
     return src, stem + ".so", stem + ".log"
 
@@ -71,6 +75,17 @@ def build_log(name: str) -> str:
     _, _, log = _paths(name)
     with open(log) as f:
         return f.read()
+
+
+def launcher(name: str, n_ptr: int, n_int: int):
+    """``<name>_launch`` of ``csrc/<name>.cu`` with its argument types:
+    ``n_ptr`` pointers, ``n_int`` ints, then the stream; returns an int
+    (the launch's cudaError_t)."""
+    fn = getattr(load_library(name), f"{name}_launch")
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -190,6 +190,12 @@ class ChannelConfig:
         return dataclasses.replace(self, **kw)
 
 
+def _tensor_from_numpy(x, dev: torch.device) -> torch.Tensor:
+    x = np.array(x)                      # owned, writable copy
+    return torch.as_tensor(x, device=dev, dtype=torch.bool
+                           if x.dtype == np.bool_ else torch.float32)
+
+
 def state_from_numpy(paths: dict, bs: dict, ue: dict, cfg: dict,
                      device=None):
     """(PathData, bs AntennaPanel, ue AntennaPanel, ChannelConfig) from
@@ -201,12 +207,7 @@ def state_from_numpy(paths: dict, bs: dict, ue: dict, cfg: dict,
     keys the port has no field for (TPU layout flags) are dropped.
     """
     dev = _device(device)
-
-    def tensor(x):
-        x = np.array(x)                  # owned, writable copy
-        return torch.as_tensor(x, device=dev, dtype=torch.bool
-                               if x.dtype == np.bool_ else torch.float32)
-
+    tensor = lambda x: _tensor_from_numpy(x, dev)
     pd = PathData(**{f.name: None if paths.get(f.name) is None
                      else tensor(paths[f.name])
                      for f in dataclasses.fields(PathData)})
@@ -216,3 +217,21 @@ def state_from_numpy(paths: dict, bs: dict, ue: dict, cfg: dict,
     fields = {k: tuple(v) if isinstance(v, list) else v
               for k, v in cfg.items() if k in names}
     return pd, panels[0], panels[1], ChannelConfig(**fields)
+
+
+def calib_params_from_numpy(params: dict, device=None):
+    """The port's ``parallel.CalibParams`` from plain numpy leaves.
+
+    ``params`` maps the CalibParams field names to arrays, with ``bs`` and
+    ``ue`` as dicts of ``rotation_deg`` and ``spacing`` (a JAX
+    ``CalibParams._asdict()`` with its panels turned into dicts).
+    """
+    from ..parallel.sharded import CalibParams
+    dev = _device(device)
+    kw = {k: _tensor_from_numpy(v, dev) for k, v in params.items()
+          if k not in ("bs", "ue")}
+    panels = {k: AntennaPanel(
+        rotation_deg=_tensor_from_numpy(params[k]["rotation_deg"], dev),
+        spacing=_tensor_from_numpy(params[k]["spacing"], dev))
+        for k in ("bs", "ue")}
+    return CalibParams(**panels, **kw)

@@ -1,0 +1,226 @@
+"""Backward of the port's fused render: the plain VJP and the autograd
+Function against the JAX backward kernel (Pallas in interpret mode) and
+its XLA VJP, the repaired autograd graph, exact zeros on masked paths, and
+— on a CUDA card only — the CUDA backward kernel vs its plain version.
+
+JAX is imported only inside the tests that use it, so the ``gpu`` tests
+also run where JAX is not installed:
+``python -m pytest -m gpu --noconftest tests/test_torch_grad.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deepmimo_tpu_torch.ops.kernels import render as kr
+
+torch.set_num_threads(1)
+GTOL = 3e-4      # relative to max|g|: the bound of tests/test_pallas.py
+
+U, P, K = 20, 13, 16
+# name: (rx_shape, tx_shape, S, per-slot amp, packed); the first five are
+# the shapes of the JAX backward test (tests/test_pallas.py:239-243).
+CASES = {
+    "single_rx": ((1, 1), (8, 8), 1, False, False),
+    "full_rx": ((2, 2), (4, 2), 1, False, False),
+    "two_slots": ((1, 2), (2, 4), 2, False, False),
+    "packed": ((1, 1), (4, 4), 1, False, True),
+    "packed_two_slots": ((2, 1), (2, 2), 2, False, True),
+    "per_slot_amp": ((2, 1), (2, 2), 4, True, True),
+}
+
+
+def _inputs(rx, tx, s, per_slot, packed, u=U, seed=11):
+    rng = np.random.RandomState(seed)
+    mk = lambda lo, hi, *sh: rng.uniform(lo, hi, sh).astype(np.float32)
+    args = [mk(-3, 3, u, P) for _ in range(4)] + [
+        mk(0, 1e-3, u, (s if per_slot else 1) * P), mk(-3, 3, u, s * P),
+        mk(0, 6, u, P)]
+    q = rx[0] * rx[1] * tx[0] * tx[1]
+    ct = mk(-1, 1, u, q, 2 * s * K) if packed else mk(-1, 1, 2, u, q, s * K)
+    return args, ct
+
+
+def _close(got, want):
+    assert len(got) == len(want) == 7
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, atol=GTOL * np.abs(w).max() + 1e-30)
+
+
+def _jax_grads(name, args, ct):
+    import jax.numpy as jnp
+    from deepmimo_tpu.ops.pallas import render as R
+
+    rx, tx, _, _, packed = CASES[name]
+    jargs = [jnp.asarray(a) for a in args]
+    kernel = R._bwd_impl(*jargs, jnp.asarray(ct), rx, tx, K, 8, True,
+                         "float32", packed)
+    xla = R._bwd_xla(rx, tx, K, packed, jargs, jnp.asarray(ct))
+    return kernel, xla
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_bwd_reference_matches_jax(name):
+    rx, tx, s, per_slot, packed = CASES[name]
+    args, ct = _inputs(rx, tx, s, per_slot, packed)
+    got = kr.fused_render_bwd_reference(
+        *[torch.from_numpy(a) for a in args], torch.from_numpy(ct), rx, tx,
+        K, packed)
+    kernel, xla = _jax_grads(name, args, ct)
+    _close(got, kernel)
+    _close(got, xla)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_function_backward_matches_jax_kernel(name):
+    rx, tx, s, per_slot, packed = CASES[name]
+    args, ct = _inputs(rx, tx, s, per_slot, packed, seed=12)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    h = kr.fused_render(*leaves, rx, tx, K, packed)
+    h.backward(torch.from_numpy(ct))
+    kernel, _ = _jax_grads(name, args, ct)
+    _close([x.grad for x in leaves], kernel)
+    if per_slot:
+        assert leaves[4].grad.shape == (U, s * P)      # damp per slot
+
+
+def test_output_carries_the_ports_function():
+    """The repair: the fused render is differentiable on every device (the
+    CUDA wrapper used to return a tensor with no grad_fn)."""
+    rx, tx, s, per_slot, packed = CASES["packed"]
+    args, _ = _inputs(rx, tx, s, per_slot, packed)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    h = kr.fused_render(*leaves, rx, tx, K, packed)
+    assert type(h.grad_fn) is kr.FusedRender._backward_cls
+    h.mean().backward()            # a stride-0 cotangent, made dense
+    assert all(torch.isfinite(x.grad).all() for x in leaves)
+    assert any(float(x.grad.abs().max()) > 0 for x in leaves)
+
+
+def test_out_under_grad_raises():
+    rx, tx, s, per_slot, packed = CASES["packed"]
+    args, _ = _inputs(rx, tx, s, per_slot, packed)
+    ts = [torch.from_numpy(a) for a in args]
+    out = kr.fused_render(*ts, rx, tx, K, packed)
+    ts[5].requires_grad_(True)
+    with pytest.raises(ValueError, match="requires grad"):
+        kr.fused_render(*ts, rx, tx, K, packed, out=out)
+    with torch.no_grad():
+        assert kr.fused_render(*ts, rx, tx, K, packed, out=out) is out
+
+
+def test_bwd_wrapper_checks_the_cotangent():
+    rx, tx, s, per_slot, packed = CASES["packed"]
+    args, ct = _inputs(rx, tx, s, per_slot, packed)
+    ts = [torch.from_numpy(a) for a in args]
+    before = kr.BWD_LAUNCHES
+    got = kr.fused_render_bwd(*ts, torch.from_numpy(ct), rx, tx, K, packed)
+    assert kr.BWD_LAUNCHES == before      # no kernel launch on the CPU
+    assert [tuple(g.shape) for g in got] == [tuple(t.shape) for t in ts]
+    for bad in (torch.from_numpy(ct)[:-1], torch.from_numpy(ct).double(),
+                torch.from_numpy(ct).transpose(0, 1)):
+        with pytest.raises(ValueError):
+            kr.fused_render_bwd(*ts, bad, rx, tx, K, packed)
+
+
+def _masked_state(backend):
+    from deepmimo_tpu_torch.ops.types import (AntennaPanel, ChannelConfig,
+                                              PathData)
+    from oracle import make_synthetic_paths
+
+    d = make_synthetic_paths(n_ue=12, max_paths=8, seed=33)
+    paths = PathData.from_numpy(
+        d["power"], d["phase"], d["delay"], d["aoa_az"], d["aoa_el"],
+        d["aod_az"], d["aod_el"], device="cpu")
+    cfg = ChannelConfig(bs_shape=(4, 2), ue_shape=(2, 1), subcarriers=64,
+                        selected_subcarriers=tuple(range(8)), num_paths=8,
+                        backend=backend)
+    return paths, AntennaPanel.make((5, 10, 20), device="cpu"), \
+        AntennaPanel.make(device="cpu"), cfg
+
+
+@pytest.mark.parametrize("route", ["planes_fused", "planes_xla",
+                                   "complex_xla", "complex_pallas"])
+def test_masked_paths_get_exact_zero_gradients(route):
+    """Padded path slots get gradients of exactly 0, not NaN
+    (tests/test_gradients.py:118)."""
+    import dataclasses
+    from deepmimo_tpu_torch.ops.channel import (render_channels,
+                                                render_channels_planes)
+
+    kind, backend = route.split("_")
+    paths, bs, ue, cfg = _masked_state(backend)
+    fields = ("power_dbw", "phase_deg", "delay_s", "aoa_az_deg",
+              "aoa_el_deg", "aod_az_deg", "aod_el_deg")
+    leaves = {f: getattr(paths, f).clone().requires_grad_(True)
+              for f in fields}
+    p = dataclasses.replace(paths, **leaves)
+    if kind == "planes":
+        h = render_channels_planes(p, bs, ue, cfg)
+        loss = (h * torch.linspace(-1, 1, h.numel()).reshape(h.shape)).sum()
+    else:
+        h = render_channels(p, bs, ue, cfg)
+        loss = (h * h.conj()).real.sum()
+    loss.backward()
+    invalid = ~paths.valid
+    assert bool(invalid.any())
+    for f in fields:
+        g = leaves[f].grad
+        assert bool(torch.isfinite(g).all()), f
+        assert bool((g[invalid] == 0).all()), f
+        assert float(g[~invalid].abs().max()) > 0, f
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_cuda_bwd_kernel_matches_plain_version(cuda, name):
+    rx, tx, s, per_slot, packed = CASES[name]
+    args, ct = _inputs(rx, tx, s, per_slot, packed, u=U * 257, seed=4)
+    ts = [torch.from_numpy(a).to(cuda) for a in args]
+    ct = torch.from_numpy(ct).to(cuda)
+    before = kr.BWD_LAUNCHES
+    got = kr.fused_render_bwd(*ts, ct, rx, tx, K, packed)
+    want = kr.fused_render_bwd_reference(*ts, ct, rx, tx, K, packed)
+    torch.cuda.synchronize()
+    assert kr.BWD_LAUNCHES == before + 1
+    _close([g.cpu() for g in got], [w.cpu() for w in want])
+
+
+@pytest.mark.gpu
+def test_cuda_autograd_goes_through_both_kernels(cuda):
+    rx, tx, s, per_slot, packed = CASES["packed_two_slots"]
+    args, _ = _inputs(rx, tx, s, per_slot, packed, seed=5)
+    leaves = [torch.from_numpy(a).to(cuda).requires_grad_(True)
+              for a in args]
+    fwd, bwd = kr.LAUNCHES, kr.BWD_LAUNCHES
+    h = kr.fused_render(*leaves, rx, tx, K, packed)
+    assert type(h.grad_fn) is kr.FusedRender._backward_cls
+    h.square().mean().backward()
+    torch.cuda.synchronize()
+    assert (kr.LAUNCHES, kr.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    want = kr.fused_render_bwd_reference(
+        *[x.detach() for x in leaves], (2 * h / h.numel()).detach(), rx, tx,
+        K, packed)
+    _close([x.grad.cpu() for x in leaves], [w.cpu() for w in want])
+
+
+@pytest.mark.gpu
+def test_cuda_bwd_raises_on_what_the_kernel_does_not_take(cuda):
+    rx, tx = (4, 4), (16, 16)             # E alone exceeds shared memory
+    args, ct = _inputs(rx, tx, 1, False, False, u=2)
+    ts = [torch.from_numpy(a).to(cuda) for a in args]
+    with pytest.raises(ValueError, match="shared memory"):
+        kr.fused_render_bwd(*ts, torch.from_numpy(ct).to(cuda), rx, tx, K,
+                            False)

@@ -237,9 +237,11 @@ def test_channel_config_dtypes_and_defaults():
 
 
 def test_import_leaves_out_jax():
-    """``import deepmimo_tpu_torch`` imports neither jax nor the JAX
-    package (checked in a fresh interpreter)."""
-    code = ("import sys, deepmimo_tpu_torch, deepmimo_tpu_torch.ops.channel;"
+    """``import deepmimo_tpu_torch`` and its calibration package import
+    neither jax nor the JAX package (checked in a fresh interpreter)."""
+    code = ("import sys, deepmimo_tpu_torch, deepmimo_tpu_torch.ops.channel, "
+            "deepmimo_tpu_torch.parallel, "
+            "deepmimo_tpu_torch.ops.kernels.pathsum;"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
             "'deepmimo_tpu') or m.startswith(('jax.', 'jaxlib.', "
             "'deepmimo_tpu.'))];"
