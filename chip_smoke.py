@@ -8,20 +8,35 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. Card and toolchain: ``nvidia-smi`` name and power limit, torch/CUDA.
 2. Build: compiles every kernel (``render_fwd``, ``render_bwd``,
-   ``pathsum``) from ``csrc/`` with nvcc for sm_90a, one nvcc per source,
-   all started together, and prints the ptxas report.
+   ``pathsum``, ``beamgain``) from ``csrc/`` with nvcc for sm_90a, one
+   nvcc per source, all started together, and prints the ptxas report.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
-   card at the main paths' shapes (``KERNEL_CASES``), with CUDA-event
-   times of both at the headline width: the forward render and the path
-   sum within 3e-5 * max|H|, the render's backward within 3e-4 * max|g|
-   for each of its 7 gradients.
+   card at the main paths' shapes (``KERNEL_CASES``, ``BG_CASES``), with
+   CUDA-event times of both at the headline width: the forward render and
+   the path sum within 3e-5 * max|H|, the render's backward within
+   3e-4 * max|g| for each of its 7 gradients, the beam-gain kernel within
+   3e-5 * max|G| (and, for context, the forward render plus an einsum
+   fold at the same width).
 4. Serving path: four 131,072-user x 25-path datasets (synthetic, seed 7)
    through ``Dataset.compute_channels(params, to_device=True, out=prev)``
    — one kernel launch per call — checked for shape and finiteness and on
    64 users per dataset against the float64 oracle ``tests/oracle.py``;
-   then a timed sweep.
+   then a timed sweep and a ``torch.profiler`` breakdown (device window,
+   busy and idle share, largest kernels), as in phases 5b and 5c.
 5. Streamed path: ``to_device=False`` over 3 user blocks must equal the
    single-dispatch result exactly.
+5b. Beam-gain serving: ``Dataset.compute_beam_gains(params, codebook=W,
+   to_device=True, out=prev)`` on the same four datasets with a 16-beam
+   codebook — one beam-gain launch and no render launch per call — on 64
+   users per dataset against |conj(W) . H| ** 2 from the float64 oracle
+   (1e-4 * max|G|); then a timed sweep.
+5c. Dual-polar: a 131,072-user dataset with four NaN-padded polarization
+   matrices; ``compute_channels(..., to_device=True, out=prev)`` in one
+   render launch with 4 slots, 64 users per polarization against the
+   oracle (5e-5 * max|H|); dual-polar ``compute_beam_gains`` in one
+   beam-gain launch, equal to the per-polarization fold of those channels
+   (3e-5 * max|G|); the streamed dual-polar render of a 16,384-user slice
+   over 3 blocks equal to its single launch bit for bit.
 6. Training path: the calibration step ``training_step_planes`` with the
    fused backend at the headline width (BS rotated 10 degrees in the
    target, calibration from 0): the first step's gradients of every
@@ -33,9 +48,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    path-sum launch per step, first loss equal to the planes loss at rtol
    1e-4.
 
-The line before the last is a JSON object describing every kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA card the
-script exits non-zero before printing any result.
+The line before the last is a JSON object describing every kernel, with
+``bound_ms``: the larger of its bytes (each input read once, each output
+written once) over 3.35 TB/s and its FP32 flops over 67 TFLOP/s, at the
+headline shapes of this run. The last line is ``{"ok": true, "device":
+{...}}``. Without a CUDA card the script exits non-zero before printing
+any result.
 """
 
 import json
@@ -60,7 +78,7 @@ N_SC = 64
 BANDWIDTH = 10e6
 KERNEL_RTOL = 3e-5       # kernel vs plain, relative to max|H|
 GRAD_RTOL = 3e-4         # backward kernel vs plain, relative to max|g|
-KERNELS = ("render_fwd", "render_bwd", "pathsum")
+KERNELS = ("render_fwd", "render_bwd", "pathsum", "beamgain")
 TRAIN_STEPS = 5
 PALLAS_STEPS = 3
 LR = 3e-3
@@ -68,6 +86,12 @@ GRAD_USERS = 4096        # users of the kernel-vs-plain gradient check
 DEV = "cuda"
 ORACLE_RTOL = 5e-5       # main path vs float64 oracle, relative to max|H|
 N_ORACLE = 64            # users per dataset checked against the oracle
+BG_BEAMS = 16            # codebook beams of the beam-gain paths
+BG_RTOL = 3e-5           # beam-gain kernel vs plain, relative to max|G|
+BG_ORACLE_RTOL = 1e-4    # beam gains vs the float64 oracle, rel. max|G|
+POLAR_STREAM_USERS = 16_384
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM, HBM3 peak
+FP32_FLOPS_PER_S = 67e12     # H100 SXM, FP32 outside the tensor cores
 
 
 def log(msg):
@@ -104,18 +128,29 @@ def make_params(dmt):
     return params
 
 
-def event_ms(torch, fn, reps):
-    """Mean device time of ``fn`` over ``reps`` runs after one warm run."""
-    fn()
+def timed_sweep(torch, calls, reps=5):
+    """(CUDA-event ms, host ms) per call over ``reps`` sweeps of the
+    functions ``calls``, after one warm sweep."""
+    def sweep():
+        for call in calls:
+            call()
+    sweep()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(reps):
-        fn()
+        sweep()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    n = reps * len(calls)
+    return start.elapsed_time(end) / n, (time.perf_counter() - t0) * 1e3 / n
+
+
+def event_ms(torch, fn, reps):
+    """Mean device time of ``fn`` over ``reps`` runs after one warm run."""
+    return timed_sweep(torch, [fn], reps)[0]
 
 
 # ----------------------------------------------------------------------------
@@ -332,11 +367,74 @@ def phase_pathsum_kernels(torch):
     return headline
 
 
+def codebook(n_beams, n_tx, seed):
+    """Random-phase codebook / sqrt(T) (1/8 at T = 64, the recipe of
+    benchmarks/run_beamgain_bench.py); complex128 [B, T]."""
+    rng = np.random.RandomState(seed)
+    return np.exp(1j * rng.uniform(-np.pi, np.pi, (n_beams, n_tx))) / \
+        math.sqrt(n_tx)
+
+
+def _planes_on_card(torch, w):
+    return [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(DEV)
+            for x in (w.real, w.imag)]
+
+
+BG_CASES = [
+    # name, U, rx_shape, tx_shape, B, K, P, S, n_sa
+    ("headline", CHUNK, UE_SHAPE, BS_SHAPE, BG_BEAMS, N_SC, MAX_PATHS, 1, 1),
+    ("multi_rx", 4099, (2, 1), (4, 2), 8, 16, MAX_PATHS, 1, 1),
+    ("polar_slots", 4096, UE_SHAPE, BS_SHAPE, BG_BEAMS, N_SC, MAX_PATHS, 4,
+     4),
+    ("ragged_large", 4099, (2, 2), (4, 4), 5, 17, 100, 3, 1),
+]
+
+
+def phase_bg_kernels(torch):
+    """The beam-gain kernel vs its plain version at the BG_CASES shapes."""
+    from deepmimo_tpu_torch.ops.kernels import beamgain as kb
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+    headline = None
+    for name, u, rx, tx, b, k, p, s, n_sa in BG_CASES:
+        args = _render_inputs(torch, u, p, s, n_sa, seed=len(name) + 200)
+        t = tx[0] * tx[1]
+        wr, wi = _planes_on_card(torch, codebook(b, t, seed=len(name)))
+        got = kb.fused_beam_gain(*args, wr, wi, rx, tx, k)
+        want = kb.beam_gain_reference(*args, wr, wi, rx, tx, k)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.max())
+        log(f"[kernel] fused_beam_gain {name}: U={u} P={p} rx={rx} tx={tx} "
+            f"B={b} K={k} S={s} n_sa={n_sa} out={tuple(got.shape)} "
+            f"max_abs_err={err:.3e} max|G|={scale:.3e} "
+            f"rel={err / scale:.3e} (limit {BG_RTOL:g})")
+        if not (math.isfinite(err) and err <= BG_RTOL * scale):
+            raise AssertionError(f"fused_beam_gain {name}: kernel disagrees "
+                                 f"with its plain version")
+        del want
+        if name == "headline":
+            ms = event_ms(torch, lambda: kb.fused_beam_gain(
+                *args, wr, wi, rx, tx, k, out=got), reps=20)
+            plain_ms = event_ms(torch, lambda: kb.beam_gain_reference(
+                *args, wr, wi, rx, tx, k), reps=3)
+            h = torch.empty((2, u, t, k), device=DEV)
+            pair_ms = event_ms(torch, lambda: kb.codebook_gain(
+                wr, wi, *kr.fused_render(*args, rx, tx, k, False, out=h)),
+                reps=3)
+            log(f"[kernel] fused_beam_gain headline: kernel {ms:.4f} ms "
+                f"({u / ms * 1e3:.1f} users/s), plain {plain_ms:.4f} ms; "
+                f"for context, forward render kernel + einsum fold "
+                f"{pair_ms:.4f} ms")
+            headline = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            del h
+        del got, args
+        torch.cuda.empty_cache()
+    return headline
+
+
 def phase_main(torch, dmt):
     from deepmimo_tpu_torch.ops.channel import unpack_planes_np
     from deepmimo_tpu_torch.ops.kernels import render as kr
-    sys.path.insert(0, os.path.join(HERE, "tests"))
-    from oracle import oracle_channels
 
     t0 = time.perf_counter()
     data = make_data(CHUNK * N_DATASETS, MAX_PATHS, seed=7)
@@ -367,14 +465,7 @@ def phase_main(torch, dmt):
         if not bool(torch.isfinite(h).all()):
             raise AssertionError(f"dataset {i}: non-finite channels")
         got = unpack_planes_np(h[:N_ORACLE].cpu().numpy(), cfg)
-        sub = {key: data[key][i * CHUNK:i * CHUNK + N_ORACLE]
-               for key in data}
-        want = oracle_channels(
-            sub["power"], sub["phase"], sub["delay"], sub["aoa_az"],
-            sub["aoa_el"], sub["aod_az"], sub["aod_el"], bs_shape=BS_SHAPE,
-            ue_shape=UE_SHAPE, n_fft=N_FFT,
-            selected_subcarriers=tuple(range(N_SC)), bandwidth=BANDWIDTH,
-            num_paths=MAX_PATHS)
+        want = _oracle(ds, N_ORACLE, ds["power"], ds["phase"])
         err = float(np.abs(got - want).max())
         scale = float(np.abs(want).max())
         log(f"[main] dataset {i}: {tuple(h.shape)} finite; oracle "
@@ -388,24 +479,13 @@ def phase_main(torch, dmt):
                              f"{N_DATASETS} compute_channels calls")
     log(f"[main] fused_render launches in the main path: {launches}")
 
-    reps = 5
-    sweep = lambda: [ds.compute_channels(params, to_device=True, out=h)
-                     for ds in datasets]
-    sweep()                                     # warm
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(reps):
-        sweep()
-    end.record()
-    end.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / (reps * N_DATASETS)
-    ms = start.elapsed_time(end) / (reps * N_DATASETS)
-    log(f"[main] sweep of {reps} x {N_DATASETS} datasets: {ms:.4f} ms per "
+    calls = [lambda ds=ds: ds.compute_channels(params, to_device=True, out=h)
+             for ds in datasets]
+    ms, wall = timed_sweep(torch, calls)
+    log(f"[main] sweep of 5 x {N_DATASETS} datasets: {ms:.4f} ms per "
         f"{CHUNK}-user dataset (CUDA events), {CHUNK / ms * 1e3:.1f} "
         f"users/s; host wall {wall:.4f} ms per dataset")
+    profile_cell(torch, "serving", calls)
     return datasets, params, launches
 
 
@@ -434,6 +514,280 @@ def phase_streamed(torch, dmt, datasets, params):
         raise AssertionError("streamed result differs from single dispatch")
     log(f"[streamed] {blocks} blocks of <= {block} users: {streamed.shape} "
         f"{streamed.dtype} equals the single dispatch exactly")
+
+
+def _oracle(ds, n, power, phase):
+    """float64 oracle channels of the first ``n`` users of ``ds``, fed the
+    given power and phase matrices."""
+    if os.path.join(HERE, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+    from oracle import oracle_channels
+    return oracle_channels(
+        power[:n], phase[:n], *(ds[key][:n] for key in (
+            "delay", "aoa_az", "aoa_el", "aod_az", "aod_el")),
+        bs_shape=BS_SHAPE, ue_shape=UE_SHAPE, n_fft=N_FFT,
+        selected_subcarriers=tuple(range(N_SC)), bandwidth=BANDWIDTH,
+        num_paths=MAX_PATHS)
+
+
+def profile_cell(torch, tag, calls, top=4):
+    """Where one cell's time goes: ``torch.profiler`` over one sweep of
+    ``calls``, after a warm-up sweep that the profiler also runs (its first
+    cycle can drop device events). Prints the device window per call, the
+    busy and idle share of it, and the largest kernels by time with their
+    launch counts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for call in calls:
+                call()
+            torch.cuda.synchronize()
+            prof.step()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type.name == "CUDA" and
+                   e.time_range.end > e.time_range.start)
+    if not spans:
+        raise AssertionError(f"{tag}: the profiler saw no device time")
+    busy, reach, by_name = 0.0, spans[0][0], {}
+    for start, end, name in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        total, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + end - start, count + 1)
+    window = reach - spans[0][0]
+    n = len(calls)
+    largest = sorted(by_name.items(), key=lambda x: -x[1][0])[:top]
+    log(f"[profile] {tag}: device window {window / n / 1e3:.4f} ms per call, "
+        f"busy {busy / n / 1e3:.4f} ms, idle {100 * (1 - busy / window):.2f}%"
+        f", {len(spans) / n:.0f} device ops per call; largest per call: " +
+        "; ".join(f"{name[:40]} x{count} {t / n / 1e3:.4f} ms"
+                  for name, (t, count) in largest))
+
+
+def phase_beamgain(torch, datasets, params):
+    """Beam-gain serving on the four headline datasets, counted: one
+    beam-gain launch and no render launch per call."""
+    from deepmimo_tpu_torch.ops.kernels import beamgain as kb
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+
+    w = codebook(BG_BEAMS, BS_SHAPE[0] * BS_SHAPE[1], seed=75)
+    expected = (CHUNK, BG_BEAMS, N_SC)
+    kb.LAUNCHES = kr.LAUNCHES = 0
+    g = None
+    for i, ds in enumerate(datasets):
+        prev = g
+        g = ds.compute_beam_gains(params, codebook=w, to_device=True,
+                                  out=prev)
+        if tuple(g.shape) != expected or g.dtype != torch.float32:
+            raise AssertionError(f"beam gains {i}: {tuple(g.shape)} "
+                                 f"{g.dtype}, expected {expected} float32")
+        if prev is not None and g.data_ptr() != prev.data_ptr():
+            raise AssertionError(f"beam gains {i}: out= buffer not reused")
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"beam gains {i}: non-finite")
+        h = _oracle(ds, N_ORACLE, ds["power"], ds["phase"])
+        want = (np.abs(np.einsum("bt,urtk->urbk", w.conj(), h)) ** 2
+                ).reshape(N_ORACLE, BG_BEAMS, N_SC)
+        err = float(np.abs(g[:N_ORACLE].cpu().numpy() - want).max())
+        scale = float(want.max())
+        log(f"[beamgain] dataset {i}: {tuple(g.shape)} finite; oracle "
+            f"{N_ORACLE} users max_abs_err={err:.3e} max|G|={scale:.3e} "
+            f"rel={err / scale:.3e} (limit {BG_ORACLE_RTOL:g})")
+        if not err <= BG_ORACLE_RTOL * scale:
+            raise AssertionError(f"beam gains {i}: disagree with the oracle")
+    launches = (kb.LAUNCHES, kr.LAUNCHES)
+    if launches != (len(datasets), 0):
+        raise AssertionError(f"(beam-gain, render) launches {launches} for "
+                             f"{len(datasets)} compute_beam_gains calls")
+    log(f"[beamgain] launches in the serving path: beam gain {launches[0]}, "
+        f"render {launches[1]}")
+
+    calls = [lambda ds=ds: ds.compute_beam_gains(params, codebook=w,
+                                                 to_device=True, out=g)
+             for ds in datasets]
+    ms, wall = timed_sweep(torch, calls)
+    log(f"[beamgain] sweep of 5 x {len(datasets)} datasets: {ms:.4f} ms per "
+        f"{CHUNK}-user call (CUDA events), {CHUNK / ms * 1e3:.1f} users/s; "
+        f"host wall {wall:.4f} ms per call")
+    profile_cell(torch, "beam-gain serving", calls)
+    return launches[0]
+
+
+def make_pol_data(data, seed=8):
+    """Four per-polarization power/phase matrices, NaN where ``data`` has
+    no path (the loader's padding)."""
+    from deepmimo_tpu_torch.generator.dataset import POLS
+    rng = np.random.RandomState(seed)
+    nan = np.isnan(data["power"])
+    out = {}
+    for pol in POLS:
+        for key, lo, hi in (("power", -130, -60), ("phase", -180, 180)):
+            out[f"{key}_{pol.lower()}"] = np.where(
+                nan, np.nan, rng.uniform(lo, hi, nan.shape)).astype(
+                    np.float32)
+    return out
+
+
+def phase_polar(torch, dmt):
+    """Dual-polar channels and beam gains at the headline width, counted,
+    against the oracle and the per-polarization fold; then the streamed
+    dual-polar render against its single launch."""
+    from deepmimo_tpu_torch.generator.dataset import POLS
+    from deepmimo_tpu_torch.ops.channel import unpack_polar_planes_np
+    from deepmimo_tpu_torch.ops.kernels import beamgain as kb
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+
+    d = make_data(CHUNK, MAX_PATHS, seed=7)
+    d.update(make_pol_data(d))
+    d["rx_pos"] = np.zeros((CHUNK, 3), np.float32)
+    d["tx_pos"] = np.zeros((1, 3), np.float32)
+    ds = dmt.Dataset(d)
+    params = make_params(dmt)
+    params[dmt.consts.PARAMSET_POLAR_EN] = 1
+    cfg, _, _ = params.to_config(CHUNK)
+    n_pol, t = len(POLS), BS_SHAPE[0] * BS_SHAPE[1]
+    expected = (CHUNK, 1, t, 2 * n_pol * N_SC)
+
+    kr.LAUNCHES = kb.LAUNCHES = 0
+    h = None
+    for i in range(2):
+        prev = h
+        h = ds.compute_channels(params, to_device=True, out=prev)
+        if tuple(h.shape) != expected or not bool(torch.isfinite(h).all()):
+            raise AssertionError(f"dual-polar call {i}: {tuple(h.shape)}, "
+                                 f"expected {expected} finite")
+        if prev is not None and h.data_ptr() != prev.data_ptr():
+            raise AssertionError(f"dual-polar call {i}: out= not reused")
+    ch_launches = (kr.LAUNCHES, kb.LAUNCHES)
+    if ch_launches != (2, 0):
+        raise AssertionError(f"dual-polar compute_channels: (render, beam "
+                             f"gain) launches {ch_launches} for 2 calls")
+    got = unpack_polar_planes_np(h[:N_ORACLE].cpu().numpy(), cfg)
+    for ip, pol in enumerate(POLS):
+        want = _oracle(ds, N_ORACLE, d[f"power_{pol.lower()}"],
+                       d[f"phase_{pol.lower()}"])
+        err = float(np.abs(got[ip] - want).max())
+        scale = float(np.abs(want).max())
+        log(f"[polar] {pol}: oracle {N_ORACLE} users max_abs_err={err:.3e} "
+            f"max|H|={scale:.3e} rel={err / scale:.3e} (limit "
+            f"{ORACLE_RTOL:g})")
+        if not err <= ORACLE_RTOL * scale:
+            raise AssertionError(f"dual-polar {pol}: disagrees with the "
+                                 f"oracle")
+    calls = [lambda: ds.compute_channels(params, to_device=True, out=h)]
+    ms_ch, wall_ch = timed_sweep(torch, calls)
+    log(f"[polar] compute_channels: {tuple(h.shape)} "
+        f"({h.numel() * 4 / 1e9:.2f} GB), 1 render launch per call with "
+        f"{n_pol} slots; {ms_ch:.4f} ms per {CHUNK}-user call (CUDA "
+        f"events), {CHUNK / ms_ch * 1e3:.1f} users/s; host wall "
+        f"{wall_ch:.4f} ms")
+    profile_cell(torch, "dual-polar channels", calls)
+
+    # The per-polarization fold of those channels, then free H.
+    w = codebook(BG_BEAMS, t, seed=76)
+    wr, wi = _planes_on_card(torch, w)
+    sk = n_pol * N_SC
+    fold = torch.cat([kb.codebook_gain(
+        wr, wi, h[:, 0, :, ip * N_SC:(ip + 1) * N_SC],
+        h[:, 0, :, sk + ip * N_SC:sk + (ip + 1) * N_SC])
+        for ip in range(n_pol)], dim=-1)
+    del h
+    torch.cuda.empty_cache()
+
+    kr.LAUNCHES = kb.LAUNCHES = 0
+    g = None
+    for i in range(2):
+        prev = g
+        g = ds.compute_beam_gains(params, codebook=w, to_device=True,
+                                  out=prev)
+        if prev is not None and g.data_ptr() != prev.data_ptr():
+            raise AssertionError(f"dual-polar beam gains {i}: out= not "
+                                 f"reused")
+    bg_launches = (kb.LAUNCHES, kr.LAUNCHES)
+    if bg_launches != (2, 0):
+        raise AssertionError(f"dual-polar compute_beam_gains: (beam gain, "
+                             f"render) launches {bg_launches} for 2 calls")
+    err = float((g - fold).abs().max())
+    scale = float(fold.max())
+    log(f"[polar] compute_beam_gains: {tuple(g.shape)}, 1 beam-gain launch "
+        f"per call; vs the per-polarization fold of the channels "
+        f"max_abs_err={err:.3e} max|G|={scale:.3e} rel={err / scale:.3e} "
+        f"(limit {BG_RTOL:g})")
+    if not (math.isfinite(err) and err <= BG_RTOL * scale):
+        raise AssertionError("dual-polar beam gains differ from the fold")
+    calls = [lambda: ds.compute_beam_gains(params, codebook=w,
+                                           to_device=True, out=g)]
+    ms_bg, wall_bg = timed_sweep(torch, calls)
+    log(f"[polar] compute_beam_gains: {ms_bg:.4f} ms per {CHUNK}-user call "
+        f"(CUDA events), {CHUNK / ms_bg * 1e3:.1f} users/s; host wall "
+        f"{wall_bg:.4f} ms")
+    profile_cell(torch, "dual-polar beam gains", calls)
+    del g, fold
+    torch.cuda.empty_cache()
+
+    # Streamed dual-polar render of a slice == its single launch.
+    sub = dmt.Dataset({k: v[:POLAR_STREAM_USERS] if k != "tx_pos" else v
+                       for k, v in d.items()})
+    single = sub.compute_channels(params)
+    old = {k: dmt.config.get(k)
+           for k in ("max_device_output_bytes", "user_block")}
+    block = -(-POLAR_STREAM_USERS // 3)
+    dmt.config.set("max_device_output_bytes",
+                   POLAR_STREAM_USERS * t * 2 * sk * 4 - 1)
+    dmt.config.set("user_block", block)
+    try:
+        before = kr.LAUNCHES
+        streamed = sub.compute_channels(params)
+        blocks = kr.LAUNCHES - before
+    finally:
+        for k, v in old.items():
+            dmt.config.set(k, v)
+    if blocks != 3:
+        raise AssertionError(f"streamed dual-polar rendered {blocks} blocks")
+    for pol in POLS:
+        if not np.array_equal(single[pol], streamed[pol]):
+            raise AssertionError(f"streamed dual-polar {pol} differs from "
+                                 f"the single launch")
+    log(f"[polar] streamed: {blocks} blocks of <= {block} users, each "
+        f"polarization {streamed['VV'].shape} equals the single launch "
+        f"exactly")
+    return ch_launches[0], bg_launches[0]
+
+
+def kernel_bounds():
+    """Least card time (ms) of each kernel's work at its headline shapes,
+    and what bounds it: bytes (each input read once, each output written
+    once) over HBM_BYTES_PER_S, or FP32 flops (FMA = 2) over
+    FP32_FLOPS_PER_S. sincosf is not counted."""
+    u, p, k = CHUNK, MAX_PATHS, N_SC
+    r, t = UE_SHAPE[0] * UE_SHAPE[1], BS_SHAPE[0] * BS_SHAPE[1]
+    q, b = r * t, BG_BEAMS
+    per_path = 4 * 7 * u * p                       # the 7 [U, P] inputs
+    work = {
+        # H = E g^T: 8 flops per complex MAC
+        "fused_render": (per_path + 4 * u * q * 2 * k, 8 * u * q * k * p),
+        # dE = ct g and dG = ct^T E; reads ct, writes 7 gradients
+        "fused_render_bwd": (2 * per_path + 4 * u * q * 2 * k,
+                             16 * u * q * k * p),
+        # E from the planes (6 flops each), then the path sum
+        "fused_path_sum": (4 * u * p * (2 * r + 2 * t + 3) + 4 * k +
+                           4 * 2 * u * q * k,
+                           6 * u * q * p + 8 * u * q * k * p),
+        # fold B*T*P and path sum R*B*K*P complex MACs, |y|^2
+        "fused_beam_gain": (per_path + 4 * 2 * b * t + 4 * u * r * b * k,
+                            8 * u * b * t * p + 8 * u * r * b * k * p +
+                            3 * u * r * b * k),
+    }
+    out = {}
+    for name, (n_bytes, flops) in work.items():
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        out[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+    return out
 
 
 def _train_config(dmt, backend):
@@ -594,35 +948,42 @@ def main():
     fwd = phase_kernels(torch)
     bwd = phase_bwd_kernels(torch)
     psum = phase_pathsum_kernels(torch)
+    bg = phase_bg_kernels(torch)
     datasets, params, serve_launches = phase_main(torch, dmt)
     phase_streamed(torch, dmt, datasets, params)
+    bg_launches = phase_beamgain(torch, datasets, params)
     del datasets
+    torch.cuda.empty_cache()
+    polar_render, polar_bg = phase_polar(torch, dmt)
     torch.cuda.empty_cache()
     paths, (train_fwd, train_bwd), planes_loss = phase_train(
         torch, dmt, fwd["ms"], bwd["ms"])
     pallas_launches = phase_train_pallas(torch, dmt, paths, planes_loss)
-    log(f"[launches] fused_render: serving {serve_launches} + training "
-        f"{train_fwd}; fused_render_bwd: training {train_bwd}; "
-        f"fused_path_sum: pallas training {pallas_launches}")
+    log(f"[launches] fused_render: serving {serve_launches} + dual-polar "
+        f"{polar_render} + training {train_fwd}; fused_render_bwd: training "
+        f"{train_bwd}; fused_path_sum: pallas training {pallas_launches}; "
+        f"fused_beam_gain: serving {bg_launches} + dual-polar {polar_bg}")
     src = "deepmimo_tpu_torch/csrc/"
-    kernels = [
-        {"name": "fused_render", "route": "cuda",
-         "source": src + "render_fwd.cu",
-         "replaces": "deepmimo_tpu/ops/pallas/render.py:432",
-         "launches": serve_launches + train_fwd,
-         "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
-         "plain_ms": fwd["plain_ms"]},
-        {"name": "fused_render_bwd", "route": "cuda",
-         "source": src + "render_bwd.cu",
-         "replaces": "deepmimo_tpu/ops/pallas/render.py:659",
-         "launches": train_bwd, "max_abs_err": bwd["max_abs_err"],
-         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"]},
-        {"name": "fused_path_sum", "route": "cuda",
-         "source": src + "pathsum.cu",
-         "replaces": "deepmimo_tpu/ops/pallas/pathsum.py:66",
-         "launches": pallas_launches, "max_abs_err": psum["max_abs_err"],
-         "ms": psum["ms"], "plain_ms": psum["plain_ms"]},
+    tpu = "deepmimo_tpu/ops/pallas/"
+    bounds = kernel_bounds()
+    rows = [
+        ("fused_render", "render_fwd.cu", "render.py:432",
+         serve_launches + polar_render + train_fwd, fwd),
+        ("fused_render_bwd", "render_bwd.cu", "render.py:659", train_bwd,
+         bwd),
+        ("fused_path_sum", "pathsum.cu", "pathsum.py:66", pallas_launches,
+         psum),
+        ("fused_beam_gain", "beamgain.cu", "beamgain.py:77",
+         bg_launches + polar_bg, bg),
     ]
+    # No single PyTorch call computes any of these functions.
+    kernels = [
+        {"name": name, "route": "cuda", "source": src + source,
+         "replaces": tpu + replaces, "launches": launches,
+         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+         "plain_ms": m["plain_ms"], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
+        for name, source, replaces, launches, m in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,86 +1,114 @@
-// Shared tile loop of the forward path-sum kernels (render_fwd.cu,
-// pathsum.cu): H[q, kk] = sum_p E[q, p] g[kk, p] for one user, with E and g
-// already staged in shared memory as [P][Q] and [P][SK] real/imag planes.
+// Shared register-tiled complex product of the path-sum kernels
+// (render_fwd.cu, pathsum.cu, beamgain.cu):
 //
-// Each of the 256 threads owns a 4 x 4 register tile of complex outputs per
-// 64 x 64 output tile: 16 shared-memory loads feed 64 FMAs, and the loads
-// are warp broadcasts (E) or consecutive words (g). Neighbouring threads own
-// neighbouring kk, so each store row is contiguous. Any Q and SK are taken:
-// the tile loops clamp their loads and mask their stores at the ragged edge.
+//   Y[q, kk] = sum_n A[n, q] B[n, kk]
+//
+// for one user, with A and B already staged in shared memory as [N][Q] and
+// [N][K] real/imag planes. Each of the kTQ x kTK threads owns a kRQ x kRK
+// register tile of complex outputs per (kTQ*kRQ) x (kTK*kRK) output tile, so
+// kRQ + kRK complex shared-memory loads feed 4*kRQ*kRK FMAs; the A loads are
+// warp broadcasts and the B loads consecutive words. Neighbouring threads
+// own neighbouring kk, so the epilogue's stores along kk are contiguous. Any
+// Q and K are taken: the tile loops clamp their loads and skip the epilogue
+// at the ragged edge. The epilogue is called once per output as
+// epi(q, kk, re, im).
+//
+// The forward render and the path sum run the 16 x 16 thread, 4 x 4 tile
+// layout of store_tiles (64 x 64 output tiles); the beam-gain kernel picks
+// layouts that fit its small Q = R*B without clamped duplicate rows.
 
 #pragma once
 
+#include <cstddef>
+
 namespace path_sum {
 
-constexpr int kThreadsK = 16;                  // threads along kk
-constexpr int kThreadsQ = 16;                  // threads along q
-constexpr int kTileK = 4;                      // outputs per thread along kk
-constexpr int kTileQ = 4;                      // outputs per thread along q
-constexpr int kThreads = kThreadsK * kThreadsQ;
-constexpr int kBlockK = kThreadsK * kTileK;    // output tile width
-constexpr int kBlockQ = kThreadsQ * kTileQ;    // output tile height
-
-// Writes out_r[q * stride + kk] and out_i[q * stride + kk] for q < Q,
-// kk < SK. Call with all kThreads threads after the staging __syncthreads.
-__device__ __forceinline__ void store_tiles(
-    const float* __restrict__ er, const float* __restrict__ ei,
-    const float* __restrict__ gr, const float* __restrict__ gi, int P, int Q,
-    int SK, float* __restrict__ out_r, float* __restrict__ out_i,
-    size_t stride) {
-  const int tx = threadIdx.x % kThreadsK;
-  const int ty = threadIdx.x / kThreadsK;
+template <int kTQ, int kTK, int kRQ, int kRK, class Epilogue>
+__device__ __forceinline__ void tile_loop(
+    const float* __restrict__ ar, const float* __restrict__ ai,
+    const float* __restrict__ br, const float* __restrict__ bi, int N, int Q,
+    int K, Epilogue epi) {
+  constexpr int kBlockQ = kTQ * kRQ;
+  constexpr int kBlockK = kTK * kRK;
+  const int tx = threadIdx.x % kTK;
+  const int ty = threadIdx.x / kTK;
   for (int q0 = 0; q0 < Q; q0 += kBlockQ) {
-    for (int k0 = 0; k0 < SK; k0 += kBlockK) {
-      int qi[kTileQ], ki[kTileK];
+    for (int k0 = 0; k0 < K; k0 += kBlockK) {
+      int qi[kRQ], ki[kRK];
 #pragma unroll
-      for (int i = 0; i < kTileQ; ++i) qi[i] = min(q0 + ty + i * kThreadsQ, Q - 1);
+      for (int i = 0; i < kRQ; ++i) qi[i] = min(q0 + ty + i * kTQ, Q - 1);
 #pragma unroll
-      for (int j = 0; j < kTileK; ++j) ki[j] = min(k0 + tx + j * kThreadsK, SK - 1);
+      for (int j = 0; j < kRK; ++j) ki[j] = min(k0 + tx + j * kTK, K - 1);
 
-      float hr[kTileQ][kTileK], hi[kTileQ][kTileK];
+      float yr[kRQ][kRK], yi[kRQ][kRK];
 #pragma unroll
-      for (int i = 0; i < kTileQ; ++i) {
+      for (int i = 0; i < kRQ; ++i) {
 #pragma unroll
-        for (int j = 0; j < kTileK; ++j) {
-          hr[i][j] = 0.f;
-          hi[i][j] = 0.f;
+        for (int j = 0; j < kRK; ++j) {
+          yr[i][j] = 0.f;
+          yi[i][j] = 0.f;
         }
       }
-      for (int p = 0; p < P; ++p) {
-        float a_r[kTileQ], a_i[kTileQ], b_r[kTileK], b_i[kTileK];
+      for (int n = 0; n < N; ++n) {
+        float a_r[kRQ], a_i[kRQ], b_r[kRK], b_i[kRK];
 #pragma unroll
-        for (int i = 0; i < kTileQ; ++i) {
-          a_r[i] = er[p * Q + qi[i]];
-          a_i[i] = ei[p * Q + qi[i]];
+        for (int i = 0; i < kRQ; ++i) {
+          a_r[i] = ar[n * Q + qi[i]];
+          a_i[i] = ai[n * Q + qi[i]];
         }
 #pragma unroll
-        for (int j = 0; j < kTileK; ++j) {
-          b_r[j] = gr[p * SK + ki[j]];
-          b_i[j] = gi[p * SK + ki[j]];
+        for (int j = 0; j < kRK; ++j) {
+          b_r[j] = br[n * K + ki[j]];
+          b_i[j] = bi[n * K + ki[j]];
         }
 #pragma unroll
-        for (int i = 0; i < kTileQ; ++i) {
+        for (int i = 0; i < kRQ; ++i) {
 #pragma unroll
-          for (int j = 0; j < kTileK; ++j) {
-            hr[i][j] = fmaf(a_r[i], b_r[j], fmaf(-a_i[i], b_i[j], hr[i][j]));
-            hi[i][j] = fmaf(a_r[i], b_i[j], fmaf(a_i[i], b_r[j], hi[i][j]));
+          for (int j = 0; j < kRK; ++j) {
+            yr[i][j] = fmaf(a_r[i], b_r[j], fmaf(-a_i[i], b_i[j], yr[i][j]));
+            yi[i][j] = fmaf(a_r[i], b_i[j], fmaf(a_i[i], b_r[j], yi[i][j]));
           }
         }
       }
 #pragma unroll
-      for (int i = 0; i < kTileQ; ++i) {
-        const int q = q0 + ty + i * kThreadsQ;
+      for (int i = 0; i < kRQ; ++i) {
+        const int q = q0 + ty + i * kTQ;
         if (q >= Q) continue;
 #pragma unroll
-        for (int j = 0; j < kTileK; ++j) {
-          const int kk = k0 + tx + j * kThreadsK;
-          if (kk >= SK) continue;
-          out_r[q * stride + kk] = hr[i][j];
-          out_i[q * stride + kk] = hi[i][j];
+        for (int j = 0; j < kRK; ++j) {
+          const int kk = k0 + tx + j * kTK;
+          if (kk >= K) continue;
+          epi(q, kk, yr[i][j], yi[i][j]);
         }
       }
     }
   }
+}
+
+// Threads of the render and path-sum blocks (the store_tiles layout).
+constexpr int kThreads = 256;
+
+// Epilogue of H planes: out_r[q * stride + kk] and out_i[q * stride + kk].
+struct StorePlanes {
+  float* out_r;
+  float* out_i;
+  size_t stride;
+  __device__ __forceinline__ void operator()(int q, int kk, float re,
+                                             float im) const {
+    out_r[q * stride + kk] = re;
+    out_i[q * stride + kk] = im;
+  }
+};
+
+// H[q, kk] = sum_p E[q, p] g[kk, p] from E [P][Q] and g [P][SK], written to
+// out_r/out_i for q < Q, kk < SK. Call with all kThreads threads after the
+// staging __syncthreads.
+__device__ __forceinline__ void store_tiles(
+    const float* __restrict__ er, const float* __restrict__ ei,
+    const float* __restrict__ gr, const float* __restrict__ gi, int P, int Q,
+    int SK, float* out_r, float* out_i, size_t stride) {
+  tile_loop<16, 16, 4, 4>(er, ei, gr, gi, P, Q, SK,
+                          StorePlanes{out_r, out_i, stride});
 }
 
 }  // namespace path_sum

@@ -1,13 +1,13 @@
 """Dataset: dict-like view of one TX-RX pair's ray data, rendered on torch.
 
 Counterpart of ``deepmimo_tpu/generator/dataset.py``: the same keys,
-aliases and ``compute_channels`` contract, with the channel render
-running through the PyTorch renderer (the CUDA kernel on a card) on
-masked ``PathData`` — in one launch, or streamed over user blocks when the
-output exceeds ``config['max_device_output_bytes']``.
+aliases and ``compute_channels`` / ``compute_beam_gains`` contracts, with
+the renders running through the PyTorch renderer (the CUDA kernels on a
+card) on masked ``PathData`` — in one launch, or streamed over user
+blocks when the output exceeds ``config['max_device_output_bytes']``.
+Dual-polar scenarios render all four polarizations in one launch.
 
-This first slice carries the core interface and channel computation;
-derived attributes (rotated angles, FoV, pathloss, LoS, grid, subsets)
+Derived attributes (rotated angles, FoV, pathloss, LoS, grid, subsets)
 are ROADMAP port item 2.
 """
 
@@ -20,11 +20,17 @@ import torch
 
 from .. import consts as c
 from ..config import config
-from ..ops.channel import (not_ported, render_channels_planes,
-                           render_out_shape, unpack_planes_np)
-from ..ops.types import AntennaPanel, PathData
+from ..ops.channel import (polar_fused_eligible, polar_out_shape,
+                           render_beam_gains, render_beam_gains_polar,
+                           render_channels_planes,
+                           render_channels_planes_polar, render_out_shape,
+                           unpack_planes_np, unpack_polar_planes_np)
+from ..ops.types import AntennaPanel, PathData, _small_tensor
 from ..utils import DotDict
 from .params import ChannelGenParameters
+
+#: Polarizations of a dual-polar scenario, in slot order.
+POLS = ("VV", "VH", "HH", "HV")
 
 
 class Dataset(DotDict):
@@ -107,20 +113,13 @@ class Dataset(DotDict):
                 shape and dtype match, the new result is written into it
                 in place — the previous result is overwritten — so serving
                 loops run in constant device memory. Ignored otherwise.
-        """
-        if params is None:
-            stored = self.get(c.CH_PARAMS_PARAM_NAME)
-            params = ChannelGenParameters() if stored is None else stored
-        params = self.set_channel_params(params)
-        if params.get(c.PARAMSET_POLAR_EN, 0):
-            raise not_ported("Dual-polarization channels", "5 (dual-polar)")
 
-        # Deterministic per-user random rotations (toolchain convention).
-        np.random.seed(1001)
-        ue_rotation = params.resolve_ue_rotation(self.n_ue)
-        cfg, bs_panel, ue_panel = params.to_config(
-            self.n_ue, bs_fov=self.get("bs_fov"), ue_fov=self.get("ue_fov"),
-            ue_rotation=ue_rotation, dtype=config.get("compute_dtype"))
+        With ``params['enable_dual_polar']`` the result is a dict
+        {'VV', 'VH', 'HH', 'HV'} of such arrays, or with ``to_device`` the
+        raw polar planes (``ops.channel.render_channels_planes_polar``;
+        unpack with ``ops.channel.unpack_polar_planes_np``).
+        """
+        params, cfg, bs_panel, ue_panel = self._channel_config(params)
 
         if cfg.freq_domain:
             # Memoized per (n_fft, bandwidth): serving loops re-call
@@ -138,28 +137,173 @@ class Dataset(DotDict):
             if cache[ck] is not None:
                 self["clipping_report"] = cache[ck]
 
-        channel = _render_streamed(self._path_data(), bs_panel, ue_panel,
-                                   cfg, to_device=to_device, out=out)
+        if params.get(c.PARAMSET_POLAR_EN, 0):
+            channel = self._compute_dual_polar(cfg, bs_panel, ue_panel,
+                                               to_device=to_device, out=out)
+        else:
+            channel = _render_streamed(self._path_data(), bs_panel,
+                                       ue_panel, cfg, to_device=to_device,
+                                       out=out)
         if to_device:
             return channel
         self[c.CHANNEL_PARAM_NAME] = channel
         return channel
 
-    def compute_beam_gains(self, *args, **kwargs):
-        raise not_ported("Beam-gain maps", "7 (beam-gain kernel)")
+    def _channel_config(self, params):
+        """(params, cfg, bs panel, ue panel) for a render: the stored
+        parameters when ``params`` is None, validated and stored, with the
+        per-user UE rotations drawn after ``np.random.seed(1001)``."""
+        if params is None:
+            stored = self.get(c.CH_PARAMS_PARAM_NAME)
+            params = ChannelGenParameters() if stored is None else stored
+        params = self.set_channel_params(params)
+        # Deterministic per-user random rotations (toolchain convention).
+        np.random.seed(1001)
+        ue_rotation = params.resolve_ue_rotation(self.n_ue)
+        cfg, bs_panel, ue_panel = params.to_config(
+            self.n_ue, bs_fov=self.get("bs_fov"), ue_fov=self.get("ue_fov"),
+            ue_rotation=ue_rotation, dtype=config.get("compute_dtype"))
+        return params, cfg, bs_panel, ue_panel
 
-    def _path_data(self) -> PathData:
-        """Masked PathData of this dataset on ``config['device']``
-        (cached per device and dtype)."""
+    def _check_pols(self):
+        """Raise unless the scenario has per-polarization matrices."""
+        missing = [p for p in POLS
+                   if f"power_{p.lower()}" not in self.keys()]
+        if missing:
+            raise ValueError(
+                "Dual-polarization requested but the scenario has no "
+                f"per-polarization matrices for {missing}. Expected keys "
+                "like 'power_vv'/'phase_vv'.")
+
+    def _compute_dual_polar(self, cfg, bs_panel, ue_panel,
+                            to_device: bool = False, out=None):
+        """Dual-polarization channels: {'VV', 'VH', 'HH', 'HV'} -> H.
+
+        Needs per-polarization power/phase matrices (``power_vv``,
+        ``phase_vv``, ...); angles and delays are shared across
+        polarizations. Fused-eligible configs render all four in ONE kernel
+        launch (the polarizations ride the kernel's slot axis); others
+        render each polarization on its own.
+        """
+        self._check_pols()
+        if polar_fused_eligible(cfg, len(POLS)):
+            res = _render_polar_streamed(self._path_data(), bs_panel,
+                                         ue_panel, cfg, *self._polar_stacks(),
+                                         to_device=to_device, out=out)
+            return res if to_device else dict(zip(POLS, res))
+        if to_device:
+            raise ValueError(
+                "to_device=True with dual-polarization requires a fused-"
+                "eligible config (OFDM, no rx_filter, complex64, "
+                "arithmetic subcarrier selection); call per polarization "
+                "instead.")
+        return {pol: _render_streamed(
+            self._path_data(power=self[f"power_{pol.lower()}"],
+                            phase=self._pol_phase(pol)),
+            bs_panel, ue_panel, cfg) for pol in POLS}
+
+    def _pol_phase(self, pol: str):
+        return self.get(f"phase_{pol.lower()}", self[c.PHASE_PARAM_NAME])
+
+    def _polar_stacks(self):
+        """[N_pol, U, P] power and phase stacks on ``config['device']``,
+        NaN-padded as loaded (cached per device and dtype: serving loops
+        re-call back to back)."""
+        dev, dtype = self._device_dtype()
+        cached = self.get("_polar_data_cache")
+        if cached is not None and cached[0] == (dev, dtype):
+            return cached[1]
+        stacks = tuple(
+            torch.as_tensor(np.stack([np.asarray(x, np.float64)
+                                      for x in mats]), dtype=dtype,
+                            device=dev)
+            for mats in ([self[f"power_{p.lower()}"] for p in POLS],
+                         [self._pol_phase(p) for p in POLS]))
+        self["_polar_data_cache"] = ((dev, dtype), stacks)
+        return stacks
+
+    def compute_beam_gains(self, params: Optional[ChannelGenParameters]
+                           = None, codebook=None, to_device: bool = False,
+                           out=None):
+        """Codebook beam-gain maps G = |conj(W) . H|^2 without H.
+
+        The codebook folds into the beam-gain kernel's path sum
+        (``ops/kernels/beamgain.py``), so the channel tensor is never
+        formed, on the device or on the host.
+
+        Args:
+            codebook: complex [n_beams, n_tx_ant] array, or a (wr, wi)
+                tuple of real/imag planes. Gains match
+                ``np.abs(H @ codebook.conj().T)**2``.
+            to_device: return the raw tensor [U, R*B, S*K] on the device.
+            out: a tensor from a previous identical call. When its shape,
+                dtype and device match, the new result is written into it
+                in place (the previous result is overwritten); ignored
+                otherwise.
+
+        Returns [n_ue, n_rx_ant, n_beams, K] float32. Dual-polar scenarios
+        (``params['enable_dual_polar']``) return a dict {'VV', 'VH', 'HH',
+        'HV'} of such maps, all four from ONE kernel launch (with
+        ``to_device``, the raw [U, R*B, 4*S*K], slot axis pol-major); ``out``
+        is honoured there too.
+        """
+        if codebook is None:
+            raise ValueError("compute_beam_gains requires a codebook "
+                             "([n_beams, n_tx_ant] complex, or an "
+                             "(wr, wi) tuple)")
+        params, cfg, bs_panel, ue_panel = self._channel_config(params)
+        if isinstance(codebook, tuple):
+            wr, wi = (np.asarray(x, np.float32) for x in codebook)
+        else:
+            cb = np.asarray(codebook)
+            wr = np.real(cb).astype(np.float32)
+            wi = np.imag(cb).astype(np.float32)
+        if wr.ndim != 2 or wr.shape != wi.shape or \
+                wr.shape[1] != cfg.n_tx_ant:
+            raise ValueError(
+                f"codebook must be [n_beams, {cfg.n_tx_ant}] for this "
+                f"antenna config; got {wr.shape}")
+
+        pd = self._path_data()
+        dev = pd.valid.device
+        w = [_small_tensor(x, torch.float32, dev) for x in (wr, wi)]
+        polar = bool(params.get(c.PARAMSET_POLAR_EN, 0))
+        n_pol = len(POLS) if polar else 1
+        n_b, n_k = wr.shape[0], cfg.n_sel_subcarriers
+        shape = (self.n_ue, cfg.n_rx_ant * n_b, n_pol * n_k)
+        out = _reusable(out, shape, dev)
+        if polar:
+            self._check_pols()
+            g = render_beam_gains_polar(pd, bs_panel, ue_panel, cfg,
+                                        *self._polar_stacks(), *w, out=out)
+        else:
+            g = render_beam_gains(pd, bs_panel, ue_panel, cfg, *w, out=out)
+        if to_device:
+            return g
+        arr = g.cpu().numpy().reshape(self.n_ue, cfg.n_rx_ant, n_b, n_pol,
+                                      n_k)
+        if not polar:
+            return arr[:, :, :, 0]
+        return {pol: arr[:, :, :, i] for i, pol in enumerate(POLS)}
+
+    def _device_dtype(self):
         dev = torch.device(config.get("device"))
         dtype = (torch.float64 if config.get("compute_dtype") == "complex128"
                  else torch.float32)
+        return dev, dtype
+
+    def _path_data(self, power=None, phase=None) -> PathData:
+        """Masked PathData of this dataset on ``config['device']`` (cached
+        per device and dtype); ``power``/``phase`` replace the dataset's
+        own matrices (one polarization's), uncached."""
+        dev, dtype = self._device_dtype()
+        own = power is None
         cached = self.get("_path_data_cache")
-        if cached is not None and cached[0] == (dev, dtype):
+        if own and cached is not None and cached[0] == (dev, dtype):
             return cached[1]
         pd = PathData.from_numpy(
-            power=self[c.POWER_PARAM_NAME],
-            phase=self[c.PHASE_PARAM_NAME],
+            power=self[c.POWER_PARAM_NAME] if own else power,
+            phase=self[c.PHASE_PARAM_NAME] if own else phase,
             delay=self[c.DELAY_PARAM_NAME],
             aoa_az=self[c.AOA_AZ_PARAM_NAME],
             aoa_el=self[c.AOA_EL_PARAM_NAME],
@@ -168,7 +312,8 @@ class Dataset(DotDict):
             doppler_vel=self.get(c.DOPPLER_VEL_PARAM_NAME),
             doppler_acc=self.get(c.DOPPLER_ACC_PARAM_NAME),
             dtype=dtype, device=dev)
-        self["_path_data_cache"] = ((dev, dtype), pd)
+        if own:
+            self["_path_data_cache"] = ((dev, dtype), pd)
         return pd
 
     def _compute_n_ue(self) -> int:
@@ -245,8 +390,20 @@ def _print_delay_clipping_warning(r: dict) -> None:
 # Streaming renderer (host-side batching over user blocks)
 # ============================================================================
 
-def _get_complex(planes: torch.Tensor, cfg) -> np.ndarray:
-    return unpack_planes_np(planes.cpu().numpy(), cfg)
+def _reusable(out, shape, dev):
+    """``out`` when it can take a result of ``shape`` on ``dev`` in place
+    (float32, contiguous), else None: the config changed and there is
+    nothing to reuse."""
+    if out is None or (tuple(out.shape) == tuple(shape) and
+                       out.dtype == torch.float32 and out.device == dev and
+                       out.is_contiguous()):
+        return out
+    return None
+
+
+def _fits_one_launch(shape, to_device: bool) -> bool:
+    return to_device or int(np.prod(shape)) * 4 <= int(
+        config.get("max_device_output_bytes"))
 
 
 def _render_streamed(path_data: PathData, bs_panel, ue_panel, cfg,
@@ -256,27 +413,56 @@ def _render_streamed(path_data: PathData, bs_panel, ue_panel, cfg,
     Single launch (the output fits ``config['max_device_output_bytes']``,
     or ``to_device``): the whole user batch renders at once; ``out``, if
     its shape and dtype match, receives the result in place (the previous
-    contents are overwritten), else it is ignored.
-
-    Streamed: ``config['user_block']`` blocks render in turn on the
-    current stream; each block's device->host copy runs on a side stream
-    into pinned memory while the next block renders, with at most two
-    blocks in flight.
+    contents are overwritten), else it is ignored. Otherwise streamed over
+    user blocks (:func:`_stream_blocks`).
     """
-    n_ue = path_data.n_ue
-    shape = render_out_shape(n_ue, cfg)
-    out_bytes = int(np.prod(shape)) * 4
-    if to_device or out_bytes <= int(config.get("max_device_output_bytes")):
-        dev = path_data.valid.device
-        if out is not None and (tuple(out.shape) != shape or
-                                out.dtype != torch.float32 or
-                                out.device != dev or
-                                not out.is_contiguous()):
-            out = None                   # config changed: nothing to reuse
-        h = render_channels_planes(path_data, bs_panel, ue_panel, cfg,
-                                   out=out)
-        return h if to_device else _get_complex(h, cfg)
+    shape = render_out_shape(path_data.n_ue, cfg)
+    if _fits_one_launch(shape, to_device):
+        h = render_channels_planes(
+            path_data, bs_panel, ue_panel, cfg,
+            out=_reusable(out, shape, path_data.valid.device))
+        return h if to_device else unpack_planes_np(h.cpu().numpy(), cfg)
+    return _stream_blocks(
+        path_data, bs_panel, ue_panel,
+        lambda pd, bsp, uep, start, size: render_channels_planes(
+            pd, bsp, uep, cfg),
+        lambda planes: unpack_planes_np(planes, cfg), axis=0)
 
+
+def _render_polar_streamed(path_data: PathData, bs_panel, ue_panel, cfg,
+                           pol_power_dbw, pol_phase_deg,
+                           to_device: bool = False, out=None):
+    """Dual-polar render: one launch (with ``out`` reused as in
+    :func:`_render_streamed`) or streamed over user blocks.
+
+    Returns host complex [N_pol, U, R, T, K], or with ``to_device`` the raw
+    polar planes on the device.
+    """
+    n_pol = pol_power_dbw.shape[0]
+    shape = polar_out_shape(path_data.n_ue, cfg, n_pol)
+    if _fits_one_launch(shape, to_device):
+        h = render_channels_planes_polar(
+            path_data, bs_panel, ue_panel, cfg, pol_power_dbw, pol_phase_deg,
+            out=_reusable(out, shape, path_data.valid.device))
+        if to_device:
+            return h
+        return unpack_polar_planes_np(h.cpu().numpy(), cfg, n_pol)
+    return _stream_blocks(
+        path_data, bs_panel, ue_panel,
+        lambda pd, bsp, uep, start, size: render_channels_planes_polar(
+            pd, bsp, uep, cfg, pol_power_dbw[:, start:start + size],
+            pol_phase_deg[:, start:start + size]),
+        lambda planes: unpack_polar_planes_np(planes, cfg, n_pol), axis=1)
+
+
+def _stream_blocks(path_data: PathData, bs_panel, ue_panel, render_block,
+                   unpack, axis: int):
+    """Render ``config['user_block']`` user blocks in turn on the current
+    stream with ``render_block(pd, bs, ue, start, size)``; each block's
+    device->host copy runs on a side stream into pinned memory while the
+    next block renders, with at most two blocks in flight. Returns the
+    host blocks, each through ``unpack``, joined along ``axis``."""
+    n_ue = path_data.n_ue
     block = int(config.get("user_block"))
     per_user_rot = bs_panel.rotation_deg.dim() == 2 or \
         ue_panel.rotation_deg.dim() == 2
@@ -289,13 +475,13 @@ def _render_streamed(path_data: PathData, bs_panel, ue_panel, cfg,
         idx, host, done = entry
         if done is not None:
             done.synchronize()
-        chunks[idx] = unpack_planes_np(host.numpy(), cfg)
+        chunks[idx] = unpack(host.numpy())
 
     for start in range(0, n_ue, block):
         size = min(block, n_ue - start)
         pd, bsp, uep = _slice_block(path_data, bs_panel, ue_panel,
                                     per_user_rot, start, size)
-        h = render_channels_planes(pd, bsp, uep, cfg)
+        h = render_block(pd, bsp, uep, start, size)
         if cuda:
             host = torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
             copy_stream.wait_stream(torch.cuda.current_stream(h.device))
@@ -312,7 +498,7 @@ def _render_streamed(path_data: PathData, bs_panel, ue_panel, cfg,
             collect(inflight.pop(0))
     for entry in inflight:
         collect(entry)
-    return np.concatenate(chunks, axis=0)
+    return np.concatenate(chunks, axis=axis)
 
 
 def _slice_block(path_data: PathData, bs_panel: AntennaPanel,

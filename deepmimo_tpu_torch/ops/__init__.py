@@ -16,8 +16,11 @@ from .geometry import (
     safe_arccos,
 )
 from .patterns import PATTERN_REGISTRY, pattern_gain
-from .channel import (render_channels, render_channels_and_grads,
-                      render_channels_planes, unpack_planes_np)
+from .channel import (beam_gain_eligible, polar_fused_eligible,
+                      render_beam_gains, render_beam_gains_polar,
+                      render_channels, render_channels_and_grads,
+                      render_channels_planes, render_channels_planes_polar,
+                      unpack_planes_np, unpack_polar_planes_np)
 
 __all__ = [
     "AntennaPanel", "ChannelConfig", "PathData", "state_from_numpy",
@@ -25,5 +28,8 @@ __all__ = [
     "ant_indices", "apply_fov", "array_response_planes", "rotate_angles",
     "rotate_unit_vec", "safe_arccos", "PATTERN_REGISTRY", "pattern_gain",
     "render_channels", "render_channels_and_grads",
-    "render_channels_planes", "unpack_planes_np",
+    "render_channels_planes", "unpack_planes_np", "beam_gain_eligible",
+    "render_beam_gains", "polar_fused_eligible",
+    "render_channels_planes_polar", "render_beam_gains_polar",
+    "unpack_polar_planes_np",
 ]

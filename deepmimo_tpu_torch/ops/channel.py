@@ -23,6 +23,12 @@ planes; its path sum is the eager planes product, or with ``backend``
 Both renderers are differentiable; on CUDA the fused render's gradient is
 its backward kernel.
 
+``render_beam_gains`` folds a codebook into the path sum of the
+hand-written beam-gain kernel (``ops/kernels/beamgain.py``), so codebook
+beam gains |conj(W) H|^2 come without H. Dual-polar scenarios render their
+four polarizations in one launch, riding the kernels' slot axis
+(``render_channels_planes_polar``, ``render_beam_gains_polar``).
+
 Configurations outside this slice raise ``NotImplementedError`` naming
 the ROADMAP item that ports them.
 """
@@ -37,8 +43,10 @@ import numpy as np
 import torch
 
 from .. import consts as c
-from .geometry import (apply_fov, array_response_planes, is_full_fov,
-                       rotate_angles, rotate_unit_vec)
+from .geometry import (apply_fov, array_response_phase,
+                       array_response_planes, is_full_fov, rotate_angles,
+                       rotate_unit_vec)
+from .kernels import beamgain as _beamgain
 from .kernels import render as _render
 from .kernels.pathsum import fused_path_sum
 from .patterns import pattern_gain
@@ -66,13 +74,22 @@ def _check_complex_path(cfg: ChannelConfig) -> None:
                           "4 (forward variants)")
 
 
+def _check_forward_variants(cfg: ChannelConfig) -> None:
+    """The fused forward variants still to port: several Doppler snapshots
+    and bfloat16 products."""
+    if cfg.enable_doppler and len(cfg.doppler_times) > 1:
+        raise not_ported("Doppler with several snapshots",
+                         "4 (forward variants)")
+    if cfg.matmul_dtype != "float32":
+        raise not_ported(f"matmul_dtype={cfg.matmul_dtype!r}",
+                         "4 (forward variants)")
+
+
 def check_in_slice(cfg: ChannelConfig) -> None:
     """Raise NotImplementedError for planes configurations not yet
     ported."""
     _check_complex_path(cfg)
-    if cfg.enable_doppler and len(cfg.doppler_times) > 1:
-        raise not_ported("Doppler with several snapshots",
-                          "4 (forward variants)")
+    _check_forward_variants(cfg)
     if cfg.out_dtype != "float32":
         raise not_ported(f"out_dtype={cfg.out_dtype!r}",
                           "4 (forward variants)")
@@ -202,11 +219,12 @@ def _fused_n_snap(cfg: ChannelConfig) -> int:
     return len(cfg.doppler_times) if cfg.enable_doppler else 1
 
 
-def _packed_layout(cfg: ChannelConfig) -> bool:
-    """Emit the packed [..., 2*S*K] plane layout? Needs the opt-in, the
-    frequency domain and S*K % 64 == 0 (kept from the JAX package so both
-    packages produce the same layout for the same config)."""
-    sk = len(cfg.selected_subcarriers) * _fused_n_snap(cfg)
+def _packed_layout(cfg: ChannelConfig, n_pol: int = 1) -> bool:
+    """Emit the packed [..., 2*n_pol*S*K] plane layout? Needs the opt-in,
+    the frequency domain and n_pol*S*K % 64 == 0 (kept from the JAX
+    package so both packages produce the same layout for the same
+    config)."""
+    sk = len(cfg.selected_subcarriers) * _fused_n_snap(cfg) * n_pol
     return (cfg.planes_layout == "packed" and cfg.freq_domain
             and sk % 64 == 0)
 
@@ -220,50 +238,112 @@ def _angles_needed(cfg: ChannelConfig) -> bool:
             or cfg.ue_pattern != "isotropic")
 
 
-def _fused_render_eligible(cfg: ChannelConfig) -> bool:
-    """Can this config render through the CUDA kernel? Same answer on
-    every device: the JAX predicate (frequency domain, no LPF, complex64,
-    arithmetic subcarriers) plus the kernel's shared-memory bound."""
-    if not (cfg.freq_domain and not cfg.rx_filter
-            and cfg.dtype == "complex64" and _k_progression(cfg)):
-        return False
-    return _render.kernel_fits(cfg.ue_shape, cfg.bs_shape, cfg.num_paths,
-                               len(cfg.selected_subcarriers),
-                               _fused_n_snap(cfg))
+def _kernel_config(cfg: ChannelConfig) -> bool:
+    """The JAX package's gate of its fused kernels: frequency domain, no
+    LPF, complex64, arithmetic subcarriers."""
+    return bool(cfg.freq_domain and not cfg.rx_filter
+                and cfg.dtype == "complex64" and _k_progression(cfg))
+
+
+def _fused_render_eligible(cfg: ChannelConfig, n_pol: int = 1) -> bool:
+    """Can this config render through the CUDA kernel, with ``n_pol``
+    polarizations on its slot axis? Same answer on every device:
+    :func:`_kernel_config` plus the kernel's shared-memory bound."""
+    return _kernel_config(cfg) and _render.kernel_fits(
+        cfg.ue_shape, cfg.bs_shape, cfg.num_paths,
+        len(cfg.selected_subcarriers), n_pol * _fused_n_snap(cfg))
 
 
 def _fused_path_scalars(cfg: ChannelConfig, paths: PathData, valid,
-                        powers_lin):
-    """(amp [U, P], psi [U, S*P], omega [U, P]) for the fused kernel.
+                        powers_lin, phase_deg=None):
+    """(amp, psi, omega [U, P]) for the fused kernel.
 
-    Per-path math on flat [U*P] views; k0 folds into psi and the
+    ``powers_lin`` [U, P] gives amp [U, P] and psi [U, S*P]. Stacked as
+    [N, U, P] for N polarizations, with ``phase_deg`` [N, U, P], it gives
+    amp and psi [U, N*S*P], pol-major on the kernel's slot axis
+    (slot = pol*S + s). ``phase_deg`` (finite) replaces the paths' own
+    phase. Per-path math on flat [N, U*P] views; k0 folds into psi and the
     subcarrier stride into omega.
     """
     u, p = paths.delay_s.shape
+    n_pol = powers_lin.shape[0] if powers_lin.dim() == 3 else 1
     valid_f = valid.reshape(-1)
     n_fft = cfg.subcarriers
     delay_f = paths.delay_s.reshape(-1)
     delay_n = delay_f * cfg.bandwidth
     pvalid = valid_f & (delay_n < n_fft)
-    pw = powers_lin.reshape(-1)
+    pw = powers_lin.reshape(n_pol, u * p)
     amp = torch.where(pvalid, torch.sqrt(pw / n_fft), torch.zeros_like(pw))
 
     k0, stride = _k_progression(cfg)
     omega_base = (2 * math.pi / n_fft) * delay_n
-    psi0 = torch.deg2rad(paths.phase_deg.reshape(-1)) - omega_base * k0
+    if phase_deg is None:
+        phase_deg = paths.phase_deg
+    psi0 = torch.deg2rad(phase_deg.reshape(n_pol, u * p)) - omega_base * k0
     snapshots = cfg.doppler_times if cfg.enable_doppler else (0.0,)
     n_s = len(snapshots)
     if cfg.enable_doppler and paths.doppler_vel is not None:
         vel = paths.doppler_vel.reshape(-1)
         acc = paths.doppler_acc.reshape(-1)
         psi = torch.stack([psi0 + _doppler_phase(cfg, vel, acc, delay_f + t)
-                           for t in snapshots])
-        psi = psi.reshape(n_s, u, p).transpose(0, 1).reshape(u, n_s * p)
+                           for t in snapshots], dim=1)
     else:
-        psi = psi0.reshape(u, 1, p).expand(u, n_s, p).reshape(u, n_s * p)
+        psi = psi0[:, None].expand(n_pol, n_s, u * p)
+
+    def slots(x):                       # [N, S, U*P] -> [U, N*S*P]
+        return x.reshape(n_pol * n_s, u, p).transpose(0, 1).reshape(u, -1)
+
+    if powers_lin.dim() == 3:
+        amp = slots(amp[:, None].expand(n_pol, n_s, u * p))
     omega = (omega_base * stride).reshape(u, p)
-    return (amp.reshape(u, p).contiguous(), psi.contiguous(),
+    return (amp.reshape(u, -1).contiguous(), slots(psi).contiguous(),
             omega.contiguous())
+
+
+def _wavevec_steps(cfg: ChannelConfig, paths: PathData, bs: AntennaPanel,
+                   ue: AntennaPanel):
+    """(valid, gain, gry, grz, gty, gtz) for the fused kernels.
+
+    ``valid`` is the path mask with the FoV applied, ``gain`` the TX x RX
+    pattern gain [U, P] (None when no stage needs angle space), and
+    gry..gtz the RX/TX wave-vector phase steps kd*y', kd*z' in the rotated
+    frames. Angle space (rotated theta/phi, FoV, patterns) is entered only
+    when a stage needs it; otherwise ``rotate_unit_vec`` gives the rotated
+    components directly, on flat [U*P] views when both rotations are [3].
+    """
+    kd_ue = 2 * math.pi * ue.spacing
+    kd_bs = 2 * math.pi * bs.spacing
+    if _angles_needed(cfg):
+        aod_theta, aod_phi, aoa_theta, aoa_phi = _rotated_angles(paths, bs,
+                                                                 ue)
+        valid = _fov_valid(cfg, paths.valid, aod_theta, aod_phi, aoa_theta,
+                           aoa_phi)
+        gain = (pattern_gain(cfg.bs_pattern, aod_theta, aod_phi) *
+                pattern_gain(cfg.ue_pattern, aoa_theta, aoa_phi))
+        _, gry, grz = array_response_phase(aoa_theta, aoa_phi, kd_ue)
+        _, gty, gtz = array_response_phase(aod_theta, aod_phi, kd_bs)
+        return valid, gain, gry, grz, gty, gtz
+    flat = ue.rotation_deg.dim() == 1 and bs.rotation_deg.dim() == 1
+    v = (lambda x: x.reshape(-1)) if flat else (lambda x: x)
+    _, ry, rz = rotate_unit_vec(ue.rotation_deg, v(paths.aoa_el_deg),
+                                v(paths.aoa_az_deg))
+    _, ty, tz = rotate_unit_vec(bs.rotation_deg, v(paths.aod_el_deg),
+                                v(paths.aod_az_deg))
+    return (paths.valid, None, kd_ue * ry, kd_ue * rz, kd_bs * ty,
+            kd_bs * tz)
+
+
+def _wavevec_inputs(cfg: ChannelConfig, paths: PathData, bs: AntennaPanel,
+                    ue: AntennaPanel):
+    """(valid, powers_lin, gry, grz, gty, gtz) for the fused kernels: the
+    steps of :func:`_wavevec_steps` with the linear path power (pattern
+    gains applied, zero on invalid paths)."""
+    valid, gain, *steps = _wavevec_steps(cfg, paths, bs, ue)
+    p_lin = torch.pow(10.0, paths.power_dbw / 10.0)
+    if gain is not None:
+        p_lin = p_lin * gain
+    return (valid, torch.where(valid, p_lin, torch.zeros_like(p_lin)),
+            *steps)
 
 
 def _render_fused_planes(cfg: ChannelConfig, paths: PathData, valid,
@@ -329,33 +409,15 @@ def render_channels_planes(paths: PathData, bs: AntennaPanel,
     """
     check_in_slice(cfg)
     shape = render_out_shape(paths.n_ue, cfg)
-    if out is not None and (tuple(out.shape) != shape or
-                            out.dtype != torch.float32 or
-                            out.device != paths.valid.device or
-                            not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous float32 {shape} tensor "
-                         f"on {paths.valid.device}; got {tuple(out.shape)} "
-                         f"{out.dtype} on {out.device}")
+    if out is not None:
+        _render._check_layout("out", out, shape, paths.valid.device)
     paths = paths.trim_paths(cfg.num_paths)
     if cfg.backend in ("pallas", "fused") and _fused_render_eligible(cfg):
         # Isotropic patterns and full-sphere FoV (check_in_slice): angle
-        # space is never entered; a [3] rotation broadcasts against flat
-        # [U*P] views.
-        valid = paths.valid
-        powers_lin = torch.where(
-            valid, torch.pow(10.0, paths.power_dbw / 10.0),
-            torch.zeros_like(paths.power_dbw))
-        flat = ue.rotation_deg.dim() == 1 and bs.rotation_deg.dim() == 1
-        v = (lambda x: x.reshape(-1)) if flat else (lambda x: x)
-        _, ry, rz = rotate_unit_vec(ue.rotation_deg, v(paths.aoa_el_deg),
-                                    v(paths.aoa_az_deg))
-        _, ty, tz = rotate_unit_vec(bs.rotation_deg, v(paths.aod_el_deg),
-                                    v(paths.aod_az_deg))
-        kd_ue = 2 * math.pi * ue.spacing
-        kd_bs = 2 * math.pi * bs.spacing
-        h = _render_fused_planes(cfg, paths, valid, powers_lin,
-                                 kd_ue * ry, kd_ue * rz, kd_bs * ty,
-                                 kd_bs * tz, out=out)
+        # space is never entered.
+        h = _render_fused_planes(cfg, paths,
+                                 *_wavevec_inputs(cfg, paths, bs, ue),
+                                 out=out)
         return h if _packed_layout(cfg) else h.view(shape)
 
     aod_theta, aod_phi, aoa_theta, aoa_phi = _rotated_angles(paths, bs, ue)
@@ -474,3 +536,272 @@ def unpack_planes_np(arr, cfg: ChannelConfig) -> np.ndarray:
     h.real = arr[0]
     h.imag = arr[1]
     return h
+
+
+# ============================================================================
+# Beam-gain maps and dual-polar renders
+# ============================================================================
+
+def _check_beam_gain_cfg(cfg: ChannelConfig, what: str) -> None:
+    """The configurations the beam-gain renderers do not take."""
+    if not cfg.freq_domain or not _k_progression(cfg):
+        raise ValueError(
+            f"{what} requires the frequency domain and an arithmetic "
+            f"subcarrier selection; render channels and fold the codebook "
+            f"downstream for other configs.")
+    if cfg.rx_filter:
+        raise ValueError(
+            f"{what} does not take the receive filter (rx_filter): the "
+            f"beam-gain fold renders the unfiltered channel; render "
+            f"channels with the filter and fold the codebook downstream.")
+    if cfg.dtype != "complex64":
+        raise not_ported(f"Beam gains with compute_dtype={cfg.dtype!r}",
+                         "9 (non-fused paths)")
+    _check_forward_variants(cfg)
+
+
+def beam_gain_eligible(cfg: ChannelConfig, n_beams: int) -> bool:
+    """Can beam gains render through the CUDA kernel? Same answer on every
+    device: :func:`_kernel_config` plus the kernel's shared-memory bound
+    (which does not grow with the slots, so it holds for dual-polar too).
+    """
+    return _kernel_config(cfg) and _beamgain.beam_gain_fits(
+        cfg.ue_shape, cfg.bs_shape, n_beams, cfg.num_paths,
+        len(cfg.selected_subcarriers))
+
+
+def _on_card(dev: torch.device) -> bool:
+    return dev.type != "cpu"
+
+
+def _beam_gain_route(cfg: ChannelConfig, n_beams: int,
+                     dev: torch.device) -> bool:
+    """Kernel (True) or plain version (False) for the beam-gain maps.
+
+    ``backend`` "xla" takes the plain version. The fused backends take the
+    kernel wrapper, whose CPU route is the plain version; past the kernel's
+    shared memory they take the plain version on the CPU (as the JAX
+    package does) and raise on the card, where the plain version would
+    form the whole channel in device memory.
+    """
+    if cfg.backend not in ("pallas", "fused"):
+        return False
+    if beam_gain_eligible(cfg, n_beams):
+        return True
+    if not _on_card(dev):
+        return False
+    n_k = len(cfg.selected_subcarriers)
+    need = _beamgain.smem_bytes(cfg.ue_shape, cfg.bs_shape, n_beams,
+                                cfg.num_paths, n_k)
+    raise ValueError(
+        f"Beam gains at R={cfg.n_rx_ant}, T={cfg.n_tx_ant}, B={n_beams}, "
+        f"K={n_k}, P={cfg.num_paths} need {need} bytes of the beam-gain "
+        f"kernel's shared memory, over its {_render.SMEM_LIMIT}-byte bound; "
+        f"use fewer paths or beams, or backend='xla' for the plain "
+        f"version.")
+
+
+def _beam_gains(cfg: ChannelConfig, args, wr, wi,
+                out: Optional[torch.Tensor]):
+    """G [U, R*B, S*K] from the 7 masked per-path inputs, through the
+    route of :func:`_beam_gain_route`; ``out`` (that shape) is written in
+    place."""
+    dev = args[-1].device
+    wr = torch.as_tensor(wr, dtype=torch.float32, device=dev).contiguous()
+    wi = torch.as_tensor(wi, dtype=torch.float32, device=dev).contiguous()
+    n_k = len(cfg.selected_subcarriers)
+    u, p = args[-1].shape
+    shape = (u, cfg.n_rx_ant * wr.shape[0], args[5].shape[1] // p * n_k)
+    if out is not None:
+        _render._check_layout("out", out, shape, dev)
+    if _beam_gain_route(cfg, wr.shape[0], dev):
+        return _beamgain.fused_beam_gain(*args, wr, wi, cfg.ue_shape,
+                                         cfg.bs_shape, n_k, out=out)
+    g = _beamgain.beam_gain_reference(*args, wr, wi, cfg.ue_shape,
+                                      cfg.bs_shape, n_k)
+    return g if out is None else out.copy_(g)
+
+
+def render_beam_gains(paths: PathData, bs: AntennaPanel, ue: AntennaPanel,
+                      cfg: ChannelConfig, wr, wi,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Codebook beam-gain maps G [U, R*B, S*K] without materializing H.
+
+    G[u, r*B + b, k] = |sum_t conj(w[b, t]) H[u, r, t, k]|^2, with the
+    codebook folded into the path sum (``ops/kernels/beamgain.py``): H is
+    never formed, and the output is T/B x 2 smaller than the planes.
+
+    Args:
+        wr/wi: codebook real/imag planes [B, T] (conj applied inside,
+            matching ``abs(h @ codebook.conj().T)**2``).
+        out: a contiguous float32 [U, R*B, S*K] tensor on the paths'
+            device, overwritten with the result.
+
+    The "xla" backend runs the plain version; so do shapes beyond the
+    kernel's shared memory on the CPU, while on the card they raise
+    (ValueError). Frequency domain and arithmetic subcarrier selections
+    only; the receive filter is refused (ValueError).
+    """
+    _check_beam_gain_cfg(cfg, "render_beam_gains")
+    paths = paths.trim_paths(cfg.num_paths)
+    valid, powers_lin, *steps = _wavevec_inputs(cfg, paths, bs, ue)
+    u, p = paths.delay_s.shape
+    valid_f = valid.reshape(-1)
+
+    def z(x):
+        x = x.reshape(-1)
+        return torch.where(valid_f, x, torch.zeros_like(x)).reshape(u, p)
+
+    args = (*(z(x) for x in steps),
+            *_fused_path_scalars(cfg, paths, valid, powers_lin))
+    return _beam_gains(cfg, args, wr, wi, out)
+
+
+def polar_fused_eligible(cfg: ChannelConfig, n_pol: int = 4) -> bool:
+    """Can the polarizations render in ONE kernel launch? The gates of
+    :func:`_fused_render_eligible`, with the kernel's slot axis carrying
+    n_pol * n_snapshots slots."""
+    return _fused_render_eligible(cfg, n_pol)
+
+
+def polar_out_shape(n_ue: int, cfg: ChannelConfig, n_pol: int = 4):
+    """Shape of :func:`render_channels_planes_polar`' output."""
+    r, t, k = cfg.n_rx_ant, cfg.n_tx_ant, cfg.n_sel_subcarriers
+    n_s = _fused_n_snap(cfg)
+    if _packed_layout(cfg, n_pol):
+        return (n_ue, r, t, 2 * n_pol * n_s * k)
+    return (2, n_ue, r, t, n_pol, n_s, k)
+
+
+def _polar_fused_inputs(cfg: ChannelConfig, paths: PathData,
+                        bs: AntennaPanel, ue: AntennaPanel, pol_power_dbw,
+                        pol_phase_deg):
+    """Shared dual-polar prologue of the fused render and beam-gain paths.
+
+    Returns (gry, grz, gty, gtz [U, P] zero-masked, amp [U, st*P],
+    psi [U, st*P], omega [U, P]) with st = n_pol * n_snapshots: the
+    per-polarization amplitudes and phases stacked pol-major on the kernel
+    slot axis (slot = pol*S + s). Angles and delays are shared across
+    polarizations. The polarization matrices [N_pol, U, P] arrive
+    NaN-padded from the loader, so both amp and psi are masked: a NaN psi
+    would poison the kernel's trig even at amp = 0.
+    """
+    paths = paths.trim_paths(cfg.num_paths)
+    pol_power_dbw = pol_power_dbw[..., :cfg.num_paths]
+    pol_phase_deg = pol_phase_deg[..., :cfg.num_paths]
+    valid, gain, *steps = _wavevec_steps(cfg, paths, bs, ue)
+    zero = torch.zeros((), dtype=paths.delay_s.dtype,
+                       device=paths.delay_s.device)
+
+    def z(x):
+        return torch.where(valid, x, zero)
+
+    p_lin = torch.pow(10.0, pol_power_dbw / 10.0)
+    if gain is not None:
+        p_lin = p_lin * gain
+    u, p = paths.delay_s.shape          # the steps may be flat [U*P] views
+    return (*(z(x.reshape(u, p)) for x in steps),
+            *_fused_path_scalars(cfg, paths, valid, z(p_lin),
+                                 z(pol_phase_deg)))
+
+
+def render_channels_planes_polar(paths: PathData, bs: AntennaPanel,
+                                 ue: AntennaPanel, cfg: ChannelConfig,
+                                 pol_power_dbw: torch.Tensor,
+                                 pol_phase_deg: torch.Tensor,
+                                 out: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """All polarizations in ONE launch of the fused render kernel.
+
+    The polarization axis rides the kernel's slot axis with per-slot
+    amplitudes and phases, so rotations, FoV, pattern gains, panel
+    responses and the subcarrier tables are computed once (angles and
+    delays are shared across polarizations).
+
+    Args:
+        paths: shared geometry (angles, delays, Doppler); its own power and
+            phase are not used.
+        pol_power_dbw / pol_phase_deg: [N_pol, U, P] per-polarization power
+            (dBW) and phase (deg), NaN-padded as loaded.
+        out: a tensor of the output's shape (float32, contiguous, on the
+            paths' device), overwritten with the result.
+
+    Returns (pol-major, slot = pol*S + s):
+        packed layout: [U, R, T, 2*N_pol*S*K], hr of every (pol, s, k) in
+        the first minor half and hi in the second;
+        stacked: [2, U, R, T, N_pol, S, K].
+    Unpack host-side with :func:`unpack_polar_planes_np`.
+    """
+    n_pol = pol_power_dbw.shape[0]
+    _check_forward_variants(cfg)
+    if cfg.out_dtype != "float32":
+        raise not_ported(f"out_dtype={cfg.out_dtype!r}",
+                         "4 (forward variants)")
+    if not polar_fused_eligible(cfg, n_pol):
+        raise ValueError(
+            "render_channels_planes_polar needs a fused-eligible config "
+            "(OFDM, no rx_filter, complex64, arithmetic subcarrier "
+            "selection, within the kernel's shared memory); render each "
+            "polarization with render_channels_planes instead.")
+    shape = polar_out_shape(paths.n_ue, cfg, n_pol)
+    if out is not None:
+        _render._check_layout("out", out, shape, paths.valid.device)
+    args = _polar_fused_inputs(cfg, paths, bs, ue, pol_power_dbw,
+                               pol_phase_deg)
+    n_k = len(cfg.selected_subcarriers)
+    u, q = paths.n_ue, cfg.n_rx_ant * cfg.n_tx_ant
+    sk = n_pol * _fused_n_snap(cfg) * n_k
+    packed = _packed_layout(cfg, n_pol)
+    kout = None
+    if out is not None:
+        kout = out.view(u, q, 2 * sk) if packed else out.view(2, u, q, sk)
+    h = _render.fused_render(*args, cfg.ue_shape, cfg.bs_shape, n_k, packed,
+                             out=kout)
+    return h.view(shape)
+
+
+def unpack_polar_planes_np(arr, cfg: ChannelConfig, n_pol: int = 4):
+    """Host-side inverse of :func:`render_channels_planes_polar`.
+
+    Returns [N_pol, U, R, T, K] complex (complex64 for float32 planes),
+    the per-polarization output of :func:`render_channels`.
+    """
+    arr = np.asarray(arr)
+    cdt = np.complex128 if arr.dtype == np.float64 else np.complex64
+    if arr.dtype not in (np.float32, np.float64):
+        arr = arr.astype(np.float32)
+    n_s = _fused_n_snap(cfg)
+    n_k = len(cfg.selected_subcarriers)
+    if _packed_layout(cfg, n_pol):
+        sk = n_pol * n_s * n_k
+        u, r, t = arr.shape[:3]
+        h = np.empty((u, r, t, sk), dtype=cdt)
+        h.real = arr[..., :sk]
+        h.imag = arr[..., sk:]
+        h = np.moveaxis(h.reshape(u, r, t, n_pol, n_s, n_k), 3, 0)
+    else:
+        h = np.empty(arr.shape[1:], dtype=cdt)       # [U, R, T, NP, S, K]
+        h.real = arr[0]
+        h.imag = arr[1]
+        h = np.moveaxis(h, 3, 0)                     # [NP, U, R, T, S, K]
+    if n_s > 1:
+        return np.moveaxis(h, 4, 5)                  # time axis last
+    return h[:, :, :, :, 0, :]
+
+
+def render_beam_gains_polar(paths: PathData, bs: AntennaPanel,
+                            ue: AntennaPanel, cfg: ChannelConfig,
+                            pol_power_dbw: torch.Tensor,
+                            pol_phase_deg: torch.Tensor, wr, wi,
+                            out: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Per-polarization beam-gain maps G [U, R*B, N_pol*S*K] in ONE
+    launch of the beam-gain kernel: the polarizations ride the slot axis
+    (as in :func:`render_channels_planes_polar`) and the codebook folds
+    into the path sum, so no polarization's H is formed. Slot axis
+    pol-major: G[..., ip*S*K:(ip + 1)*S*K] is polarization ip. ``out``
+    and the routes as in :func:`render_beam_gains`."""
+    _check_beam_gain_cfg(cfg, "render_beam_gains_polar")
+    args = _polar_fused_inputs(cfg, paths, bs, ue, pol_power_dbw,
+                               pol_phase_deg)
+    return _beam_gains(cfg, args, wr, wi, out)

@@ -1,0 +1,220 @@
+"""Fused beam-gain maps: per-path scalars and a codebook in,
+G = |conj(W) . H|^2 out, without H.
+
+Kernel: ``csrc/beamgain.cu``, hand-written CUDA C++ for Hopper
+(``sm_90a``), built with nvcc at first use and called through ctypes.
+
+Source note.
+
+- Replaces the TPU kernel ``deepmimo_tpu/ops/pallas/beamgain.py::_bg_kernel``
+  (with ``_bg_kernel_norx``; wrapper ``_fused_beam_gain_impl``, public
+  ``fused_beam_gain``). It computes exactly ``beam_gain_reference``: the
+  codebook folds into the path sum, eb = conj(W) a_tx [B, P], E = a_rx (x)
+  eb [R*B, P], and G = |E g^T|^2 [R*B, S*K] per user, rows r-major
+  (q = r*B + b).
+- What bounds it on an H100: FP32 FMA and the trig. At the headline
+  (131,072 users, P = 25, T = 64, B = 16, R = 1, K = 64) the fold and the
+  path sum are 2 x 102,400 FMA per user (0.8 ms at 67 TFLOP/s) and the
+  output is 0.54 GB (0.16 ms at 3.35 TB/s).
+- What the design does about it: one 128-thread block per user stages
+  conj(W) (transposed to [2, T, B] here, one small op per call), a_tx, E
+  and one slot's g at a time in shared memory and runs the
+  register-tiled loop of ``csrc/path_sum_tile.cuh`` for the fold and,
+  slot by slot, for the path sum with a power epilogue, each with a
+  thread layout sized for its small output; H never exists. The TPU's lane packing, hi/lo split, ``pltpu.roll``
+  reassembly and VMEM budget (``pick_user_tile_bg``, ``vmem_estimate_bg``,
+  ``pad_store``) are not carried over; :func:`beam_gain_fits` is the
+  kernel's shared-memory bound.
+
+:func:`fused_beam_gain` is the ``apply`` of :class:`FusedBeamGain`: CUDA
+tensors launch the kernel or raise, CPU tensors take the plain version
+:func:`beam_gain_reference`. Its backward is the VJP of the plain version,
+recomputed, as in the JAX package (which has no backward kernel here).
+``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+from .render import (SMEM_LIMIT, _check_inputs, _check_layout,
+                     fused_render_reference)
+
+#: Number of CUDA kernel launches made by :func:`fused_beam_gain`.
+LAUNCHES = 0
+
+
+def smem_bytes(rx_shape, tx_shape, n_beams: int, n_paths: int,
+               n_k: int) -> int:
+    """Shared memory of one block (mirrors ``csrc/beamgain.cu``): conj(W)
+    [T, B], a_tx [T, P] sharing its space with one slot's g [P, K],
+    E [P, R*B] and, when R > 1, a_rx [P, R]; real and imaginary planes.
+    The slots run one after another, so their number does not count."""
+    r = rx_shape[0] * rx_shape[1]
+    t = tx_shape[0] * tx_shape[1]
+    return 2 * 4 * (t * n_beams + n_paths * max(t, n_k) +
+                    n_paths * r * n_beams + (n_paths * r if r > 1 else 0))
+
+
+def beam_gain_fits(rx_shape, tx_shape, n_beams: int, n_paths: int,
+                   n_k: int) -> bool:
+    """Does the CUDA kernel take this shape? (Device-independent.)
+
+    The only bound is the block's shared memory (:func:`smem_bytes` <=
+    227 KB): up to 350 paths at the headline shape, with any number of
+    slots; 39 at 64 beams of a 16 x 16 panel with 256 subcarriers.
+    """
+    if min(*rx_shape, *tx_shape, n_beams, n_paths, n_k) < 1:
+        return False
+    return smem_bytes(rx_shape, tx_shape, n_beams, n_paths,
+                      n_k) <= SMEM_LIMIT
+
+
+def codebook_gain(wr, wi, hr, hi) -> torch.Tensor:
+    """|conj(W) . H|^2 over the antenna axis: codebook planes wr/wi [B, T]
+    and channel planes hr/hi [..., T, K] -> [..., B, K]."""
+    def fold(w, x):
+        return torch.einsum("bt,...tk->...bk", w, x)
+
+    # conj(w) . h: re = wr.hr + wi.hi, im = wr.hi - wi.hr
+    yr = fold(wr, hr) + fold(wi, hi)
+    yi = fold(wr, hi) - fold(wi, hr)
+    return yr * yr + yi * yi
+
+
+def beam_gain_reference(gry, grz, gty, gtz, amp, psi, omega, wr, wi,
+                        rx_shape: Tuple[int, int], tx_shape: Tuple[int, int],
+                        n_k: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (``beam_gain_reference``'s math):
+    H from :func:`fused_render_reference`, then :func:`codebook_gain`.
+
+    Args:
+        gry..omega: the 7 per-path inputs of the fused render.
+        wr/wi: codebook planes [B, T]; conj(w) is applied here, matching
+            ``np.abs(H @ W.conj().T)**2``.
+
+    Returns:
+        G [U, R*B, S*K] float32, rows r-major.
+    """
+    h = fused_render_reference(gry, grz, gty, gtz, amp, psi, omega,
+                               rx_shape, tx_shape, n_k, packed=False)
+    u, sk = omega.shape[0], h.shape[-1]
+    r = rx_shape[0] * rx_shape[1]
+    t = tx_shape[0] * tx_shape[1]
+    g = codebook_gain(wr, wi, h[0].reshape(u, r, t, sk),
+                      h[1].reshape(u, r, t, sk))
+    # einsum may leave the beam axis strided; the kernel's layout is dense
+    return g.reshape(u, r * wr.shape[0], sk).contiguous()
+
+
+def _check_codebook(wr, wi, tx_shape, dev):
+    t = tx_shape[0] * tx_shape[1]
+    for name, w in (("wr", wr), ("wi", wi)):
+        if not isinstance(w, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if w.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32; got {w.dtype}")
+        if w.device != dev:
+            raise ValueError(f"{name} is on {w.device}, omega on {dev}")
+        if not w.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if w.dim() != 2 or w.shape[1] != t or w.shape[0] < 1 or \
+                w.shape != wr.shape:
+            raise ValueError(f"{name} must be [B, T={t}] like wr; got "
+                             f"{tuple(w.shape)}")
+    return wr.shape[0]
+
+
+def _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out):
+    """The forward without autograd: kernel on CUDA, plain on the CPU."""
+    global LAUNCHES
+    u, p, n_s, n_sa = _check_inputs(args, rx_shape, tx_shape, n_k)
+    r1, r2 = (int(x) for x in rx_shape)
+    t1, t2 = (int(x) for x in tx_shape)
+    dev = args[-1].device
+    n_b = _check_codebook(wr, wi, (t1, t2), dev)
+    shape = (u, r1 * r2 * n_b, n_s * n_k)
+    if out is not None:
+        _check_layout("out", out, shape, dev)
+    if dev.type == "cpu":
+        g = beam_gain_reference(*args, wr, wi, (r1, r2), (t1, t2), n_k)
+        return g if out is None else out.copy_(g)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_beam_gain runs on CUDA or CPU tensors, not "
+                         f"{dev}")
+    if not beam_gain_fits((r1, r2), (t1, t2), n_b, p, n_k):
+        raise ValueError(
+            f"shape exceeds the kernel's shared memory: R={r1 * r2}, "
+            f"T={t1 * t2}, B={n_b}, K={n_k}, P={p} needs "
+            f"{smem_bytes((r1, r2), (t1, t2), n_b, p, n_k)} > "
+            f"{SMEM_LIMIT} bytes")
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+    cw = torch.stack((wr.t(), wi.t().neg()))        # conj(W), [2, T, B]
+    launch = _build.launcher("beamgain", 9, 10)
+    with torch.cuda.device(dev):
+        rc = launch(*(x.data_ptr() for x in args), cw.data_ptr(),
+                    out.data_ptr(), u, p, r1, r2, t1, t2, n_b, n_k, n_s,
+                    n_sa, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"beamgain launch failed with CUDA error {rc}")
+    LAUNCHES += 1
+    return out
+
+
+class FusedBeamGain(torch.autograd.Function):
+    """The beam-gain kernel with the VJP of the plain version, recomputed,
+    as its backward (``beamgain.py:323-330``)."""
+
+    @staticmethod
+    def forward(ctx, gry, grz, gty, gtz, amp, psi, omega, wr, wi, rx_shape,
+                tx_shape, n_k):
+        args = (gry, grz, gty, gtz, amp, psi, omega)
+        ctx.save_for_backward(*args, wr, wi)
+        ctx.meta = (rx_shape, tx_shape, n_k)
+        return _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, None)
+
+    @staticmethod
+    def backward(ctx, ct):
+        needs = ctx.needs_input_grad[:9]
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(need)
+                      for x, need in zip(ctx.saved_tensors, needs)]
+            g = beam_gain_reference(*leaves, *ctx.meta)
+            grads = iter(torch.autograd.grad(
+                g, [x for x in leaves if x.requires_grad], ct,
+                allow_unused=True))
+        return (*(next(grads) if need else None for need in needs),
+                None, None, None)
+
+
+def fused_beam_gain(gry, grz, gty, gtz, amp, psi, omega, wr, wi,
+                    rx_shape: Tuple[int, int], tx_shape: Tuple[int, int],
+                    n_k: int, out: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Beam-gain maps G [U, R*B, S*K] (float32) from per-path scalars and a
+    codebook.
+
+    Inputs as in :func:`..render.fused_render` (float32, contiguous, one
+    device, invalid paths zeroed; psi [U, S*P], amp [U, P] or [U, S*P]),
+    plus the codebook planes ``wr``/``wi`` [B, T]. ``out``, when given, must
+    be a contiguous float32 tensor of that shape on the same device; the
+    result is written into it.
+
+    Differentiable through :class:`FusedBeamGain` (gradients reach the
+    codebook and the 7 per-path inputs). ``out=`` writes in place outside
+    autograd, so it raises when an input requires grad. CUDA tensors launch
+    the kernel on the current stream (no sync) or raise; CPU tensors take
+    the plain version.
+    """
+    args = (gry, grz, gty, gtz, amp, psi, omega)
+    if out is None:
+        return FusedBeamGain.apply(*args, wr, wi, rx_shape, tx_shape, n_k)
+    if torch.is_grad_enabled() and any(
+            getattr(x, "requires_grad", False) for x in (*args, wr, wi)):
+        raise ValueError("fused_beam_gain(out=...) cannot record gradients: "
+                         "an input requires grad; call it without out=")
+    return _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out)

@@ -1,0 +1,467 @@
+"""Beam-gain maps of the PyTorch port vs the JAX package.
+
+The plain version of the beam-gain kernel and its autograd Function against
+JAX's ``beam_gain_reference`` and its Pallas kernel in interpret mode,
+``render_beam_gains`` on one state from ``state_from_numpy``,
+``Dataset.compute_beam_gains`` end to end, the refused receive filter, and
+— on a CUDA card only — the CUDA kernel vs its plain version.
+Tolerance 3e-5 * max|G| (tests/test_beamgain.py's kernel bound), 3e-4 *
+max|g| for gradients.
+
+JAX is imported only inside the tests that use it, so the ``gpu`` tests
+also run where JAX is not installed:
+``python -m pytest -m gpu --noconftest tests/test_torch_beamgain.py``.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import deepmimo_tpu_torch as dmt
+from deepmimo_tpu_torch.ops import channel as tch
+from deepmimo_tpu_torch.ops import types as ttypes
+from deepmimo_tpu_torch.ops.kernels import beamgain as kb
+
+from oracle import make_synthetic_paths
+
+torch.set_num_threads(1)
+RTOL = 3e-5
+GRAD_RTOL = 3e-4
+
+# name: (rx_shape, tx_shape, B, K, U, P, S, per-slot amp)
+CASES = {
+    "headline": ((1, 1), (8, 8), 16, 64, 12, 25, 1, False),
+    "multi_rx": ((2, 1), (4, 2), 8, 16, 12, 25, 1, False),
+    "three_slots": ((1, 1), (4, 4), 4, 8, 12, 25, 3, True),
+    "many_paths": ((1, 1), (4, 4), 4, 8, 10, 72, 1, False),
+}
+
+
+def _scalars(u, p, n_s, per_slot, seed=0):
+    """tests/test_beamgain.py's recipe, numpy; a per-slot amp on request."""
+    rng = np.random.RandomState(seed)
+    mk = lambda lo, hi, n: rng.uniform(lo, hi, (u, n)).astype(np.float32)
+    return [mk(-3, 3, p), mk(-3, 3, p), mk(-3, 3, p), mk(-3, 3, p),
+            mk(0, 1e-2, (n_s if per_slot else 1) * p),
+            mk(-3, 3, n_s * p), mk(0, 6, p)]
+
+
+def _codebook(b, t, seed=1):
+    """A non-symmetric complex codebook: a sign slip in the fold's
+    imaginary part shows."""
+    rng = np.random.RandomState(seed)
+    w = np.exp(1j * rng.uniform(-np.pi, np.pi, (b, t))) / np.sqrt(t)
+    return np.real(w).astype(np.float32), np.imag(w).astype(np.float32)
+
+
+def _case(name, seed=0):
+    rx, tx, b, k, u, p, s, per_slot = CASES[name]
+    return (_scalars(u, p, s, per_slot, seed),
+            _codebook(b, tx[0] * tx[1], seed + 1), rx, tx, k)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_matches_jax_reference_and_kernel(name):
+    import jax.numpy as jnp
+    from deepmimo_tpu.ops.pallas.beamgain import (beam_gain_reference,
+                                                  fused_beam_gain)
+
+    arrs, (wr, wi), rx, tx, k = _case(name)
+    jargs = [jnp.asarray(a) for a in (*arrs, wr, wi)]
+    want_ref = np.asarray(beam_gain_reference(*jargs, rx, tx, k))
+    want_k = np.asarray(fused_beam_gain(*jargs, rx, tx, k, user_tile=8,
+                                        interpret=True))
+    targs = [torch.from_numpy(a) for a in (*arrs, wr, wi)]
+    for got in (kb.fused_beam_gain(*targs, rx, tx, k),
+                kb.beam_gain_reference(*targs, rx, tx, k)):
+        assert got.dtype == torch.float32
+        assert tuple(got.shape) == want_ref.shape
+        for want in (want_ref, want_k):
+            np.testing.assert_allclose(got.numpy(), want,
+                                       atol=RTOL * want.max())
+
+
+def test_plain_matches_numpy_fold_of_the_channel():
+    """|H @ W^H|^2 in float64 numpy from the render's own H: conj(W), not
+    W, and rows r-major."""
+    from deepmimo_tpu_torch.ops.kernels.render import fused_render_reference
+
+    arrs, (wr, wi), rx, tx, k = _case("multi_rx", seed=4)
+    targs = [torch.from_numpy(a) for a in arrs]
+    h = fused_render_reference(*targs, rx, tx, k, packed=False).double()
+    u, r, t = arrs[0].shape[0], rx[0] * rx[1], tx[0] * tx[1]
+    hc = (h[0] + 1j * h[1]).numpy().reshape(u, r, t, -1)
+    w = wr.astype(np.float64) + 1j * wi
+    want = np.abs(np.einsum("bt,urtk->urbk", w.conj(), hc)) ** 2
+    got = kb.fused_beam_gain(*targs, torch.from_numpy(wr),
+                             torch.from_numpy(wi), rx, tx, k)
+    np.testing.assert_allclose(got.numpy(), want.reshape(u, -1, k),
+                               atol=RTOL * want.max())
+    wrong = np.abs(np.einsum("bt,urtk->urbk", w, hc)) ** 2
+    assert np.abs(got.numpy() - wrong.reshape(u, -1, k)).max() > \
+        0.1 * want.max()
+
+
+@pytest.mark.parametrize("name", ["headline", "multi_rx", "three_slots"])
+def test_gradients_match_jax(name):
+    import jax
+    import jax.numpy as jnp
+    from deepmimo_tpu.ops.pallas.beamgain import fused_beam_gain
+
+    arrs, (wr, wi), rx, tx, k = _case(name, seed=2)
+    u = arrs[0].shape[0]
+    q = rx[0] * rx[1] * wr.shape[0]
+    n_s = arrs[5].shape[1] // arrs[6].shape[1]
+    cot = np.random.RandomState(3).uniform(-1, 1, (u, q, n_s * k)).astype(
+        np.float32)
+    wrt = {"gty": 2, "amp": 4, "wr": 7, "wi": 8}
+
+    def loss(*a):
+        return jnp.vdot(cot, fused_beam_gain(*a, rx, tx, k, user_tile=8,
+                                             interpret=True))
+
+    want = jax.grad(loss, argnums=tuple(wrt.values()))(
+        *[jnp.asarray(a) for a in (*arrs, wr, wi)])
+    leaves = [torch.from_numpy(a).requires_grad_(i in wrt.values())
+              for i, a in enumerate((*arrs, wr, wi))]
+    g = kb.fused_beam_gain(*leaves, rx, tx, k)
+    assert type(g.grad_fn) is kb.FusedBeamGain._backward_cls
+    (g * torch.from_numpy(cot)).sum().backward()
+    for (name_, i), w in zip(wrt.items(), want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(leaves[i].grad.numpy(), w,
+                                   atol=GRAD_RTOL * np.abs(w).max(),
+                                   err_msg=name_)
+    assert all(x.grad is None for i, x in enumerate(leaves)
+               if i not in wrt.values())
+
+
+def test_cpu_wrapper_uses_plain_version_and_writes_out():
+    arrs, w, rx, tx, k = _case("headline", seed=5)
+    targs = [torch.from_numpy(a) for a in (*arrs, *w)]
+    before = kb.LAUNCHES
+    ref = kb.beam_gain_reference(*targs, rx, tx, k)
+    out = torch.full_like(ref, float("nan"))
+    got = kb.fused_beam_gain(*targs, rx, tx, k, out=out)
+    assert got is out and torch.equal(out, ref)
+    assert kb.LAUNCHES == before        # no kernel launch on the CPU
+    targs[7].requires_grad_(True)
+    with pytest.raises(ValueError, match="gradients"):
+        kb.fused_beam_gain(*targs, rx, tx, k, out=out)
+
+
+@pytest.mark.parametrize("bad", ["float64", "codebook_width", "wi_shape",
+                                 "strided_codebook", "out_shape", "meta"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    arrs, w, rx, tx, k = _case("multi_rx", seed=6)
+    args = [torch.from_numpy(a) for a in (*arrs, *w)]
+    kw = {}
+    if bad == "float64":
+        args[8] = args[8].double()
+    elif bad == "codebook_width":
+        args[7], args[8] = args[7][:, :-1], args[8][:, :-1]
+    elif bad == "wi_shape":
+        args[8] = args[8][:-1]
+    elif bad == "strided_codebook":
+        args[7] = torch.cat([args[7], args[7]], 1)[:, ::2]
+    elif bad == "out_shape":
+        kw["out"] = torch.empty(12, 16, 15)
+    else:
+        args = [a.to("meta") for a in args]
+    with pytest.raises((TypeError, ValueError)):
+        kb.fused_beam_gain(*args, rx, tx, k, **kw)
+
+
+def test_beam_gain_fits_is_the_shared_memory_bound():
+    # headline: conj(W) 64x16, a_tx/g 25x64, E 25x16 -> 24,192 bytes
+    assert kb.smem_bytes((1, 1), (8, 8), 16, 25, 64) == 24_192
+    assert kb.beam_gain_fits((1, 1), (8, 8), 16, 350, 64)
+    assert not kb.beam_gain_fits((1, 1), (8, 8), 16, 351, 64)
+    # the slots run one after another: no slot count enters the bound
+    assert kb.smem_bytes((2, 2), (4, 4), 5, 100, 17) == 33_440
+    assert not kb.beam_gain_fits((1, 1), (8, 8), 0, 25, 64)
+
+
+# ----------------------------------------------------------------------------
+# render_beam_gains and the dataset entry point
+# ----------------------------------------------------------------------------
+
+U = 16
+BASE = dict(bs_shape=(8, 8), ue_shape=(1, 1), subcarriers=512,
+            selected_subcarriers=tuple(range(64)), bandwidth=10e6,
+            num_paths=25, backend="fused", planes_layout="packed")
+STATES = {
+    "isotropic": {},
+    "bs_fov": dict(bs_fov=(120.0, 90.0)),
+    "mimo_dipole_xla": dict(bs_shape=(4, 2), ue_shape=(2, 1),
+                            ue_pattern="halfwave-dipole", backend="xla",
+                            selected_subcarriers=tuple(range(2, 34, 2))),
+}
+
+
+def _leaves(obj):
+    return {f.name: None if getattr(obj, f.name) is None
+            else np.asarray(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)}
+
+
+def _state(name, seed=11):
+    import jax.numpy as jnp
+    from deepmimo_tpu.ops import types as jtypes
+
+    d = make_synthetic_paths(n_ue=U, max_paths=25, seed=seed)
+    jpaths = jtypes.PathData.from_numpy(
+        d["power"], d["phase"], d["delay"], d["aoa_az"], d["aoa_el"],
+        d["aod_az"], d["aod_el"], dtype=jnp.float32)
+    jbs = jtypes.AntennaPanel.make((5.0, -10.0, 20.0))
+    jue = jtypes.AntennaPanel.make((0.0, 10.0, -5.0))
+    jcfg = jtypes.ChannelConfig(**{**BASE, **STATES[name]})
+    tstate = ttypes.state_from_numpy(_leaves(jpaths), _leaves(jbs),
+                                     _leaves(jue), dataclasses.asdict(jcfg),
+                                     device="cpu")
+    return (jpaths, jbs, jue, jcfg), tstate
+
+
+@pytest.mark.parametrize("name", sorted(STATES))
+def test_render_beam_gains_matches_jax(name):
+    import jax.numpy as jnp
+    from deepmimo_tpu.ops import channel as jch
+
+    jstate, (pd, bs, ue, cfg) = _state(name)
+    wr, wi = _codebook(6, cfg.n_tx_ant, seed=9)
+    assert tch.beam_gain_eligible(cfg, 6) == \
+        jch.beam_gain_eligible(jstate[3], 6)
+    want = np.asarray(jch.render_beam_gains(*jstate, jnp.asarray(wr),
+                                            jnp.asarray(wi)))
+    got = tch.render_beam_gains(pd, bs, ue, cfg, torch.from_numpy(wr),
+                                torch.from_numpy(wi))
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=RTOL * want.max())
+    out = torch.full_like(got, float("nan"))
+    assert tch.render_beam_gains(pd, bs, ue, cfg, wr, wi, out=out) is out
+    assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("change", [
+    dict(rx_filter=True), dict(freq_domain=False),
+    dict(selected_subcarriers=(0, 1, 3)),
+], ids=["rx_filter", "time_domain", "non_arithmetic"])
+def test_render_beam_gains_refuses(change):
+    _, (pd, bs, ue, cfg) = _state("isotropic")
+    wr, wi = _codebook(4, 64)
+    with pytest.raises(ValueError, match="rx_filter" if "rx_filter" in change
+                       else "frequency domain"):
+        tch.render_beam_gains(pd, bs, ue, cfg.replace(**change), wr, wi)
+
+
+@pytest.mark.parametrize("polar", [False, True], ids=["single", "polar"])
+def test_beyond_shared_memory_plain_on_cpu_raises_on_card(polar,
+                                                          monkeypatch):
+    """320 beams at the headline exceed the kernel's shared memory: the
+    fused backend runs the plain version on CPU tensors and refuses card
+    tensors (the device check patched here); backend "xla" runs the plain
+    version on either."""
+    _, (pd, bs, ue, cfg) = _state("isotropic")
+    wr, wi = (torch.from_numpy(x) for x in _codebook(320, 64))
+    assert not tch.beam_gain_eligible(cfg, 320)
+    assert tch.beam_gain_eligible(cfg, 16)
+    fn, pol = tch.render_beam_gains, ()
+    if polar:
+        rng = np.random.RandomState(4)
+        fn = tch.render_beam_gains_polar
+        pol = (torch.from_numpy(np.float32(rng.uniform(-120, -70,
+                                                       (4, U, 25)))),
+               torch.from_numpy(np.float32(rng.uniform(-180, 180,
+                                                       (4, U, 25)))))
+    xla = cfg.replace(backend="xla")
+    want = fn(pd, bs, ue, xla, *pol, wr, wi)
+    assert torch.isfinite(want).all()
+    assert torch.equal(fn(pd, bs, ue, cfg, *pol, wr, wi), want)
+    monkeypatch.setattr(tch, "_on_card", lambda dev: True)
+    with pytest.raises(ValueError, match="shared memory"):
+        fn(pd, bs, ue, cfg, *pol, wr, wi)
+    assert torch.equal(fn(pd, bs, ue, xla, *pol, wr, wi), want)
+    before = kb.LAUNCHES                # 16 beams fit: the kernel wrapper,
+    got = fn(pd, bs, ue, cfg, *pol, wr[:16], wi[:16])     # plain on the CPU
+    assert kb.LAUNCHES == before
+    assert torch.equal(got, fn(pd, bs, ue, xla, *pol, wr[:16], wi[:16]))
+
+
+@pytest.mark.parametrize("change", [
+    dict(enable_doppler=True, doppler_times=(0.0, 1e-3)),
+    dict(dtype="complex128"), dict(matmul_dtype="bfloat16"),
+], ids=["doppler_s2", "complex128", "bf16_matmul"])
+def test_render_beam_gains_not_ported(change):
+    _, (pd, bs, ue, cfg) = _state("isotropic")
+    wr, wi = _codebook(4, 64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tch.render_beam_gains(pd, bs, ue, cfg.replace(**change), wr, wi)
+
+
+@pytest.fixture
+def port_on_cpu():
+    """The port renders on the CPU here (its config default is "cuda")."""
+    old = dict(dmt.config.items())
+    dmt.config.set("device", "cpu")
+    yield
+    for k, v in old.items():
+        dmt.config.set(k, v)
+
+
+def _data(seed=3, n_ue=40, max_paths=12):
+    d = make_synthetic_paths(n_ue=n_ue, max_paths=max_paths, seed=seed)
+    d.pop("n_valid")
+    d["rx_pos"] = np.zeros((n_ue, 3), np.float32)
+    d["tx_pos"] = np.zeros((1, 3), np.float32)
+    return d
+
+
+def _params(pkg, ue_shape=(1, 1), **kw):
+    c = pkg.consts
+    p = pkg.ChannelGenParameters()
+    p[c.PARAMSET_ANT_BS][c.PARAMSET_ANT_SHAPE] = np.array([8, 8])
+    p[c.PARAMSET_ANT_BS][c.PARAMSET_ANT_ROTATION] = np.array([0, 15, -30])
+    p[c.PARAMSET_ANT_UE][c.PARAMSET_ANT_SHAPE] = np.array(ue_shape)
+    p[c.PARAMSET_NUM_PATHS] = 12
+    p[c.PARAMSET_OFDM][c.PARAMSET_OFDM_SC_SAMP] = np.arange(64)
+    for k, v in kw.items():
+        p[c.PARAMSET_OFDM][k] = v
+    return p
+
+
+def _bench_codebook(b=16, t=64, seed=5):
+    """benchmarks/run_beamgain_bench.py's codebook: random phase / 8."""
+    rng = np.random.RandomState(seed)
+    return np.exp(1j * rng.uniform(-np.pi, np.pi, (b, t))) / 8.0
+
+
+@pytest.mark.parametrize("ue_shape", [(1, 1), (2, 1)])
+def test_compute_beam_gains_matches_jax(port_on_cpu, ue_shape):
+    import deepmimo_tpu as dm
+
+    w = _bench_codebook()
+    want = dm.Dataset(_data()).compute_beam_gains(_params(dm, ue_shape),
+                                                  codebook=w)
+    ds = dmt.Dataset(_data())
+    got = ds.compute_beam_gains(_params(dmt, ue_shape), codebook=w)
+    r = ue_shape[0] * ue_shape[1]
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32
+    assert got.shape == want.shape == (40, r, 16, 64)
+    np.testing.assert_allclose(got, want, atol=RTOL * want.max())
+    tup = ds.compute_beam_gains(_params(dmt, ue_shape),
+                                codebook=(w.real, w.imag))
+    np.testing.assert_array_equal(tup, got)
+
+
+def test_compute_beam_gains_device_layout_and_out_reuse(port_on_cpu):
+    import deepmimo_tpu as dm
+
+    w = _bench_codebook()
+    want = np.asarray(dm.Dataset(_data()).compute_beam_gains(
+        _params(dm), codebook=w, to_device=True))
+    ds = dmt.Dataset(_data())
+    params = _params(dmt)
+    g = ds.compute_beam_gains(params, codebook=w, to_device=True)
+    assert isinstance(g, torch.Tensor) and tuple(g.shape) == (40, 16, 64)
+    np.testing.assert_allclose(g.numpy(), want, atol=RTOL * want.max())
+    first = g.clone()
+    ptr = g.data_ptr()
+    for _ in range(3):                  # serving loop: one buffer
+        g = ds.compute_beam_gains(params, codebook=w, to_device=True, out=g)
+        assert g.data_ptr() == ptr and torch.equal(g, first)
+    wrong = torch.zeros(40, 2, 64)
+    g2 = ds.compute_beam_gains(params, codebook=w, to_device=True, out=wrong)
+    assert g2.data_ptr() != wrong.data_ptr() and torch.equal(g2, first)
+    assert not wrong.any()
+
+
+def test_compute_beam_gains_codebook_errors_and_rx_filter(port_on_cpu):
+    ds = dmt.Dataset(_data())
+    w = _bench_codebook()
+    with pytest.raises(ValueError, match="codebook"):
+        ds.compute_beam_gains(_params(dmt), codebook=w[:, :32])
+    with pytest.raises(ValueError, match="codebook"):
+        ds.compute_beam_gains(_params(dmt), codebook=w[0])
+    with pytest.raises(ValueError, match="requires a codebook"):
+        ds.compute_beam_gains(_params(dmt))
+    with pytest.raises(ValueError, match="rx_filter"):
+        ds.compute_beam_gains(_params(dmt, rx_filter=1), codebook=w)
+
+
+# ----------------------------------------------------------------------------
+# On the card
+# ----------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain fold in FP32
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["headline", "multi_rx"])
+def test_cuda_kernel_matches_plain_version(cuda, name):
+    rx, tx, b, k, u, p, s, per_slot = CASES[name]
+    arrs = _scalars(u * 257, p, s, per_slot, seed=4)
+    w = _codebook(b, tx[0] * tx[1], seed=5)
+    args = [torch.from_numpy(a).to(cuda) for a in (*arrs, *w)]
+    before = kb.LAUNCHES
+    got = kb.fused_beam_gain(*args, rx, tx, k)
+    want = kb.beam_gain_reference(*args, rx, tx, k)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES == before + 1
+    scale = float(want.max())
+    assert float((got - want).abs().max()) <= RTOL * scale
+
+
+@pytest.mark.gpu
+def test_cuda_dataset_serving_loop_reuses_out(cuda):
+    """config['device'] is "cuda" while the tensors report cuda:0: out=
+    must still be reused, with one kernel launch per call."""
+    old = dmt.config.get("device")
+    dmt.config.set("device", "cuda")
+    try:
+        ds = dmt.Dataset(_data(n_ue=300))
+        w = _bench_codebook()
+        g = ds.compute_beam_gains(_params(dmt), codebook=w, to_device=True)
+        first, ptr = g.clone(), g.data_ptr()
+        before = kb.LAUNCHES
+        for _ in range(2):
+            g = ds.compute_beam_gains(_params(dmt), codebook=w,
+                                      to_device=True, out=g)
+        torch.cuda.synchronize()
+        assert kb.LAUNCHES == before + 2
+        assert g.data_ptr() == ptr and torch.equal(g, first)
+    finally:
+        dmt.config.set("device", old)
+
+
+@pytest.mark.gpu
+def test_cuda_beyond_shared_memory_raises(cuda):
+    """351 paths at the headline exceed the kernel's shared memory: on the
+    card compute_beam_gains raises, with no launch, instead of forming H
+    for the plain version; 350 paths launch the kernel."""
+    old = dmt.config.get("device")
+    dmt.config.set("device", "cuda")
+    try:
+        ds = dmt.Dataset(_data(n_ue=8, max_paths=351))
+        params = _params(dmt)
+        params[dmt.consts.PARAMSET_NUM_PATHS] = 351
+        w = _bench_codebook()
+        before = kb.LAUNCHES
+        with pytest.raises(ValueError, match="shared memory"):
+            ds.compute_beam_gains(params, codebook=w, to_device=True)
+        assert kb.LAUNCHES == before
+        params[dmt.consts.PARAMSET_NUM_PATHS] = 350
+        g = ds.compute_beam_gains(params, codebook=w, to_device=True)
+        torch.cuda.synchronize()
+        assert kb.LAUNCHES == before + 1
+        assert tuple(g.shape) == (8, 16, 64) and bool(torch.isfinite(g).all())
+    finally:
+        dmt.config.set("device", old)

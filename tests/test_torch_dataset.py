@@ -195,12 +195,6 @@ def test_delay_clipping_report_matches_jax(capsys):
 def test_out_of_slice_entry_points_raise(tmp_path):
     ds = dmt.Dataset(_data())
     params = _params(dmt)
-    params["enable_dual_polar"] = 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ds.compute_channels(params)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ds.compute_beam_gains(_params(dmt), codebook=np.ones((4, 64)))
-    params = _params(dmt)
     params["freq_domain"] = 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ds.compute_channels(params)
