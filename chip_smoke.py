@@ -43,17 +43,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    ``CalibParams`` leaf on 4,096 users against the plain versions
    (3e-4 * max|g|); 5 steps at lr 3e-3 with a finite, decreasing loss and
    exactly one forward and one backward launch per step; ms per step,
-   peak device memory and the step's split.
+   peak device memory, the step's split and a ``torch.profiler``
+   breakdown of one step.
 7. The ``pallas`` trainer: ``training_step`` at the same width, one
    path-sum launch per step, first loss equal to the planes loss at rtol
    1e-4.
 
 The line before the last is a JSON object describing every kernel, with
 ``bound_ms``: the larger of its bytes (each input read once, each output
-written once) over 3.35 TB/s and its FP32 flops over 67 TFLOP/s, at the
-headline shapes of this run. The last line is ``{"ok": true, "device":
-{...}}``. Without a CUDA card the script exits non-zero before printing
-any result.
+written once) over 3.35 TB/s and its flops at f32 grade on the tensor
+cores (3 TF32 passes at 495 TFLOP/s), at the headline shapes of this run;
+a ``[bounds]`` line beside it gives the FP32-FMA figure (67 TFLOP/s) too.
+The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
+the script exits non-zero before printing any result.
 """
 
 import json
@@ -92,6 +94,8 @@ BG_ORACLE_RTOL = 1e-4    # beam gains vs the float64 oracle, rel. max|G|
 POLAR_STREAM_USERS = 16_384
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, HBM3 peak
 FP32_FLOPS_PER_S = 67e12     # H100 SXM, FP32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12    # H100 SXM, dense TF32 on the tensor cores
+TF32_PASSES = 3              # f32 grade: hi*hi + hi*lo + lo*hi
 
 
 def log(msg):
@@ -205,6 +209,8 @@ KERNEL_CASES = [
     ("stacked_k16", 4096, MAX_PATHS, UE_SHAPE, BS_SHAPE, 16, 1, False,
      False),
     ("two_slots", 4096, MAX_PATHS, UE_SHAPE, BS_SHAPE, N_SC, 2, True, True),
+    # Q = 15, S*K = 51, P = 37: off every tile size and the k-step
+    ("odd_panel", 4099, 37, (1, 1), (3, 5), 17, 3, True, False),
 ]
 
 
@@ -757,11 +763,13 @@ def phase_polar(torch, dmt):
     return ch_launches[0], bg_launches[0]
 
 
-def kernel_bounds():
+def kernel_bounds(fma=False):
     """Least card time (ms) of each kernel's work at its headline shapes,
     and what bounds it: bytes (each input read once, each output written
-    once) over HBM_BYTES_PER_S, or FP32 flops (FMA = 2) over
-    FP32_FLOPS_PER_S. sincosf is not counted."""
+    once) over HBM_BYTES_PER_S, or flops (FMA = 2) at f32 grade on the
+    tensor cores, TF32_PASSES * flops over TF32_FLOPS_PER_S, the fastest
+    f32-grade route the card offers (``fma``: flops over FP32_FLOPS_PER_S
+    instead, the SIMT FP32 rate). sincosf is not counted."""
     u, p, k = CHUNK, MAX_PATHS, N_SC
     r, t = UE_SHAPE[0] * UE_SHAPE[1], BS_SHAPE[0] * BS_SHAPE[1]
     q, b = r * t, BG_BEAMS
@@ -784,7 +792,8 @@ def kernel_bounds():
     out = {}
     for name, (n_bytes, flops) in work.items():
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS_PER_S * 1e3
+        t_ops = (flops / FP32_FLOPS_PER_S if fma else
+                 TF32_PASSES * flops / TF32_FLOPS_PER_S) * 1e3
         out[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
                      else (t_ops, "operations"))
     return out
@@ -897,6 +906,8 @@ def phase_train(torch, dmt, fwd_ms, bwd_ms):
         f"(kernel times from phase 3); peak device memory "
         f"{peak / 2**30:.3f} GiB; launches fwd {launches[0]}, "
         f"bwd {launches[1]}")
+    profile_cell(torch, "calibration planes", [
+        lambda: sh.training_step_planes(params, paths, target, cfg, lr=LR)])
     first_loss = losses[0]
     del target
     torch.cuda.empty_cache()
@@ -966,6 +977,9 @@ def main():
     src = "deepmimo_tpu_torch/csrc/"
     tpu = "deepmimo_tpu/ops/pallas/"
     bounds = kernel_bounds()
+    log("[bounds] ms, 3xTF32 tensor-core rule (FP32-FMA rule): " + "; ".join(
+        f"{name} {t:.4f} {by} ({f:.4f} {fby})" for (name, (t, by)), (f, fby)
+        in zip(bounds.items(), kernel_bounds(fma=True).values())))
     rows = [
         ("fused_render", "render_fwd.cu", "render.py:432",
          serve_launches + polar_render + train_fwd, fwd),

@@ -4,68 +4,204 @@
 // Replaces the TPU kernel deepmimo_tpu/ops/pallas/render.py::_bwd_kernel
 // (and _bwd_kernel_norx; wrapper _bwd_impl, VJP rule _bwd). Forward, for
 // one user (render_fwd.cu): E[q, p] = exp(j phi[q, p]) with
-// phi = m_r gry + n_r grz + m_t gty + n_t gtz, g[kk, p] = a[s, p] exp(j b),
-// b = psi[s, p] - omega[p] k, kk = s*K + k, and H = E g^T. With the
-// cotangent ct = cr + j ci of H:
+// phi = m_r gry + n_r grz + m_t gty + n_t gtz, g[kk, p] = a[s, p] U[kk, p],
+// U = exp(j b), b = psi[s, p] - omega[p] k, kk = s*K + k, and H = E g^T.
+// With the cotangent ct = cr + j ci of H:
 //
-//   dE_r = ct_r . g_r + ct_i . g_i        dE_i = ct_i . g_r - ct_r . g_i
-//   dG_r = ct_r^T . E_r + ct_i^T . E_i    dG_i = ct_i^T . E_r - ct_r^T . E_i
+//   dE = ct . conj(g):   dE_r = cr . g_r + ci . g_i,  dE_i = ci . g_r - cr . g_i
+//   dG = ct^T . conj(E): dG_r = cr^T . E_r + ci^T . E_i,
+//                        dG_i = ci^T . E_r - cr^T . E_i
 //
 // (render.py:755-762), chained in the block to the outputs (:765-797):
-//   damp[s or 0, p] = sum_k dG_r cb + dG_i sb     (cb + j sb = exp(j b))
+//   damp[s or 0, p] = sum_k dG_r U_r + dG_i U_i
 //   dpsi[s, p]      = sum_k w,  domega[p] = -sum_{s,k} k w,
-//                     w = g_r dG_i - g_i dG_r
+//                     w = a (U_r dG_i - U_i dG_r)
 //   dphi[q, p]      = E_r dE_i - E_i dE_r,  dgty = sum_q m_t(q) dphi, and
 //                     likewise dgtz (n_t), dgry (m_r), dgrz (n_r).
-// E is one phasor of the summed phase, so the panel chain needs no separate
-// a_rx / a_tx; with a single RX antenna dgry = dgrz = 0 exactly.
+// With a single RX antenna dgry = dgrz = 0 exactly.
 //
 // What bounds it on an H100: at the headline shape (P = 25, Q = 64,
 // S*K = 64) it reads ct once (32 KB per user, 4.29 GB per 131,072 users,
 // about 1.3 ms at 3.35 TB/s) and does two contractions the size of the
-// forward's path sum, 2 * 8*Q*SK*P = 1.64 MFLOP per user (2.15e11 in all,
-// about 3.2 ms at 67 TFLOP/s FP32): FMA throughput binds. Design:
-//   - one block per user and every accumulator on chip: the chains above
-//     are linear, so each (q tile, kk tile) step folds its partial dE rows
-//     and dG columns straight into per-path sums; nothing of size
-//     [Q, P] or [SK, P] is kept across tiles or written to HBM;
-//   - the block walks paths in chunks of 32 (one path per lane), q in
-//     tiles of 64 rows and kk in tiles of 64 columns inside one slot, so
-//     shared memory is a constant 87 KB for any shape and every shape the
-//     forward kernel takes is taken here; at the headline each loop runs
-//     once and ct is read once;
-//   - E and the gain planes of a tile are rebuilt in shared memory with
-//     sincosf (full range reduction, as the forward), the ct tile is
-//     staged there with coalesced loads, zero-padded at ragged edges;
-//   - each thread holds 8 rows of dE and 8 columns of dG for its path in
-//     registers; ct reads are warp broadcasts and E / g reads are float4
-//     on padded rows, so shared-memory traffic stays below the FMAs;
-//   - the per-path sums are reduced across the 8 warps through shared
-//     memory; lane p of warp 0 owns path p's outputs for the whole block
-//     and is their only reader and writer, so no atomics are needed and
-//     the result is deterministic.
+// forward's path sum, 2.15e11 flop: 1.3 ms at f32 grade on the tensor
+// cores (3 TF32 passes at 495 TFLOP/s), so bytes and tensor-core work
+// bound it about equally. mma.sync runs TF32 at about half that rate on
+// an H100 (tools/mma_peak.cu), so the three passes of the two padded
+// GEMMs take ~3 ms alone, and the lanes' splits of the B fragments add to
+// them: this design is bound by the consumer warps. Design:
+//   - tiles of 64 q rows x 64 k columns inside one slot (so a = amp[s, p]
+//     is one number per path and tile) and chunks of 32 paths; the chains
+//     are linear, so each tile's partial dE rows and dG columns are folded
+//     straight from the accumulators into per-path sums and nothing of
+//     size [Q, P] or [SK, P] is kept across tiles or written to HBM;
+//   - warp-specialised, one persistent block of 16 warps per SM, as the
+//     forward: 8 producer warps stage each tile into one of two stages
+//     (ct, split; E and U from the trig tables), 8 consumer warps run both
+//     products and fold them. Named barriers hand the stages back and
+//     forth, so the ct loads, the trig and the operand build run while the
+//     tensor cores work on the other stage;
+//   - both contractions are real GEMMs per tile on the tensor cores, in
+//     3xTF32 mma.sync m16n8k8 (render_tables.cuh; no one-pass TF32):
+//     consumer warps 0-3 compute dE / a (M = q, N = paths re/im, K = kk
+//     re/im; A = ct, B = U with signs), warps 4-7 dG (M = kk, K = q re/im;
+//     A = ct read transposed, B = E with signs), 32 rows x 16 paths each;
+//   - ct is read from HBM into registers while the tile's tables are
+//     built (coalesced, zero past the tile) and split into tf32 hi and lo
+//     once per tile, into a plane that both products read: (cr hi, ci hi,
+//     cr lo, ci lo) per element, columns XOR-swizzled by bits 0-1 of the
+//     row, so that the 16-byte A-fragment loads of ct and of its transpose
+//     are both free of bank conflicts. E and U stay fp32 (split planes of
+//     them would not fit two stages): the consumers split the B fragments
+//     they load;
+//   - E and U of a tile come from the separable and two-table trig of
+//     render_tables.cuh, with full-range sincosf;
+//   - the per-path sums are reduced over a warp's rows with shuffles and
+//     over its two row halves through shared memory; lane p of consumer
+//     warp 0 owns path p's outputs for the chunk, keeps them in registers
+//     and is their only writer, so no atomics are needed and the result is
+//     deterministic;
+//   - shared memory depends only on the tile sizes and the table
+//     capacities, so every shape the forward takes is taken here.
 
 #include <cuda_runtime.h>
 
+#include "render_tables.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kPaths = 32;                   // paths per chunk: one per lane
-constexpr int kTQ = 64;                      // q rows per tile
-constexpr int kTK = 64;                      // k columns per tile
-constexpr int kRows = kTQ / kWarps;          // dE rows per thread
-constexpr int kCols = kTK / kWarps;          // dG columns per thread
-constexpr int kES = kTQ + 4;                 // padded row of the E tile
-constexpr int kGS = kTK + 4;                 // padded row of the g tile
-constexpr int kSmemFloats = 2 * kPaths * kES + 4 * kPaths * kGS +
-                            2 * kTQ * kTK + kWarps * kPaths * 4;
+using namespace render;
 
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
+constexpr int kConsumers = 256;     // 8 warps: the two products
+constexpr int kProducers = 256;     // 8 warps: staging
+constexpr int kThreads = kConsumers + kProducers;
+constexpr int kES = kPC + 4;        // E and U plane row (float2), 4 mod 16
+constexpr int kRed = 8;             // partial sums per (row half, path)
+// One stage (bytes): the split ct tile, the E and U planes and amp of the
+// tile's slot.
+constexpr int kStage = 16 * kMT * kNT + 8 * 2 * kMT * kES + 4 * kPC;
+// Named barriers: stage b full / empty, producers, consumers.
+constexpr int kFull = 1, kEmpty = 3, kProdBar = 5, kConsBar = 6;
+constexpr int kHandoff = kConsumers + kProducers;
+
+// Trig table entries per path: a tile lies in one slot, so its OFDM
+// window has at most 9 coarse groups.
+__host__ __device__ inline int table_cap(const Shape& s) {
+  return panel_cap(s) + imin(kL, s.K) + imin(s.K2, (kNT - 1) / kL + 2);
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
+size_t smem_bytes(const Shape& s) {
+  return 2 * static_cast<size_t>(kStage) + sizeof(float) * 2 * 2 * kPC * kRed +
+         sizeof(float2) * static_cast<size_t>(table_cap(s)) * kPC +
+         sizeof(float) * (2 * kScal * kPC + kMT + kNT);
+}
+
+// Column of element (q, kk) in the ct plane: bits 1-2 of kk are flipped
+// by bits 1 and 0 of q.
+__device__ __forceinline__ int ct_col(int q, int kk) {
+  return kk ^ (((q & 1) << 2) | (q & 2));
+}
+
+// One step of a block's walk: user, path chunk, slot, k columns, q rows.
+struct Item {
+  int u, p0, sl, k0, q0;
+};
+
+__device__ __forceinline__ Item next_item(const Shape& s, Item it) {
+  if ((it.q0 += kMT) < s.Q) return it;
+  it.q0 = 0;
+  if ((it.k0 += kNT) < s.K) return it;
+  it.k0 = 0;
+  if (++it.sl < s.S) return it;
+  it.sl = 0;
+  if ((it.p0 += kPC) < s.P) return it;
+  it.p0 = 0;
+  it.u += gridDim.x;
+  return it;
+}
+
+// The stage's parts.
+struct Stage {
+  float4* c;          // [kMT][kNT], split ct, ct_col
+  float2* e;          // [kMT][kES]
+  float2* w;          // [kNT][kES], unit OFDM phasors
+  float* amp;         // [kPC]
+  __device__ explicit Stage(char* base)
+      : c(reinterpret_cast<float4*>(base)),
+        e(reinterpret_cast<float2*>(c + kMT * kNT)),
+        w(e + kMT * kES),
+        amp(reinterpret_cast<float*>(w + kNT * kES)) {}
+};
+
+// The producers: every tile of the block's walk into stage n % 2.
+__device__ __forceinline__ void produce(
+    const Shape& s, int packed, const float* gry, const float* grz,
+    const float* gty, const float* gtz, const float* amp, const float* psi,
+    const float* omega, const float* ct, char* stages, char* mem) {
+  const Team tm{static_cast<int>(threadIdx.x) - kConsumers, kProducers};
+  float2* tab = reinterpret_cast<float2*>(mem);
+  float* scal = reinterpret_cast<float*>(tab + static_cast<size_t>(table_cap(s)) * kPC);
+  int* row_ix = reinterpret_cast<int*>(scal + 2 * kScal * kPC);
+  int* col_ix = row_ix + kMT;
+  const size_t stride = packed ? 2 * static_cast<size_t>(s.SK) : s.SK;
+  constexpr int kPer = kMT * kNT / kProducers;  // ct elements per thread
+  const int kl = tm.id % kNT, r_base = tm.id / kNT;
+  constexpr int kRowStep = kProducers / kNT;
+
+  Item it{static_cast<int>(blockIdx.x), 0, 0, 0, 0};
+  issue_scalars(tm, s, it.u, it.p0, gry, grz, gty, gtz, omega, scal);
+  cp_async_commit();
+  int n = 0;
+  for (; it.u < s.U; ++n) {
+    const size_t u = it.u;
+    const Tile tl(s, it.q0, it.sl * s.K + it.k0, imin(kNT, s.K - it.k0));
+    const int np = imin(kPC, s.P - it.p0);
+    cp_async_wait_all();
+    bar_sync(kProdBar, kProducers);    // scalars landed; tables free
+    const Item nx = next_item(s, it);
+    if (nx.u < s.U) {                  // the next tile's scalars, ahead
+      issue_scalars(tm, s, nx.u, nx.p0, gry, grz, gty, gtz, omega,
+                    scal + ((n + 1) & 1) * kScal * kPC);
+      cp_async_commit();
+    }
+    // Column kl of rows r_base + kRowStep * i of the ct tile, in flight
+    // while the tables are built.
+    const size_t col0 = static_cast<size_t>(it.sl) * s.K + it.k0 + kl;
+    const float* ct_r = ct + (u * s.Q + it.q0) * stride + col0;
+    const float* ct_i = packed ? ct_r + s.SK
+                               : ct + ((s.U + u) * s.Q + it.q0) * s.SK + col0;
+    float cr[kPer], ci[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int r = r_base + kRowStep * i;
+      const bool ok = r < tl.rows && kl < tl.cols;
+      cr[i] = ok ? __ldcs(ct_r + r * stride) : 0.f;
+      ci[i] = ok ? __ldcs(ct_i + r * stride) : 0.f;
+    }
+    build_tables(tm, s, tl, u, it.p0, scal + (n & 1) * kScal * kPC, psi,
+                 nullptr, tab, row_ix, col_ix);
+    bar_sync(kProdBar, kProducers);    // tables ready
+    const int b = n & 1;
+    if (n > 1) bar_sync(kEmpty + b, kHandoff);   // stage b consumed
+    const Stage st(stages + b * kStage);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int r = r_base + kRowStep * i;
+      st.c[r * kNT + ct_col(r, kl)] = split4(make_float2(cr[i], ci[i]));
+    }
+    if (tm.id < np) {
+      st.amp[tm.id] = __ldg(amp + u * s.n_sa * s.P +
+                            (s.n_sa > 1 ? it.sl * s.P : 0) + it.p0 + tm.id);
+    }
+    build_planes<kES>(tm, tl, np, tab, row_ix, col_ix, st.e, st.w);
+    bar_arrive(kFull + b, kHandoff);   // stage b full
+    it = nx;
+  }
+  // The consumers' releases of the last two tiles.
+  if (n > 1) bar_sync(kEmpty + (n & 1), kHandoff);
+  if (n > 0) bar_sync(kEmpty + ((n - 1) & 1), kHandoff);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 render_bwd_kernel(const float* __restrict__ gry, const float* __restrict__ grz,
                   const float* __restrict__ gty, const float* __restrict__ gtz,
                   const float* __restrict__ amp, const float* __restrict__ psi,
@@ -73,237 +209,178 @@ render_bwd_kernel(const float* __restrict__ gry, const float* __restrict__ grz,
                   float* __restrict__ dgry, float* __restrict__ dgrz,
                   float* __restrict__ dgty, float* __restrict__ dgtz,
                   float* __restrict__ damp, float* __restrict__ dpsi,
-                  float* __restrict__ domega, int n_users, int n_paths,
-                  int r1, int r2, int t1, int t2, int n_k, int n_s, int n_sa,
-                  int packed) {
+                  float* __restrict__ domega, Shape s, int packed) {
   extern __shared__ float4 smem4[];
-  float* er_s = reinterpret_cast<float*>(smem4);   // [kPaths][kES]
-  float* ei_s = er_s + kPaths * kES;
-  float* cb_s = ei_s + kPaths * kES;               // [kPaths][kGS], unit
-  float* sb_s = cb_s + kPaths * kGS;
-  float* gr_s = sb_s + kPaths * kGS;               // [kPaths][kGS], amp-scaled
-  float* gi_s = gr_s + kPaths * kGS;
-  float* ctr_s = gi_s + kPaths * kGS;              // [kTQ][kTK]
-  float* cti_s = ctr_s + kTQ * kTK;
-  float* red_s = cti_s + kTQ * kTK;                // [kWarps][kPaths][4]
+  char* stages = reinterpret_cast<char*>(smem4);     // [2][kStage]
+  float* reds = reinterpret_cast<float*>(stages + 2 * kStage);
+  if (threadIdx.x >= kConsumers) {                    // [2][2][kPC][kRed]
+    produce(s, packed, gry, grz, gty, gtz, amp, psi, omega, ct, stages,
+            reinterpret_cast<char*>(reds + 2 * 2 * kPC * kRed));
+    return;
+  }
 
-  const int u = blockIdx.x;
-  const int P = n_paths;
-  const int T = t1 * t2;
-  const int Q = r1 * r2 * T;
-  const int SK = n_s * n_k;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const size_t row = static_cast<size_t>(u) * P;
-  const size_t amp_row = static_cast<size_t>(u) * n_sa * P;
-  const size_t psi_row = static_cast<size_t>(u) * n_s * P;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (threadIdx.x >> 5) & 1;          // rows 32 wm .. + 31
+  const int wn = (threadIdx.x >> 6) & 1;          // paths 16 wn .. + 15
+  const int gemm = threadIdx.x >> 7;              // 0: dE, 1: dG
 
-  // Packed [U, Q, 2*SK] (cr | ci on each row) or stacked [2, U, Q, SK].
-  const size_t stride = packed ? 2 * static_cast<size_t>(SK) : SK;
-  const float* ct_r = ct + static_cast<size_t>(u) * Q * stride;
-  const float* ct_i = packed ? ct_r + SK
-                             : ct + (static_cast<size_t>(n_users) + u) * Q * SK;
+  // Owner lane state (warp 0, path p0 + lane).
+  float o_ty = 0.f, o_tz = 0.f, o_ry = 0.f, o_rz = 0.f, o_om = 0.f;
+  float o_amp = 0.f, o_samp = 0.f, o_spsi = 0.f;
 
-  for (int p0 = 0; p0 < P; p0 += kPaths) {
-    const int p = p0 + lane;
-    const bool owner = warp == 0 && p < P;      // sole reader/writer of p's
-    if (owner) {                                // outputs in this block
-      dgry[row + p] = 0.f;
-      dgrz[row + p] = 0.f;
-      dgty[row + p] = 0.f;
-      dgtz[row + p] = 0.f;
-      domega[row + p] = 0.f;
-      for (int s = 0; s < n_s; ++s) dpsi[psi_row + s * P + p] = 0.f;
-      for (int s = 0; s < n_sa; ++s) damp[amp_row + s * P + p] = 0.f;
-    }
+  Item it{static_cast<int>(blockIdx.x), 0, 0, 0, 0};
+  for (int b = 0; it.u < s.U; b ^= 1) {
+    const size_t u = it.u;
+    const int rows = imin(kMT, s.Q - it.q0);
+    const int cols = imin(kNT, s.K - it.k0);
+    const int np = imin(kPC, s.P - it.p0);
+    const Stage st(stages + b * kStage);
+    const float4* c_pl = st.c;
+    const float2* e_pl = st.e;
+    const float2* u_pl = st.w;
+    const float* amp_t = st.amp;
+    float* red = reds + b * 2 * kPC * kRed;
 
-    for (int q0 = 0; q0 < Q; q0 += kTQ) {
-      __syncthreads();                // the previous tile's readers are done
-      for (int idx = tid; idx < kPaths * kTQ; idx += kThreads) {
-        const int pp = idx / kTQ;
-        const int qq = idx - pp * kTQ;
-        const int pg = p0 + pp;
-        const int q = q0 + qq;
-        float sn = 0.f, cs = 0.f;
-        if (pg < P && q < Q) {
-          const int r = q / T;
-          const int t = q - r * T;
-          float ph = static_cast<float>(t % t1) * gty[row + pg] +
-                     static_cast<float>(t / t1) * gtz[row + pg];
-          if (r > 0) {
-            ph += static_cast<float>(r % r1) * gry[row + pg] +
-                  static_cast<float>(r / r1) * grz[row + pg];
-          }
-          sincosf(ph, &sn, &cs);
+    // This warp: rows 32 wm + 16 i + g (+ 8) of its product, paths
+    // 16 wn + 4 j + t (accumulator columns 2t, 2t + 1: re, im); B column g
+    // is path 16 wn + 4 j + g / 2, re (g even) or im (g odd).
+    const int m_rows = gemm ? cols : rows;        // M of this product
+    const int n_ks = ((gemm ? rows : cols) + 3) / 4;
+    const int n_nt = imin(4, (np - 16 * wn + 3) / 4);
+    float sums[4][4] = {};
+    bar_sync(kFull + b, kHandoff);    // stage b holds this tile
+    if (32 * wm < m_rows && n_nt > 0) {
+      const bool m1 = 32 * wm + 16 < m_rows;
+      const float2* b_pl = (gemm ? e_pl : u_pl) + 16 * wn + (g >> 1);
+      float acc[2][4][4] = {};
+#pragma unroll 2
+      for (int ks = 0; ks < n_ks; ++ks) {
+        const int kx = 4 * ks + t;                // kk (dE) or q (dG)
+        Split a[2][4], bf[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j < n_nt) cplx_b(bf[j], b_pl[kx * kES + 4 * j], g & 1);
         }
-        er_s[pp * kES + qq] = cs;
-        ei_s[pp * kES + qq] = sn;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (i == 1 && !m1) break;
+          const int r0 = 32 * wm + 16 * i + g, r1 = r0 + 8;
+          if (gemm == 0) {     // A[q][kk re/im] = ct[q][kk]
+            cplx_a(a[i], c_pl[r0 * kNT + ct_col(r0, kx)],
+                   c_pl[r1 * kNT + ct_col(r1, kx)]);
+          } else {             // A[kk][q re/im] = ct[q][kk]
+            cplx_a(a[i], c_pl[kx * kNT + ct_col(kx, r0)],
+                   c_pl[kx * kNT + ct_col(kx, r1)]);
+          }
+        }
+        mma3(acc, a, bf, m1 ? 2 : 1, n_nt);
       }
 
-      float der[kRows], dei[kRows];          // rows q0 + warp*kRows + i
+      // Fold this tile's rows into the per-path sums.
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        der[i] = 0.f;
-        dei[i] = 0.f;
-      }
-
-      for (int s = 0; s < n_s; ++s) {
-        for (int k0 = 0; k0 < n_k; k0 += kTK) {
-          __syncthreads();            // E tile built; last g/ct tile consumed
-          for (int idx = tid; idx < kPaths * kTK; idx += kThreads) {
-            const int pp = idx / kTK;
-            const int kc = idx - pp * kTK;
-            const int pg = p0 + pp;
-            const int k = k0 + kc;
-            float sn = 0.f, cs = 0.f, a = 0.f;
-            if (pg < P && k < n_k) {
-              a = amp[amp_row + (n_sa > 1 ? s * P : 0) + pg];
-              sincosf(psi[psi_row + s * P + pg] -
-                          omega[row + pg] * static_cast<float>(k),
-                      &sn, &cs);
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 32 * wm + 16 * i + g + 8 * h;
+          if (r >= m_rows) continue;
+          if (gemm == 0) {     // dE rows: the panel chain
+            const int q = it.q0 + r;
+            const int tq = q % s.T, rq = q / s.T;
+            const float d[4] = {static_cast<float>(tq % s.t1),
+                                static_cast<float>(tq / s.t1),
+                                static_cast<float>(rq % s.r1),
+                                static_cast<float>(rq / s.r1)};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int pp = 16 * wn + 4 * j + t;
+              if (j < n_nt && pp < np) {
+                const float2 e = e_pl[r * kES + pp];
+                const float dphi = amp_t[pp] * (e.x * acc[i][j][2 * h + 1] -
+                                                e.y * acc[i][j][2 * h]);
+#pragma unroll
+                for (int v = 0; v < 4; ++v) sums[j][v] += d[v] * dphi;
+              }
             }
-            cb_s[pp * kGS + kc] = cs;
-            sb_s[pp * kGS + kc] = sn;
-            gr_s[pp * kGS + kc] = a * cs;
-            gi_s[pp * kGS + kc] = a * sn;
-          }
-          for (int idx = tid; idx < kTQ * kTK; idx += kThreads) {
-            const int qq = idx / kTK;
-            const int kc = idx - qq * kTK;
-            const int q = q0 + qq;
-            const int k = k0 + kc;
-            float vr = 0.f, vi = 0.f;
-            if (q < Q && k < n_k) {
-              const size_t off = static_cast<size_t>(q) * stride +
-                                 static_cast<size_t>(s) * n_k + k;
-              vr = ct_r[off];
-              vi = ct_i[off];
-            }
-            ctr_s[idx] = vr;
-            cti_s[idx] = vi;
-          }
-          __syncthreads();
-
-          // dE rows += ct . g (contract this tile's kk).
-          const float* g_r = gr_s + lane * kGS;
-          const float* g_i = gi_s + lane * kGS;
-          for (int kc = 0; kc < kTK; kc += 4) {
-            const float4 br = *reinterpret_cast<const float4*>(g_r + kc);
-            const float4 bi = *reinterpret_cast<const float4*>(g_i + kc);
+          } else {             // dG columns: the gain chain
+            const float kf = static_cast<float>(it.k0 + r);
 #pragma unroll
-            for (int i = 0; i < kRows; ++i) {
-              const int off = (warp * kRows + i) * kTK + kc;
-              const float4 cr = *reinterpret_cast<const float4*>(ctr_s + off);
-              const float4 ci = *reinterpret_cast<const float4*>(cti_s + off);
-              der[i] += dot4(cr, br) + dot4(ci, bi);
-              dei[i] += dot4(ci, br) - dot4(cr, bi);
-            }
-          }
-
-          // dG columns = ct^T . E (contract this tile's q).
-          float dgr[kCols], dgi[kCols];
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            dgr[j] = 0.f;
-            dgi[j] = 0.f;
-          }
-          const float* e_r = er_s + lane * kES;
-          const float* e_i = ei_s + lane * kES;
-          for (int qq = 0; qq < kTQ; qq += 4) {
-            const float4 ar4 = *reinterpret_cast<const float4*>(e_r + qq);
-            const float4 ai4 = *reinterpret_cast<const float4*>(e_i + qq);
-            const float ar[4] = {ar4.x, ar4.y, ar4.z, ar4.w};
-            const float ai[4] = {ai4.x, ai4.y, ai4.z, ai4.w};
-#pragma unroll
-            for (int m = 0; m < 4; ++m) {
-              const int off = (qq + m) * kTK + warp * kCols;
-              const float4 c0 = *reinterpret_cast<const float4*>(ctr_s + off);
-              const float4 c1 = *reinterpret_cast<const float4*>(ctr_s + off + 4);
-              const float4 d0 = *reinterpret_cast<const float4*>(cti_s + off);
-              const float4 d1 = *reinterpret_cast<const float4*>(cti_s + off + 4);
-              const float cv[kCols] = {c0.x, c0.y, c0.z, c0.w,
-                                       c1.x, c1.y, c1.z, c1.w};
-              const float dv[kCols] = {d0.x, d0.y, d0.z, d0.w,
-                                       d1.x, d1.y, d1.z, d1.w};
-#pragma unroll
-              for (int j = 0; j < kCols; ++j) {
-                dgr[j] = fmaf(cv[j], ar[m], fmaf(dv[j], ai[m], dgr[j]));
-                dgi[j] = fmaf(dv[j], ar[m], fmaf(-cv[j], ai[m], dgi[j]));
+            for (int j = 0; j < 4; ++j) {
+              const int pp = 16 * wn + 4 * j + t;
+              if (j < n_nt && pp < np) {
+                const float2 w = u_pl[r * kES + pp];
+                const float dgr = acc[i][j][2 * h], dgi = acc[i][j][2 * h + 1];
+                const float wk = amp_t[pp] * (w.x * dgi - w.y * dgr);
+                sums[j][0] += dgr * w.x + dgi * w.y;
+                sums[j][1] += wk;
+                sums[j][2] -= kf * wk;
               }
             }
           }
-
-          // Gain-side chain of these columns (zero beyond n_k: ct is 0).
-          float s_amp = 0.f, s_psi = 0.f, s_om = 0.f;
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) {
-            const int kc = warp * kCols + j;
-            const int g = lane * kGS + kc;
-            const float w = gr_s[g] * dgi[j] - gi_s[g] * dgr[j];
-            s_amp += dgr[j] * cb_s[g] + dgi[j] * sb_s[g];
-            s_psi += w;
-            s_om -= static_cast<float>(k0 + kc) * w;
-          }
-          float* red = red_s + (warp * kPaths + lane) * 4;
-          red[0] = s_amp;
-          red[1] = s_psi;
-          red[2] = s_om;
-          __syncthreads();
-          if (owner) {
-            float a = 0.f, b = 0.f, c = 0.f;
-            for (int w = 0; w < kWarps; ++w) {
-              const float* rw = red_s + (w * kPaths + lane) * 4;
-              a += rw[0];
-              b += rw[1];
-              c += rw[2];
-            }
-            damp[amp_row + (n_sa > 1 ? s * P : 0) + p] += a;
-            dpsi[psi_row + s * P + p] += b;
-            domega[row + p] += c;
-          }
         }
-      }
-
-      // Panel-side chain of this tile's rows.
-      float s_ty = 0.f, s_tz = 0.f, s_ry = 0.f, s_rz = 0.f;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int qq = warp * kRows + i;
-        const int q = q0 + qq;
-        if (q < Q) {
-          const float dphi = er_s[lane * kES + qq] * dei[i] -
-                             ei_s[lane * kES + qq] * der[i];
-          const int r = q / T;
-          const int t = q - r * T;
-          s_ty += static_cast<float>(t % t1) * dphi;
-          s_tz += static_cast<float>(t / t1) * dphi;
-          s_ry += static_cast<float>(r % r1) * dphi;
-          s_rz += static_cast<float>(r / r1) * dphi;
-        }
-      }
-      __syncthreads();                // the owners have read red_s
-      float* red = red_s + (warp * kPaths + lane) * 4;
-      red[0] = s_ty;
-      red[1] = s_tz;
-      red[2] = s_ry;
-      red[3] = s_rz;
-      __syncthreads();
-      if (owner) {
-        float a = 0.f, b = 0.f, c = 0.f, d = 0.f;
-        for (int w = 0; w < kWarps; ++w) {
-          const float* rw = red_s + (w * kPaths + lane) * 4;
-          a += rw[0];
-          b += rw[1];
-          c += rw[2];
-          d += rw[3];
-        }
-        dgty[row + p] += a;
-        dgtz[row + p] += b;
-        dgry[row + p] += c;
-        dgrz[row + p] += d;
       }
     }
+    bar_arrive(kEmpty + b, kHandoff);  // stage b may be refilled
+
+    // Sum over the 8 row lanes g; lane t of each warp writes the sums of
+    // its 4 paths (zeros where it had none), so every entry of red is
+    // written on every tile.
+    const int n_v = gemm ? 3 : 4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        float x = sums[j][v];
+        x += __shfl_xor_sync(0xffffffffu, x, 4);
+        x += __shfl_xor_sync(0xffffffffu, x, 8);
+        x += __shfl_xor_sync(0xffffffffu, x, 16);
+        sums[j][v] = x;
+      }
+      if (g == 0) {
+        float* dst = red + (wm * kPC + 16 * wn + 4 * j + t) * kRed + 4 * gemm;
+        for (int v = 0; v < n_v; ++v) dst[v] = sums[j][v];
+      }
+    }
+    bar_sync(kConsBar, kConsumers);   // every warp's sums are in red[b]
+
+    if (threadIdx.x < kPC) {
+      const int p = it.p0 + threadIdx.x;
+      const bool first = it.k0 == 0 && it.q0 == 0;
+      const bool last = it.k0 + kNT >= s.K && it.q0 + kMT >= s.Q;
+      if (first && it.sl == 0) {
+        o_ty = o_tz = o_ry = o_rz = o_om = o_amp = 0.f;
+      }
+      if (first) o_samp = o_spsi = 0.f;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float* x = red + (m * kPC + threadIdx.x) * kRed;
+        o_ty += x[0];
+        o_tz += x[1];
+        o_ry += x[2];
+        o_rz += x[3];
+        o_samp += x[4];
+        o_spsi += x[5];
+        o_om += x[6];
+      }
+      if (last && p < s.P) {
+        dpsi[(u * s.S + it.sl) * s.P + p] = o_spsi;
+        if (s.n_sa > 1) {
+          damp[(u * s.S + it.sl) * s.P + p] = o_samp;
+        } else {
+          o_amp += o_samp;
+        }
+        if (it.sl == s.S - 1) {
+          const size_t row = u * s.P + p;
+          dgty[row] = o_ty;
+          dgtz[row] = o_tz;
+          dgry[row] = o_ry;
+          dgrz[row] = o_rz;
+          domega[row] = o_om;
+          if (s.n_sa == 1) damp[row] = o_amp;
+        }
+      }
+    }
+    it = next_item(s, it);
   }
 }
 
@@ -324,13 +401,23 @@ extern "C" int render_bwd_launch(const float* gry, const float* grz,
                                  int r1, int r2, int t1, int t2, int n_k,
                                  int n_s, int n_sa, int packed, void* stream) {
   if (n_users == 0) return cudaSuccess;
-  const int smem = static_cast<int>(sizeof(float)) * kSmemFloats;
-  const cudaError_t err = cudaFuncSetAttribute(
+  const Shape s =
+      make_shape(n_users, n_paths, r1, r2, t1, t2, n_k, n_s, n_sa);
+  const int smem = static_cast<int>(smem_bytes(s));
+  cudaError_t err = cudaFuncSetAttribute(
       render_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  render_bwd_kernel<<<n_users, kThreads, smem,
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, render_bwd_kernel, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  const int grid = imin(n_users, n_sm * (per_sm > 0 ? per_sm : 1));
+  render_bwd_kernel<<<grid, kThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       gry, grz, gty, gtz, amp, psi, omega, ct, dgry, dgrz, dgty, dgtz, damp,
-      dpsi, domega, n_users, n_paths, r1, r2, t1, t2, n_k, n_s, n_sa, packed);
+      dpsi, domega, s, packed);
   return cudaGetLastError();
 }

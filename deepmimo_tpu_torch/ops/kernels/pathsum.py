@@ -32,10 +32,16 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .render import SMEM_LIMIT, smem_bytes
+from .render import SMEM_LIMIT
 
 #: Number of CUDA kernel launches made by :func:`fused_path_sum`.
 LAUNCHES = 0
+
+
+def smem_bytes(q: int, k: int, n_paths: int) -> int:
+    """Shared memory of one block: E [P, Q] and g [P, K], re and im."""
+    return 2 * 4 * n_paths * (q + k)
+
 
 _NAMES = ("arx_r", "arx_i", "atx_r", "atx_i", "amp", "psi", "omega",
           "k_sel")

@@ -1,9 +1,9 @@
 """Fused path->channel render: per-path scalars in, H planes out, and its
 backward.
 
-Kernels: ``csrc/render_fwd.cu`` and ``csrc/render_bwd.cu``, hand-written
-CUDA C++ for Hopper (``sm_90a``), built with nvcc at first use and called
-through ctypes.
+Kernels: ``csrc/render_fwd.cu`` and ``csrc/render_bwd.cu`` (with the shared
+header ``csrc/render_tables.cuh``), hand-written CUDA C++ for Hopper
+(``sm_90a``), built with nvcc at first use and called through ctypes.
 
 Source note.
 
@@ -18,18 +18,29 @@ Source note.
   dE = ct . g and dG = ct^T . E chained to the 7 per-path gradients.
 - What bounds them on an H100: at the headline (131,072 users, P = 25,
   RX 1x1, TX 8x8, K = 64) the forward writes H once (4.29 GB, ~1.3 ms at
-  3.35 TB/s) and the backward reads the cotangent once (the same bytes);
-  the forward's 1.07e11 FP32 flops (~1.6 ms at 67 TFLOP/s) and the
-  backward's 2.15e11 (~3.2 ms) make FMA throughput the bound of both.
-- What the design does about it: one block per user rebuilds E and g in
-  shared memory (trig (Q + S*K)*P times per user, not Q*S*K*P) and keeps
-  every intermediate out of HBM. The forward accumulates 4 x 4 complex
-  register tiles; the backward streams the cotangent through shared
-  memory in 64 x 64 tiles and folds each tile's partial dE rows and dG
-  columns straight into per-path sums (the chains are linear), so its
-  shared memory is constant and it takes every shape the forward takes.
-  No TPU lane packing, hi/lo bf16 split or Chebyshev recurrence is carried
-  over: FP32 FMA is exact enough, and trig is direct ``sincosf``.
+  3.35 TB/s) and the backward reads the cotangent once (the same bytes).
+  Their 1.07e11 and 2.15e11 flop take 0.65 and 1.3 ms at f32 grade on
+  the tensor cores (3 TF32 passes at 495 TFLOP/s), so bytes bound both
+  (the backward about equally with its products).
+- What the design does about it: each product is a real GEMM per tile
+  on the tensor cores, ``mma.sync`` m16n8k8 in 3xTF32 (each operand split
+  into tf32 hi and lo, lo*hi + hi*lo + hi*hi in FP32 accumulators, ~2^-21
+  relative; no one-pass TF32 and no FP32-FMA main loop). Tiles of 64 rows
+  x 64 columns and chunks of 32 paths keep shared memory bounded, so the
+  kernels take any Q, S*K and P. E and g come from per-tile tables
+  (separable panel responses, a fine and a coarse OFDM table, as the TPU
+  kernel's ``_panel_er_ei`` and ``_ofdm_tables``): 4x fewer ``sincosf``
+  than one per element, all with full range reduction. Both kernels are
+  warp-specialised persistent blocks: producer warps stage a tile's
+  operands into one of two stages while consumer warps run the mma on
+  the other. The forward's operands are split once as they are staged
+  and its accumulators go to HBM as 16-byte streaming stores; the
+  backward splits the cotangent tile once (both products read it, dG
+  transposed) and folds each tile's partial dE rows and dG columns
+  straight into per-path sums (the chains are linear), one owner lane
+  per path, no atomics.
+  No TPU lane packing, bf16 hi/lo concat-dot or Chebyshev recurrence is
+  carried over.
 
 :func:`fused_render` is the ``apply`` of :class:`FusedRender`, a
 ``torch.autograd.Function``: CUDA tensors launch the forward kernel and,
@@ -38,7 +49,6 @@ raises. CPU tensors take the plain versions :func:`fused_render_reference`
 and :func:`fused_render_bwd_reference`. ``LAUNCHES`` and ``BWD_LAUNCHES``
 count kernel launches.
 """
-
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -54,24 +64,68 @@ BWD_LAUNCHES = 0
 
 #: Largest dynamic shared memory a block may opt into on Hopper (bytes).
 SMEM_LIMIT = 232_448
+#: Largest Q and S*K the kernels index (C ints).
+INDEX_LIMIT = 2**31 - 1
+
+# Tiles of the kernels (csrc/render_tables.cuh): paths per chunk, rows
+# and columns per tile, fine OFDM table length, plane row.
+_PC, _MT, _NT, _L = 32, 64, 64, 8
+_ES = _PC + 4
 
 
-def smem_bytes(q: int, sk: int, n_paths: int) -> int:
-    """Shared memory of one block: E [P, Q] and g [P, S*K], re and im."""
-    return 2 * 4 * n_paths * (q + sk)
+def _table_entries(rx_shape, tx_shape, n_k: int, n_snap: int,
+                   backward: bool) -> int:
+    """Trig table entries per path of any tile (``panel_cap`` +
+    ``ofdm_cap`` of render_tables.cuh; ``table_cap`` of render_bwd.cu,
+    whose tiles lie in one slot)."""
+    t1 = tx_shape[0]
+    q = rx_shape[0] * rx_shape[1] * tx_shape[0] * tx_shape[1]
+    panel = min(t1, _MT) + min(-(-q // t1), (_MT - 1) // t1 + 2)
+    k2 = -(-n_k // _L)
+    if backward:
+        return panel + min(_L, n_k) + min(k2, (_NT - 1) // _L + 2)
+    segs = min(n_snap, (_NT - 1) // n_k + 2)
+    groups = min(_NT, n_snap * k2, ((_NT - 1) // _L + 2) * segs)
+    return panel + min(_L, n_k) + groups
+
+
+def smem_bytes(rx_shape, tx_shape, n_k: int, n_snap: int = 1,
+               backward: bool = False) -> int:
+    """Dynamic shared memory of one block of the forward (or backward)
+    kernel, as its launcher computes it: two stages of operands (the
+    forward's E and g planes split into tf32 hi and lo; the backward's
+    split cotangent tile and plain E and U planes), the per-path partial
+    sums of the backward, and the staged scalars, tile indices and trig
+    tables of each producer team (two in the forward, one in the
+    backward). It does not grow with P."""
+    tables = 2 * _PC * _table_entries(rx_shape, tx_shape, n_k, n_snap,
+                                      backward)
+    per_team = tables + 2 * 5 * _PC + _MT + _NT
+    if backward:
+        stage = 4 * _MT * _NT + 2 * 2 * _MT * _ES + _PC
+        floats = 2 * stage + 2 * 2 * _PC * 8 + per_team
+    else:
+        floats = 4 * 4 * _MT * _ES + 2 * per_team
+    return 4 * floats
 
 
 def kernel_fits(rx_shape, tx_shape, n_paths: int, n_k: int,
                 n_snap: int = 1) -> bool:
     """Do the CUDA kernels take this shape? (Device-independent.)
 
-    The only bound is the forward's shared memory: all P paths of one
-    user are staged at once, so P <= SMEM_LIMIT / (8 * (Q + S*K)) — 227
-    paths at the headline shape. The backward's shared memory is a
-    constant 87 KB, so it takes every shape the forward takes.
+    Both walk P in chunks and Q and S*K in tiles, so shared memory stays
+    bounded (219,136 bytes for the backward at the headline, at most
+    232,192 at the largest tables, under ``SMEM_LIMIT``) and every P is
+    taken. The bounds left are the kernels' C ints: Q and S*K must each
+    fit in one.
     """
-    q = rx_shape[0] * rx_shape[1] * tx_shape[0] * tx_shape[1]
-    return 0 < smem_bytes(q, n_snap * n_k, max(n_paths, 1)) <= SMEM_LIMIT
+    dims = (*rx_shape, *tx_shape)
+    if n_paths < 1 or n_k < 1 or n_snap < 1 or min(dims) < 1:
+        return False
+    q = dims[0] * dims[1] * dims[2] * dims[3]
+    return (q <= INDEX_LIMIT and n_snap * n_k <= INDEX_LIMIT and
+            smem_bytes(rx_shape, tx_shape, n_k, n_snap, backward=True)
+            <= SMEM_LIMIT)
 
 
 def fused_render_reference(gry, grz, gty, gtz, amp, psi, omega,
@@ -179,9 +233,8 @@ def _check_cuda(dev, rx_shape, tx_shape, p, n_k, n_s, what):
     if not kernel_fits(rx_shape, tx_shape, p, n_k, n_s):
         q = rx_shape[0] * rx_shape[1] * tx_shape[0] * tx_shape[1]
         raise ValueError(
-            f"shape exceeds the kernel's shared memory: Q={q}, "
-            f"S*K={n_s * n_k}, P={p} needs {smem_bytes(q, n_s * n_k, p)} > "
-            f"{SMEM_LIMIT} bytes")
+            f"shape exceeds the kernel's limits: Q={q}, S*K={n_s * n_k}, "
+            f"P={p} (Q and S*K must each be <= {INDEX_LIMIT})")
 
 
 def _render(args, rx_shape, tx_shape, n_k, packed, out):
@@ -243,11 +296,12 @@ def fused_render_bwd(gry, grz, gty, gtz, amp, psi, omega, ct,
     t1, t2 = (int(x) for x in tx_shape)
     q = r1 * r2 * t1 * t2
     dev = omega.device
+    if dev.type != "cpu":
+        _check_cuda(dev, (r1, r2), (t1, t2), p, n_k, n_s, "fused_render_bwd")
     _check_layout("ct", ct, _out_shape(u, q, n_s * n_k, packed), dev)
     if dev.type == "cpu":
         return fused_render_bwd_reference(*args, ct, (r1, r2), (t1, t2),
                                           n_k, packed)
-    _check_cuda(dev, (r1, r2), (t1, t2), p, n_k, n_s, "fused_render_bwd")
     grads = [torch.empty_like(x) for x in args]
     launch = _build.launcher("render_bwd", 15, 10)
     with torch.cuda.device(dev):

@@ -27,17 +27,24 @@ CASES = {
     "packed": ((1, 1), (4, 4), 1, False, True),
     "packed_two_slots": ((2, 1), (2, 2), 2, False, True),
     "per_slot_amp": ((2, 1), (2, 2), 4, True, True),
+    # Q = 15, S*K = 51 and P = 37: off every tile size and the k-step.
+    "odd_panel": ((1, 1), (3, 5), 3, True, False),
 }
+SIZES = {"odd_panel": (37, 17)}     # (P, K) of the cases that differ
 
 
-def _inputs(rx, tx, s, per_slot, packed, u=U, seed=11):
+def _pk(name):
+    return SIZES.get(name, (P, K))
+
+
+def _inputs(rx, tx, s, per_slot, packed, u=U, seed=11, p=P, k=K):
     rng = np.random.RandomState(seed)
     mk = lambda lo, hi, *sh: rng.uniform(lo, hi, sh).astype(np.float32)
-    args = [mk(-3, 3, u, P) for _ in range(4)] + [
-        mk(0, 1e-3, u, (s if per_slot else 1) * P), mk(-3, 3, u, s * P),
-        mk(0, 6, u, P)]
+    args = [mk(-3, 3, u, p) for _ in range(4)] + [
+        mk(0, 1e-3, u, (s if per_slot else 1) * p), mk(-3, 3, u, s * p),
+        mk(0, 6, u, p)]
     q = rx[0] * rx[1] * tx[0] * tx[1]
-    ct = mk(-1, 1, u, q, 2 * s * K) if packed else mk(-1, 1, 2, u, q, s * K)
+    ct = mk(-1, 1, u, q, 2 * s * k) if packed else mk(-1, 1, 2, u, q, s * k)
     return args, ct
 
 
@@ -54,20 +61,22 @@ def _jax_grads(name, args, ct):
     from deepmimo_tpu.ops.pallas import render as R
 
     rx, tx, _, _, packed = CASES[name]
+    k = _pk(name)[1]
     jargs = [jnp.asarray(a) for a in args]
-    kernel = R._bwd_impl(*jargs, jnp.asarray(ct), rx, tx, K, 8, True,
+    kernel = R._bwd_impl(*jargs, jnp.asarray(ct), rx, tx, k, 8, True,
                          "float32", packed)
-    xla = R._bwd_xla(rx, tx, K, packed, jargs, jnp.asarray(ct))
+    xla = R._bwd_xla(rx, tx, k, packed, jargs, jnp.asarray(ct))
     return kernel, xla
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_bwd_reference_matches_jax(name):
     rx, tx, s, per_slot, packed = CASES[name]
-    args, ct = _inputs(rx, tx, s, per_slot, packed)
+    p, k = _pk(name)
+    args, ct = _inputs(rx, tx, s, per_slot, packed, p=p, k=k)
     got = kr.fused_render_bwd_reference(
         *[torch.from_numpy(a) for a in args], torch.from_numpy(ct), rx, tx,
-        K, packed)
+        k, packed)
     kernel, xla = _jax_grads(name, args, ct)
     _close(got, kernel)
     _close(got, xla)
@@ -76,14 +85,15 @@ def test_bwd_reference_matches_jax(name):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_function_backward_matches_jax_kernel(name):
     rx, tx, s, per_slot, packed = CASES[name]
-    args, ct = _inputs(rx, tx, s, per_slot, packed, seed=12)
+    p, k = _pk(name)
+    args, ct = _inputs(rx, tx, s, per_slot, packed, seed=12, p=p, k=k)
     leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
-    h = kr.fused_render(*leaves, rx, tx, K, packed)
+    h = kr.fused_render(*leaves, rx, tx, k, packed)
     h.backward(torch.from_numpy(ct))
     kernel, _ = _jax_grads(name, args, ct)
     _close([x.grad for x in leaves], kernel)
     if per_slot:
-        assert leaves[4].grad.shape == (U, s * P)      # damp per slot
+        assert leaves[4].grad.shape == (U, s * p)      # damp per slot
 
 
 def test_output_carries_the_ports_function():
@@ -187,12 +197,14 @@ def cuda():
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_cuda_bwd_kernel_matches_plain_version(cuda, name):
     rx, tx, s, per_slot, packed = CASES[name]
-    args, ct = _inputs(rx, tx, s, per_slot, packed, u=U * 257, seed=4)
+    p, k = _pk(name)
+    args, ct = _inputs(rx, tx, s, per_slot, packed, u=U * 257, seed=4, p=p,
+                       k=k)
     ts = [torch.from_numpy(a).to(cuda) for a in args]
     ct = torch.from_numpy(ct).to(cuda)
     before = kr.BWD_LAUNCHES
-    got = kr.fused_render_bwd(*ts, ct, rx, tx, K, packed)
-    want = kr.fused_render_bwd_reference(*ts, ct, rx, tx, K, packed)
+    got = kr.fused_render_bwd(*ts, ct, rx, tx, k, packed)
+    want = kr.fused_render_bwd_reference(*ts, ct, rx, tx, k, packed)
     torch.cuda.synchronize()
     assert kr.BWD_LAUNCHES == before + 1
     _close([g.cpu() for g in got], [w.cpu() for w in want])
@@ -218,9 +230,28 @@ def test_cuda_autograd_goes_through_both_kernels(cuda):
 
 @pytest.mark.gpu
 def test_cuda_bwd_raises_on_what_the_kernel_does_not_take(cuda):
-    rx, tx = (4, 4), (16, 16)             # E alone exceeds shared memory
+    # The kernels tile Q, S*K and P, so a 4x4 x 16x16 panel (Q = 4096),
+    # whose E alone would not fit in shared memory at once, is taken;
+    # what is left is a Q past the kernels' C ints.
+    rx, tx = (4, 4), (16, 16)
     args, ct = _inputs(rx, tx, 1, False, False, u=2)
     ts = [torch.from_numpy(a).to(cuda) for a in args]
-    with pytest.raises(ValueError, match="shared memory"):
-        kr.fused_render_bwd(*ts, torch.from_numpy(ct).to(cuda), rx, tx, K,
-                            False)
+    ct = torch.from_numpy(ct).to(cuda)
+    got = kr.fused_render_bwd(*ts, ct, rx, tx, K, False)
+    _close([g.cpu() for g in got], [w.cpu() for w in
+           kr.fused_render_bwd_reference(*ts, ct, rx, tx, K, False)])
+    with pytest.raises(ValueError, match="kernel's limits"):
+        kr.fused_render_bwd(*ts, ct, (1 << 16, 1), (1 << 16, 1), K, False)
+
+
+@pytest.mark.gpu
+def test_cuda_bwd_walks_many_path_chunks(cuda):
+    """P = 227, the most a kernel staging all of a user's paths at once
+    fits at the headline panel: 8 chunks of 32 paths, the last ragged."""
+    rx, tx = (1, 1), (8, 8)
+    args, ct = _inputs(rx, tx, 1, False, True, u=4 * U, seed=8, p=227, k=64)
+    ts = [torch.from_numpy(a).to(cuda) for a in args]
+    ct = torch.from_numpy(ct).to(cuda)
+    got = kr.fused_render_bwd(*ts, ct, rx, tx, 64, True)
+    want = kr.fused_render_bwd_reference(*ts, ct, rx, tx, 64, True)
+    _close([g.cpu() for g in got], [w.cpu() for w in want])

@@ -25,18 +25,21 @@ CASES = {
     "ragged_u": ((2, 2), (4, 2), 13, 64, 1, False, True),
     "two_slots": ((1, 1), (4, 4), 16, 32, 2, True, True),
     "two_slots_stacked": ((2, 1), (2, 2), 11, 16, 2, False, False),
+    # Q = 15, S*K = 51 and P = 37: off every tile size and the k-step.
+    "odd_panel": ((1, 1), (3, 5), 13, 17, 3, True, False),
 }
 P = 25
+PATHS = {"odd_panel": 37}       # P of the cases that do not use P
 
 
-def _inputs(u, s, per_slot, seed=0):
+def _inputs(u, s, per_slot, seed=0, p=P):
     """Per-path scalars at the main path's ranges; invalid paths zeroed."""
     rng = np.random.RandomState(seed)
-    valid = (np.arange(P)[None, :] <
-             rng.randint(1, P + 1, size=(u, 1))).astype(np.float32)
+    valid = (np.arange(p)[None, :] <
+             rng.randint(1, p + 1, size=(u, 1))).astype(np.float32)
 
     def mk(lo, hi, reps=1):
-        x = rng.uniform(lo, hi, (u, reps * P)).astype(np.float32)
+        x = rng.uniform(lo, hi, (u, reps * p)).astype(np.float32)
         return x * np.tile(valid, (1, reps))
 
     return ([mk(-np.pi, np.pi) for _ in range(4)] +
@@ -56,7 +59,7 @@ def test_reference_matches_jax_reference(name):
     from deepmimo_tpu.ops.pallas.render import _reference_impl
 
     rx, tx, u, k, s, per_slot, packed = CASES[name]
-    arrs = _inputs(u, s, per_slot)
+    arrs = _inputs(u, s, per_slot, p=PATHS.get(name, P))
     want = np.stack([np.asarray(x) for x in _reference_impl(
         *[jnp.asarray(a) for a in arrs], rx, tx, k)])
     got = kr.fused_render_reference(*[torch.from_numpy(a) for a in arrs],
@@ -75,7 +78,7 @@ def test_reference_matches_jax_kernel_interpret(name):
     from deepmimo_tpu.ops.pallas.render import fused_render
 
     rx, tx, u, k, s, per_slot, packed = CASES[name]
-    arrs = _inputs(u, s, per_slot, seed=1)
+    arrs = _inputs(u, s, per_slot, seed=1, p=PATHS.get(name, P))
     want = fused_render(*[jnp.asarray(a) for a in arrs], rx, tx, k,
                         user_tile=8, interpret=True, packed=packed)
     got = kr.fused_render(*[torch.from_numpy(a) for a in arrs], rx, tx, k,
@@ -121,12 +124,73 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_fits_is_the_shared_memory_bound():
-    assert kr.smem_bytes(64, 64, 25) == 25_600          # headline: 25.6 KB
+    # Tiles and path chunks bound shared memory whatever P: the headline
+    # takes 167,424 bytes forward and 219,136 backward, the largest tables
+    # 221,696 and 232,192, under the 232,448 a block may opt into.
+    assert kr.smem_bytes((1, 1), (8, 8), 64) == 167_424
+    assert kr.smem_bytes((1, 1), (8, 8), 64, backward=True) == 219_136
+    assert kr.smem_bytes((1, 1), (8, 8), 64, 1, True) == \
+        kr.smem_bytes((1, 1), (8, 8), 64, 4, True)
+    worst = max(kr.smem_bytes(rx, (t1, 3), k, s, bwd)
+                for rx in ((1, 1), (2, 2)) for t1 in (1, 3, 8, 63, 64, 65)
+                for k in (1, 7, 8, 17, 64, 1000) for s in (1, 3, 100)
+                for bwd in (False, True))
+    assert worst <= kr.SMEM_LIMIT
+    # Every shape a kernel staging all P paths of a user at once took
+    # (8 P (Q + S*K) bytes of shared memory) is taken, and more.
+    for rx, tx, n_s in (((1, 1), (8, 8), 1), ((2, 2), (8, 8), 4),
+                        ((2, 2), (4, 2), 1), ((1, 1), (3, 5), 3)):
+        q = rx[0] * rx[1] * tx[0] * tx[1]
+        for k in (16, 17, 64):
+            for p in (1, 25, 37, 100, 227, 500):
+                if 8 * p * (q + n_s * k) <= kr.SMEM_LIMIT:
+                    assert kr.kernel_fits(rx, tx, p, k, n_s)
     assert kr.kernel_fits((1, 1), (8, 8), 25, 64)
     assert kr.kernel_fits((1, 1), (8, 8), 227, 64)
-    assert not kr.kernel_fits((1, 1), (8, 8), 228, 64)
-    assert not kr.kernel_fits((4, 4), (16, 16), 25, 64)
+    assert kr.kernel_fits((1, 1), (8, 8), 228, 64)
+    assert kr.kernel_fits((4, 4), (16, 16), 25, 64)
     assert kr.kernel_fits((2, 2), (8, 8), 25, 64, n_snap=4)
+    # What is left: C-int indices and empty shapes.
+    assert not kr.kernel_fits((1 << 16, 1), (1 << 16, 1), 25, 64)
+    assert not kr.kernel_fits((1, 1), (8, 8), 0, 64)
+    assert not kr.kernel_fits((1, 1), (8, 8), 25, 0)
+
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32 on float32 numbers: add half an ulp of the 10-bit
+    mantissa, then drop the 13 low bits."""
+    bits = torch.as_tensor(x, dtype=torch.float32).view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_three_tf32_passes_hold_the_kernel_tolerance():
+    """Why the kernels split each operand: on the headline-shaped real GEMM
+    of one user ([Er | Ei] (Q x 2P) times [[Gr, Gi], [-Gi, Gr]] (2P x 2SK),
+    Q = 64, 2P = 50, 2SK = 128) lo*hi + hi*lo + hi*hi stays within the
+    kernel's 3e-5 max|H| of a float64 product, and one TF32 pass does not."""
+    rx, tx, u, k, s, per_slot, _ = CASES["headline"]
+    gry, grz, gty, gtz, amp, psi, omega = (
+        torch.from_numpy(a).double() for a in _inputs(u, s, per_slot, 6))
+    m = torch.arange(8, dtype=torch.float64)
+    ph = (m[None, None, :, None] * gty[:, None, None] +         # [u, n, m, P]
+          m[None, :, None, None] * gtz[:, None, None]).reshape(u, 64, P)
+    ang = psi[:, None, :] - omega[:, None, :] * torch.arange(
+        k, dtype=torch.float64)[:, None]                        # [u, K, P]
+    gr, gi = amp[:, None] * torch.cos(ang), amp[:, None] * torch.sin(ang)
+    a = torch.cat((torch.cos(ph), torch.sin(ph)), -1)           # [u, 64, 2P]
+    b = torch.cat((torch.cat((gr, gi), 1), torch.cat((-gi, gr), 1)),
+                  2).transpose(1, 2)                            # [u, 2P, 2SK]
+    assert a.shape[1:] == (64, 50) and b.shape[1:] == (50, 128)
+    want = a @ b
+    a32, b32 = a.float(), b.float()
+    a_hi, b_hi = _tf32_rna(a32), _tf32_rna(b32)
+    a_lo, b_lo = _tf32_rna(a32 - a_hi), _tf32_rna(b32 - b_hi)
+    one = a_hi.double() @ b_hi.double()
+    three = (a_lo.double() @ b_hi.double() + a_hi.double() @ b_lo.double()
+             + one)
+    scale = float(want.abs().max())
+    assert float((three - want).abs().max()) <= RTOL * scale
+    assert float((one - want).abs().max()) > RTOL * scale
 
 
 def test_build_is_keyed_by_source_hash():
@@ -158,7 +222,7 @@ def test_cuda_kernel_matches_plain_version(cuda, name):
     rx, tx, u, k, s, per_slot, packed = CASES[name]
     u *= 257                              # several blocks, ragged
     args = [torch.from_numpy(a).to(cuda)
-            for a in _inputs(u, s, per_slot, seed=4)]
+            for a in _inputs(u, s, per_slot, seed=4, p=PATHS.get(name, P))]
     before = kr.LAUNCHES
     got = kr.fused_render(*args, rx, tx, k, packed)
     ref = kr.fused_render_reference(*args, rx, tx, k, packed)
@@ -166,3 +230,16 @@ def test_cuda_kernel_matches_plain_version(cuda, name):
     assert kr.LAUNCHES == before + 1
     scale = float(ref.abs().max())
     assert float((got - ref).abs().max()) <= RTOL * scale
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_walks_many_path_chunks(cuda):
+    """P = 227, the most a kernel staging all of a user's paths at once
+    fits at the headline panel: 8 chunks of 32 paths, the last ragged."""
+    rx, tx, u, k, s, per_slot, packed = CASES["headline"]
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _inputs(4 * u, s, per_slot, seed=7, p=227)]
+    got = kr.fused_render(*args, rx, tx, k, packed)
+    ref = kr.fused_render_reference(*args, rx, tx, k, packed)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= RTOL * float(ref.abs().max())
