@@ -15,8 +15,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    CUDA-event times of both at the headline width: the forward render and
    the path sum within 3e-5 * max|H|, the render's backward within
    3e-4 * max|g| for each of its 7 gradients, the beam-gain kernel within
-   3e-5 * max|G| (and, for context, the forward render plus an einsum
-   fold at the same width).
+   3e-5 * max|G| at 6 shapes, from 5 users to 131,072 and up to 100 paths,
+   256 subcarriers and 64 beams of a 16 x 16 panel (and, for context, the
+   forward render plus an einsum fold at the headline width).
 4. Serving path: four 131,072-user x 25-path datasets (synthetic, seed 7)
    through ``Dataset.compute_channels(params, to_device=True, out=prev)``
    — one kernel launch per call — checked for shape and finiteness and on
@@ -393,6 +394,10 @@ BG_CASES = [
     ("polar_slots", 4096, UE_SHAPE, BS_SHAPE, BG_BEAMS, N_SC, MAX_PATHS, 4,
      4),
     ("ragged_large", 4099, (2, 2), (4, 4), 5, 17, 100, 3, 1),
+    # the largest P the one-block-per-user kernel took at this shape
+    ("wide", 4099, (1, 1), (16, 16), 64, 256, 39, 1, 1),
+    # fewer users than the grid has warps
+    ("few_users", 5, UE_SHAPE, BS_SHAPE, BG_BEAMS, N_SC, MAX_PATHS, 4, 4),
 ]
 
 

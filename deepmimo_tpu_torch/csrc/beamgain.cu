@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel deepmimo_tpu/ops/pallas/beamgain.py::_bg_kernel
 // (and _bg_kernel_norx; wrapper _fused_beam_gain_impl). For one user u, with
-// TX element t = n*T1 + m, RX element r, beam b, output row q = r*B + b and
-// output column kk = s*K + k:
+// TX element t = n*T1 + m, RX element r = n_r*R1 + m_r, beam b, output row
+// q = r*B + b and output column kk = s*K + k:
 //
 //   a_tx[t, p] = exp(j (m gty[p] + n gtz[p]))
 //   a_rx[r, p] = exp(j (m_r gry[p] + n_r grz[p]))          (R > 1 only)
@@ -16,176 +16,353 @@
 // which is beamgain.py::beam_gain_reference: y = conj(W) . H with
 // H = (a_rx (x) a_tx) g, so G matches np.abs(H @ W.conj().T)**2.
 //
-// What bounds it on an H100: at the headline (P = 25, T = 64, B = 16,
-// R = 1, K = 64) a user does B*T*P complex MACs in the fold and
-// R*B*S*K*P in the path sum (409,600 FP32 flops together) and 3,200
-// sincosf, and stores only 4 KB of G (0.54 GB per 131,072 users, 0.16 ms at
-// 3.35 TB/s), so FP32 FMA throughput and the trig bound it (0.8 ms of FMA
-// at 67 TFLOP/s). Design:
-//   - one block of 128 threads per user; the conjugated codebook [T][B]
-//     (transposed by the wrapper, so staging it is a straight copy free of
-//     bank conflicts), a_tx [T][P], E [P][Q] and (R > 1) a_rx [P][R] are
-//     staged in shared memory; the path sum runs one slot s at a time, with
-//     that slot's g [P][K] over a_tx's space once the fold is done, so a
-//     block holds 8*(T*B + P*max(T, K) + P*Q [+ P*R]) bytes for any number
-//     of slots (24.2 KB at the headline and with the four dual-polar
-//     slots, which would take 62.6 KB with all slots' g at once);
-//   - the fold and the path sum are the register-tiled loop of
-//     path_sum_tile.cuh in FP32 FMA (no TF32), each with a thread layout
-//     that fits its small output: the fold's P x B outputs in 32 x 16
-//     tiles of 2 x 2, each slot's Q x K in 16 x 64 tiles of 4 x 2, so
-//     Q = 16 and K = 64 run no clamped duplicate rows or columns;
-//   - the fold's epilogue writes E straight into shared memory (times a_rx
-//     when R > 1), and the path sum's epilogue stores |y|^2.
+// What bounds it on an H100: at the headline (131,072 users, P = 25,
+// T = 64, B = 16, R = 1, K = 64) a user does B*T*P complex MACs in the fold
+// and R*B*S*K*P in the path sum, 2 x 102,400 FP32 FMA: 0.81 ms at the FP32
+// rate of 67 TFLOP/s, 0.33 ms if the card ran them at 3xTF32 on its tensor
+// cores at the nominal 495 TFLOP/s. Its output is 0.54 GB, 0.16 ms at
+// 3.35 TB/s. So it is bound by operations, and at these shapes by the
+// instructions the SMs issue around them: the products are small (a user's
+// fold is [P x T] . [T x B]) and mma.sync TF32 runs at half its nominal rate
+// here (PERF.md), so the products run as FP32 FMA on the SIMT pipes and the
+// design cuts everything else that is issued beside them.
+//
+// Design:
+//   - persistent blocks of up to 8 warps, sized by the occupancy calculator;
+//     a warp takes one user at a time (u = warp, warp + warps in the grid,
+//     ...) and synchronises only with __syncwarp. Ragged U and U below the
+//     number of warps need no mask beyond the loop bound;
+//   - conj(W), interleaved [T][B] (re, im) by the wrapper, is staged in
+//     shared memory once per block, after the only __syncthreads;
+//   - paths run in chunks of 32 (8 when a large codebook leaves no room for
+//     32-row buffers), lane = path for the trig and the fold, so that shared
+//     memory does not grow with P. Each warp owns two [chunk][18] float2
+//     buffers: E of one 16-row tile and the OFDM tables of one slot and one
+//     64-column tile (rows padded to 18 so that a lane's 16-byte stores of
+//     its row are free of bank conflicts);
+//   - separable trig, as the JAX kernel's _response and _ofdm_tables
+//     (deepmimo_tpu/ops/pallas/render.py:339, :387) and render_tables.cuh:
+//     a_tx = ey[m % 8] * exp(j ((m - m % 8) gty + n gtz)) from 8 + t2
+//     sincosf (plus one per block of 8 when T1 > 8), and
+//     g = fine[k % 8] * coarse[s, k / 8] from 8 + 8 per slot and column
+//     tile: 32 full-range sincosf per path at the headline instead of 128.
+//     No inner loop divides by a runtime value;
+//   - the fold: lane p keeps 16 complex accumulators (one per beam of the
+//     tile) and reads conj(W) as warp-broadcast 16-byte loads, 2 beams per
+//     load; its epilogue multiplies by a_rx (R > 1) and stores E;
+//   - the path sum: lane (qg, kg) of the warp holds 8 rows x 4 columns of
+//     complex accumulators; per path it reads 8 rows of E in four 16-byte
+//     broadcasts, and fine and coarse in one 16-byte and two 8-byte loads,
+//     and builds its four g from them: 7 shared loads and 16 products feed
+//     128 FMA. The |y|^2 epilogue stores 8-byte pairs of adjacent columns,
+//     coalesced along the row, with streaming stores;
+//   - with one chunk (P <= 32) E is folded once per user and tile and kept
+//     for every slot and column tile; with more, the chunks accumulate in
+//     registers and E is folded again per slot and column tile.
 // Invalid paths arrive with zero amp and zero phases from the wrapper.
-// Ragged U needs no mask: the grid has exactly one block per user.
 
 #include <cuda_runtime.h>
 
-#include "path_sum_tile.cuh"
+#include <cstddef>
+#include <initializer_list>
 
 namespace {
 
-constexpr int kThreads = 128;
-// Fold: rows p, columns b, reduction over t.
-constexpr int kFoldTQ = 16, kFoldTK = 8, kFoldRQ = 2, kFoldRK = 2;
-// Path sum: rows q = r*B + b, columns kk, reduction over p.
-constexpr int kSumTQ = 4, kSumTK = 32, kSumRQ = 4, kSumRK = 2;
-static_assert(kFoldTQ * kFoldTK == kThreads, "fold layout");
-static_assert(kSumTQ * kSumTK == kThreads, "path-sum layout");
+constexpr int kMaxWarps = 8;
+constexpr int kRows = 16;        // output rows (beams of one RX element) per tile
+constexpr int kCols = 64;        // output columns (subcarriers) per tile
+constexpr int kPitch = 18;       // float2 per row of a warp's E and table buffers
+constexpr int kL = 8;            // k = k2*kL + k1; TX m in blocks of kL
+constexpr size_t kSmemLimit = 232448;   // dynamic shared memory of a block
 
-// E[p][r*B + b] = a_rx[p][r] * eb[p][b] (eb itself when R = 1).
-struct FoldIntoE {
-  float* er;
-  float* ei;
-  const float* xr;
-  const float* xi;
-  int R, B, Q;
-  __device__ __forceinline__ void operator()(int p, int b, float re,
-                                             float im) const {
-    if (R == 1) {
-      er[p * Q + b] = re;
-      ei[p * Q + b] = im;
-      return;
-    }
-    for (int r = 0; r < R; ++r) {
-      const float cr = xr[p * R + r], ci = xi[p * R + r];
-      er[p * Q + r * B + b] = cr * re - ci * im;
-      ei[p * Q + r * B + b] = cr * im + ci * re;
-    }
-  }
+// The block's shape: paths per chunk, warps, and shared-memory bytes
+// (conj(W) rounded up to 16 bytes, then two [chunk][kPitch] float2 buffers
+// per warp). The widest chunk that leaves room for one warp, then as many
+// warps as fit, at most kMaxWarps; warps == 0 when nothing fits.
+// ops/kernels/beamgain.py's smem_bytes mirrors it.
+struct Plan {
+  int chunk, warps;
+  size_t cw_bytes, smem;
 };
 
-// G[q][k] = |y|^2 at out[q * stride + k].
-struct StorePower {
-  float* out;
-  int stride;
-  __device__ __forceinline__ void operator()(int q, int k, float re,
-                                             float im) const {
-    out[static_cast<size_t>(q) * stride + k] = re * re + im * im;
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
-beamgain_kernel(const float* __restrict__ gry, const float* __restrict__ grz,
-                const float* __restrict__ gty, const float* __restrict__ gtz,
-                const float* __restrict__ amp, const float* __restrict__ psi,
-                const float* __restrict__ omega, const float* __restrict__ cw,
-                float* __restrict__ out,
-                int n_paths, int r1, int r2, int t1, int t2, int n_beams,
-                int n_k, int n_s, int n_sa) {
-  extern __shared__ float smem[];
-  const int u = blockIdx.x;
-  const int P = n_paths;
-  const int T = t1 * t2;
-  const int R = r1 * r2;
-  const int B = n_beams;
-  const int Q = R * B;
-  const int K = n_k;
-  const int X = max(T, K);
-  float* cwr = smem;             // [T][B] conj(W)
-  float* cwi = cwr + T * B;
-  float* xr = cwi + T * B;       // [T][P] a_tx, then one slot's [P][K] g
-  float* xi = xr + P * X;
-  float* er = xi + P * X;        // [P][Q]
-  float* ei = er + P * Q;
-  float* rr = ei + P * Q;        // [P][R] a_rx, R > 1 only
-  float* ri = rr + P * R;
-
-  const size_t row = static_cast<size_t>(u) * P;
-  const int tid = threadIdx.x;
-
-  // Conjugated codebook [2][T][B], as given.
-  for (int idx = tid; idx < 2 * T * B; idx += kThreads) cwr[idx] = cw[idx];
-  // TX panel responses a_tx [T][P].
-  for (int idx = tid; idx < T * P; idx += kThreads) {
-    const int t = idx / P;
-    const int p = idx - t * P;
-    float s, c;
-    sincosf(static_cast<float>(t % t1) * gty[row + p] +
-                static_cast<float>(t / t1) * gtz[row + p],
-            &s, &c);
-    xr[idx] = c;
-    xi[idx] = s;
-  }
-  // RX panel responses a_rx [P][R].
-  if (R > 1) {
-    for (int idx = tid; idx < P * R; idx += kThreads) {
-      const int p = idx / R;
-      const int r = idx - p * R;
-      float s, c;
-      sincosf(static_cast<float>(r % r1) * gry[row + p] +
-                  static_cast<float>(r / r1) * grz[row + p],
-              &s, &c);
-      rr[idx] = c;
-      ri[idx] = s;
+Plan plan(int n_tx, int n_beams) {
+  const size_t cw = 16 * ((static_cast<size_t>(n_tx) * n_beams + 1) / 2);
+  for (int chunk : {32, 8}) {
+    const size_t per_warp = 2 * sizeof(float2) * chunk * kPitch;
+    if (cw + per_warp <= kSmemLimit) {
+      size_t warps = (kSmemLimit - cw) / per_warp;
+      if (warps > static_cast<size_t>(kMaxWarps)) warps = kMaxWarps;
+      return {chunk, static_cast<int>(warps), cw, cw + warps * per_warp};
     }
   }
-  __syncthreads();
+  return {8, 0, cw, cw + 2 * sizeof(float2) * 8 * kPitch};
+}
 
-  // Codebook fold eb = a_tx^T conj(W)^T, chained into E.
-  path_sum::tile_loop<kFoldTQ, kFoldTK, kFoldRQ, kFoldRK>(
-      xr, xi, cwr, cwi, T, P, B, FoldIntoE{er, ei, rr, ri, R, B, Q});
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
 
-  float* out_u = out + static_cast<size_t>(u) * Q * n_s * K;
-  for (int s = 0; s < n_s; ++s) {
-    __syncthreads();             // the fold, or the last slot, is done
-    // OFDM path gains of slot s, g [P][K], over a_tx's space.
-    const float* amp_s = amp + static_cast<size_t>(u) * n_sa * P +
-                         (n_sa > 1 ? s * P : 0);
-    const float* psi_s = psi + static_cast<size_t>(u) * n_s * P + s * P;
-    for (int idx = tid; idx < P * K; idx += kThreads) {
-      const int p = idx / K;
-      const int k = idx - p * K;
-      float sn, cs;
-      sincosf(psi_s[p] - omega[row + p] * static_cast<float>(k), &sn, &cs);
-      xr[idx] = amp_s[p] * cs;
-      xi[idx] = amp_s[p] * sn;
+__device__ __forceinline__ float2 phasor(float ph) {
+  float s, c;
+  sincosf(ph, &s, &c);                // full range reduction
+  return make_float2(c, s);
+}
+
+// acc += a * b
+__device__ __forceinline__ void cmac(float2& acc, float2 a, float2 b) {
+  acc.x = fmaf(a.x, b.x, fmaf(-a.y, b.y, acc.x));
+  acc.y = fmaf(a.x, b.y, fmaf(a.y, b.x, acc.y));
+}
+
+__device__ __forceinline__ float4 pack(float2 a, float2 b) {
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// eb[j] = sum_t cw[t][b0 + j] a_tx[t] for j < kRows, for this lane's path.
+// kVec: B is even and the tile's kRows beams all exist, so 16-byte loads of
+// two beams are aligned; otherwise 8-byte loads, clamped at beam B - 1.
+template <bool kVec>
+__device__ __forceinline__ void fold(const float2* __restrict__ cw, int B,
+                                     int b0, int t1, int t2, float gty,
+                                     float gtz, float2 (&eb)[kRows]) {
+  float2 ey[kL];
+#pragma unroll
+  for (int i = 0; i < kL; ++i) ey[i] = phasor(static_cast<float>(i) * gty);
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) eb[j] = make_float2(0.f, 0.f);
+  for (int n = 0; n < t2; ++n) {
+    const float2 ez = phasor(static_cast<float>(n) * gtz);
+    for (int m0 = 0; m0 < t1; m0 += kL) {
+      const float2 base =
+          m0 == 0 ? ez : cmul(ez, phasor(static_cast<float>(m0) * gty));
+      const float2* w = cw + static_cast<size_t>(n * t1 + m0) * B;
+      const int n_m = min(kL, t1 - m0);
+#pragma unroll
+      for (int i = 0; i < kL; ++i, w += B) {
+        if (i >= n_m) break;
+        const float2 a = cmul(base, ey[i]);
+        if (kVec) {
+          const float4* w4 = reinterpret_cast<const float4*>(w + b0);
+#pragma unroll
+          for (int j = 0; j < kRows / 2; ++j) {
+            const float4 x = w4[j];
+            cmac(eb[2 * j], make_float2(x.x, x.y), a);
+            cmac(eb[2 * j + 1], make_float2(x.z, x.w), a);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kRows; ++j) cmac(eb[j], w[min(b0 + j, B - 1)], a);
+        }
+      }
     }
-    __syncthreads();
-    // Path sum with the power epilogue into columns s*K .. s*K + K - 1.
-    path_sum::tile_loop<kSumTQ, kSumTK, kSumRQ, kSumRK>(
-        er, ei, xr, xi, P, Q, K, StorePower{out_u + s * K, n_s * K});
   }
 }
 
-// Shared memory of one block in bytes; ops/kernels/beamgain.py's
-// smem_bytes mirrors it.
-size_t smem_bytes(int n_paths, int n_rx, int n_tx, int n_beams, int n_k) {
-  const size_t x = n_tx > n_k ? n_tx : n_k;
-  const size_t p = n_paths;
-  return sizeof(float) * 2 *
-         (static_cast<size_t>(n_tx) * n_beams + p * x +
-          p * n_rx * n_beams + (n_rx > 1 ? p * n_rx : 0));
+struct Args {
+  const float *gry, *grz, *gty, *gtz, *amp, *psi, *omega;
+  float* out;
+  int U, P, r1, r2, t1, t2, B, K, S, n_sa, chunk;
+};
+
+// E[lane][j] = a_rx[r] eb[j] of path p (zero for paths past P), written by
+// the lanes of the chunk.
+__device__ __forceinline__ void build_e(const Args& a, const float2* cw,
+                                        float2* e, int lane, size_t row,
+                                        int p, int r, int b0) {
+  if (lane >= a.chunk) return;
+  float2 eb[kRows];
+  if (p < a.P) {
+    const float gty = a.gty[row + p], gtz = a.gtz[row + p];
+    if (a.B % 2 == 0 && b0 + kRows <= a.B) {
+      fold<true>(cw, a.B, b0, a.t1, a.t2, gty, gtz, eb);
+    } else {
+      fold<false>(cw, a.B, b0, a.t1, a.t2, gty, gtz, eb);
+    }
+    if (a.r1 * a.r2 > 1) {
+      const int nr = r / a.r1;
+      const float2 rx = phasor(static_cast<float>(r - nr * a.r1) *
+                                   a.gry[row + p] +
+                               static_cast<float>(nr) * a.grz[row + p]);
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) eb[j] = cmul(rx, eb[j]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) eb[j] = make_float2(0.f, 0.f);
+  }
+  float4* dst = reinterpret_cast<float4*>(e + lane * kPitch);
+#pragma unroll
+  for (int j = 0; j < kRows / 2; ++j) dst[j] = pack(eb[2 * j], eb[2 * j + 1]);
+}
+
+// The OFDM tables of path p for slot s and columns k0 .. k0 + kCols - 1:
+// fine[k1] = exp(-j omega k1) at [0, kL) and
+// coarse[j] = amp exp(j (psi - omega (k0 + kL j))) at [kL, 2 kL).
+__device__ __forceinline__ void build_tables(const Args& a, float2* tab,
+                                             int lane, size_t u, size_t row,
+                                             int p, int s, int k0) {
+  if (lane >= a.chunk) return;
+  float2 v[2 * kL];
+  if (p < a.P) {
+    const float om = a.omega[row + p];
+    const float am = a.amp[(u * a.n_sa + (a.n_sa > 1 ? s : 0)) * a.P + p];
+    const float ps = a.psi[(u * a.S + s) * a.P + p];
+#pragma unroll
+    for (int i = 0; i < kL; ++i) {
+      v[i] = phasor(-om * static_cast<float>(i));
+      const float2 c = phasor(ps - om * static_cast<float>(k0 + kL * i));
+      v[kL + i] = make_float2(am * c.x, am * c.y);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2 * kL; ++i) v[i] = make_float2(0.f, 0.f);
+  }
+  float4* dst = reinterpret_cast<float4*>(tab + lane * kPitch);
+#pragma unroll
+  for (int i = 0; i < kL; ++i) dst[i] = pack(v[2 * i], v[2 * i + 1]);
+}
+
+// y[i][c] += sum over the chunk's n_p paths of E[p][qg*8 + i] g[p][col c],
+// columns k0 + 2 kg + (0, 1, 32, 33) of the tile.
+__device__ __forceinline__ void path_sum(const float2* __restrict__ e,
+                                         const float2* __restrict__ tab,
+                                         int n_p, int qg, int kg,
+                                         float2 (&y)[8][4]) {
+  const int f = 2 * (kg & 3);
+  const int ca = kL + (kg >> 2), cb = ca + 4;
+  for (int pp = 0; pp < n_p; ++pp) {
+    const float4* e4 = reinterpret_cast<const float4*>(e + pp * kPitch + 8 * qg);
+    const float2* t = tab + pp * kPitch;
+    const float4 fn = *reinterpret_cast<const float4*>(t + f);
+    const float2 c_a = t[ca], c_b = t[cb];
+    const float2 f0 = make_float2(fn.x, fn.y), f1 = make_float2(fn.z, fn.w);
+    const float2 g[4] = {cmul(f0, c_a), cmul(f1, c_a), cmul(f0, c_b),
+                         cmul(f1, c_b)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 x = e4[i];
+      const float2 e0 = make_float2(x.x, x.y), e1 = make_float2(x.z, x.w);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        cmac(y[2 * i][c], e0, g[c]);
+        cmac(y[2 * i + 1][c], e1, g[c]);
+      }
+    }
+  }
+}
+
+// G = |y|^2 of the lane's 8 rows and 4 columns, rows past B and columns past
+// K skipped.
+__device__ __forceinline__ void store_power(const Args& a, float* out_u,
+                                            int r, int b0, int s, int k0,
+                                            int qg, int kg,
+                                            const float2 (&y)[8][4]) {
+  const size_t sk = static_cast<size_t>(a.S) * a.K;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int b = b0 + 8 * qg + i;
+    if (b >= a.B) break;
+    float* o = out_u + static_cast<size_t>(r * a.B + b) * sk +
+               static_cast<size_t>(s) * a.K;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = k0 + 32 * h + 2 * kg;
+      const float2 v0 = y[i][2 * h], v1 = y[i][2 * h + 1];
+      const float p0 = v0.x * v0.x + v0.y * v0.y;
+      const float p1 = v1.x * v1.x + v1.y * v1.y;
+      if (a.K % 2 == 0) {           // o + k is 8-byte aligned
+        if (k < a.K)
+          __stcs(reinterpret_cast<float2*>(o + k), make_float2(p0, p1));
+      } else {
+        if (k < a.K) o[k] = p0;
+        if (k + 1 < a.K) o[k + 1] = p1;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float2 (&y)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) y[i][c] = make_float2(0.f, 0.f);
+  }
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32, 2)
+beamgain_kernel(Args a, const float2* __restrict__ cw_g) {
+  extern __shared__ float4 smem[];
+  const int T = a.t1 * a.t2;
+  const int R = a.r1 * a.r2;
+  const int lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+
+  // conj(W) [T][B], staged once for the block's life.
+  float2* cw = reinterpret_cast<float2*>(smem);
+  for (int i = threadIdx.x; i < T * a.B; i += blockDim.x) cw[i] = cw_g[i];
+  __syncthreads();
+
+  const size_t cw_f2 = 2 * ((static_cast<size_t>(T) * a.B + 1) / 2);
+  float2* e = cw + cw_f2 + (threadIdx.x >> 5) * 2 * a.chunk * kPitch;
+  float2* tab = e + a.chunk * kPitch;
+  const int n_ch = (a.P + a.chunk - 1) / a.chunk;
+  const int qg = lane >> 4, kg = lane & 15;
+  float2 y[8][4];
+
+  for (int u = blockIdx.x * n_warps + (threadIdx.x >> 5); u < a.U;
+       u += gridDim.x * n_warps) {
+    const size_t row = static_cast<size_t>(u) * a.P;
+    float* out_u = a.out + static_cast<size_t>(u) * R * a.B * a.S * a.K;
+    for (int r = 0; r < R; ++r) {
+      for (int b0 = 0; b0 < a.B; b0 += kRows) {
+        if (n_ch == 1) {
+          // One chunk: fold E once, reuse it for every slot and column tile.
+          build_e(a, cw, e, lane, row, lane, r, b0);
+          for (int s = 0; s < a.S; ++s) {
+            for (int k0 = 0; k0 < a.K; k0 += kCols) {
+              build_tables(a, tab, lane, u, row, lane, s, k0);
+              __syncwarp();
+              zero(y);
+              path_sum(e, tab, a.P, qg, kg, y);
+              __syncwarp();         // E and the tables are read
+              store_power(a, out_u, r, b0, s, k0, qg, kg, y);
+            }
+          }
+        } else {
+          for (int s = 0; s < a.S; ++s) {
+            for (int k0 = 0; k0 < a.K; k0 += kCols) {
+              zero(y);
+              for (int c = 0; c < n_ch; ++c) {
+                const int p0 = c * a.chunk;
+                build_e(a, cw, e, lane, row, p0 + lane, r, b0);
+                build_tables(a, tab, lane, u, row, p0 + lane, s, k0);
+                __syncwarp();
+                path_sum(e, tab, min(a.chunk, a.P - p0), qg, kg, y);
+                __syncwarp();
+              }
+              store_power(a, out_u, r, b0, s, k0, qg, kg, y);
+            }
+          }
+        }
+      }
+    }
+  }
 }
 
 }  // namespace
 
+// Dynamic shared memory of the kernel's block at T TX elements and B beams
+// (0 when no block fits); ops/kernels/beamgain.py's smem_bytes mirrors it.
+extern "C" long long beamgain_smem_bytes(int n_tx, int n_beams) {
+  const Plan lp = plan(n_tx, n_beams);
+  return lp.warps > 0 ? static_cast<long long>(lp.smem) : 0;
+}
+
 // Launches the beam-gain kernel on `stream`. Pointers are device pointers to
 // contiguous float32 arrays: gry..gtz and omega [U, P], amp [U, n_sa*P],
-// psi [U, n_s*P], cw [2, T, B] (the real and imaginary planes of conj(W)
-// transposed), out [U, R*B, n_s*n_k]. Returns the
-// cudaError_t of the launch (0 on success); the kernel is not waited for.
+// psi [U, n_s*P], cw [T, B, 2] (conj(W) transposed, real and imaginary parts
+// interleaved), out [U, R*B, n_s*n_k]. Returns the cudaError_t of the setup
+// and the launch (0 on success); the kernel is not waited for.
 extern "C" int beamgain_launch(const float* gry, const float* grz,
                                const float* gty, const float* gtz,
                                const float* amp, const float* psi,
@@ -195,17 +372,32 @@ extern "C" int beamgain_launch(const float* gry, const float* grz,
                                int n_beams, int n_k, int n_s, int n_sa,
                                void* stream) {
   if (n_users == 0) return cudaSuccess;
-  const size_t smem =
-      smem_bytes(n_paths, r1 * r2, t1 * t2, n_beams, n_k);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        beamgain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  beamgain_kernel<<<n_users, kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      gry, grz, gty, gtz, amp, psi, omega, cw, out, n_paths, r1, r2, t1,
-      t2, n_beams, n_k, n_s, n_sa);
+  const Plan lp = plan(t1 * t2, n_beams);
+  if (lp.warps < 1) return cudaErrorInvalidValue;
+  const int threads = 32 * lp.warps;
+  const int smem = static_cast<int>(lp.smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      beamgain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(beamgain_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, beamgain_kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long need = (static_cast<long long>(n_users) + lp.warps - 1) /
+                         lp.warps;
+  const long long full = static_cast<long long>(per_sm) * n_sm;
+  const int grid = static_cast<int>(need < full ? need : full);
+  const Args a{gry, grz, gty, gtz, amp, psi, omega, out, n_users, n_paths,
+               r1, r2, t1, t2, n_beams, n_k, n_s, n_sa, lp.chunk};
+  beamgain_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, reinterpret_cast<const float2*>(cw));
   return cudaGetLastError();
 }

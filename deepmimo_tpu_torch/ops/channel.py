@@ -597,7 +597,7 @@ def _beam_gain_route(cfg: ChannelConfig, n_beams: int,
         f"Beam gains at R={cfg.n_rx_ant}, T={cfg.n_tx_ant}, B={n_beams}, "
         f"K={n_k}, P={cfg.num_paths} need {need} bytes of the beam-gain "
         f"kernel's shared memory, over its {_render.SMEM_LIMIT}-byte bound; "
-        f"use fewer paths or beams, or backend='xla' for the plain "
+        f"use fewer beams or TX elements, or backend='xla' for the plain "
         f"version.")
 
 

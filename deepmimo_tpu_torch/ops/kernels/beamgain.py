@@ -12,19 +12,23 @@ Source note.
   codebook folds into the path sum, eb = conj(W) a_tx [B, P], E = a_rx (x)
   eb [R*B, P], and G = |E g^T|^2 [R*B, S*K] per user, rows r-major
   (q = r*B + b).
-- What bounds it on an H100: FP32 FMA and the trig. At the headline
-  (131,072 users, P = 25, T = 64, B = 16, R = 1, K = 64) the fold and the
-  path sum are 2 x 102,400 FMA per user (0.8 ms at 67 TFLOP/s) and the
-  output is 0.54 GB (0.16 ms at 3.35 TB/s).
-- What the design does about it: one 128-thread block per user stages
-  conj(W) (transposed to [2, T, B] here, one small op per call), a_tx, E
-  and one slot's g at a time in shared memory and runs the
-  register-tiled loop of ``csrc/path_sum_tile.cuh`` for the fold and,
-  slot by slot, for the path sum with a power epilogue, each with a
-  thread layout sized for its small output; H never exists. The TPU's lane packing, hi/lo split, ``pltpu.roll``
-  reassembly and VMEM budget (``pick_user_tile_bg``, ``vmem_estimate_bg``,
-  ``pad_store``) are not carried over; :func:`beam_gain_fits` is the
-  kernel's shared-memory bound.
+- What bounds it on an H100: operations. At the headline (131,072 users,
+  P = 25, T = 64, B = 16, R = 1, K = 64) the fold and the path sum are
+  2 x 102,400 FP32 FMA per user: 0.81 ms at 67 TFLOP/s, 0.33 ms at 3xTF32
+  on the tensor cores' nominal 495 TFLOP/s; the output is 0.54 GB, 0.16 ms
+  at 3.35 TB/s. The products are small per user and mma.sync TF32 runs at
+  half its nominal rate on these shapes, so they run as FP32 FMA, and the
+  instructions issued beside them are what the design cuts.
+- What the design does about it: persistent blocks of up to 8 warps, one
+  warp per user at a time and no block barrier after conj(W) is staged
+  once per block (the wrapper interleaves it as [T, B, 2], one small op per
+  call); paths in chunks of 32, lane = path, so shared memory does not grow
+  with P; separable trig tables (a_tx from 8 + T2 sincosf, g from 8 fine
+  and 8 coarse per slot), 32 sincosf per path at the headline; register
+  tiles in which each 16-byte shared load feeds 8 or more FMA. The TPU's
+  lane packing, hi/lo split, ``pltpu.roll`` reassembly and VMEM budget
+  (``pick_user_tile_bg``, ``vmem_estimate_bg``, ``pad_store``) are not
+  carried over; :func:`beam_gain_fits` is the kernel's shared-memory bound.
 
 :func:`fused_beam_gain` is the ``apply`` of :class:`FusedBeamGain`: CUDA
 tensors launch the kernel or raise, CPU tensors take the plain version
@@ -46,17 +50,29 @@ from .render import (SMEM_LIMIT, _check_inputs, _check_layout,
 #: Number of CUDA kernel launches made by :func:`fused_beam_gain`.
 LAUNCHES = 0
 
+_MAX_WARPS = 8          # warps per block
+_PITCH = 18             # complex entries per row of a warp's two buffers
+
 
 def smem_bytes(rx_shape, tx_shape, n_beams: int, n_paths: int,
                n_k: int) -> int:
-    """Shared memory of one block (mirrors ``csrc/beamgain.cu``): conj(W)
-    [T, B], a_tx [T, P] sharing its space with one slot's g [P, K],
-    E [P, R*B] and, when R > 1, a_rx [P, R]; real and imaginary planes.
-    The slots run one after another, so their number does not count."""
-    r = rx_shape[0] * rx_shape[1]
+    """Shared memory of one block (mirrors ``plan`` in
+    ``csrc/beamgain.cu``): conj(W) [T, B] complex, rounded up to 16 bytes,
+    then per warp two [chunk, 18] complex buffers (E of one 16-row tile and
+    the OFDM tables of one 64-column tile). The chunk is 32 paths, or 8
+    when a codebook leaves no room for one warp of 32; then as many warps
+    as fit, at most 8. Neither the paths, the RX elements, the subcarriers
+    nor the slots count; past the bound it returns the bytes of one warp
+    of 8 paths, which do not fit."""
+    del rx_shape, n_paths, n_k
     t = tx_shape[0] * tx_shape[1]
-    return 2 * 4 * (t * n_beams + n_paths * max(t, n_k) +
-                    n_paths * r * n_beams + (n_paths * r if r > 1 else 0))
+    cw = 16 * ((t * n_beams + 1) // 2)
+    for chunk in (32, 8):
+        per_warp = 2 * 8 * chunk * _PITCH
+        if cw + per_warp <= SMEM_LIMIT:
+            return cw + min(_MAX_WARPS, (SMEM_LIMIT - cw) // per_warp) * \
+                per_warp
+    return cw + 2 * 8 * 8 * _PITCH
 
 
 def beam_gain_fits(rx_shape, tx_shape, n_beams: int, n_paths: int,
@@ -64,8 +80,9 @@ def beam_gain_fits(rx_shape, tx_shape, n_beams: int, n_paths: int,
     """Does the CUDA kernel take this shape? (Device-independent.)
 
     The only bound is the block's shared memory (:func:`smem_bytes` <=
-    227 KB): up to 350 paths at the headline shape, with any number of
-    slots; 39 at 64 beams of a 16 x 16 panel with 256 subcarriers.
+    227 KB), which holds conj(W) and one warp: T*B <= 28,768 (up to 449
+    beams of an 8 x 8 panel), with any number of paths, RX elements,
+    subcarriers and slots.
     """
     if min(*rx_shape, *tx_shape, n_beams, n_paths, n_k) < 1:
         return False
@@ -153,7 +170,7 @@ def _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out):
             f"{SMEM_LIMIT} bytes")
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=dev)
-    cw = torch.stack((wr.t(), wi.t().neg()))        # conj(W), [2, T, B]
+    cw = torch.stack((wr.t(), wi.t().neg()), -1)    # conj(W), [T, B, 2]
     launch = _build.launcher("beamgain", 9, 10)
     with torch.cuda.device(dev):
         rc = launch(*(x.data_ptr() for x in args), cw.data_ptr(),

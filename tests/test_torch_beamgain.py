@@ -175,13 +175,128 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_beam_gain_fits_is_the_shared_memory_bound():
-    # headline: conj(W) 64x16, a_tx/g 25x64, E 25x16 -> 24,192 bytes
-    assert kb.smem_bytes((1, 1), (8, 8), 16, 25, 64) == 24_192
-    assert kb.beam_gain_fits((1, 1), (8, 8), 16, 350, 64)
-    assert not kb.beam_gain_fits((1, 1), (8, 8), 16, 351, 64)
-    # the slots run one after another: no slot count enters the bound
-    assert kb.smem_bytes((2, 2), (4, 4), 5, 100, 17) == 33_440
+    # headline: conj(W) 64x16 (8,192 bytes) and 8 warps of two 32 x 18
+    # complex buffers (9,216 bytes each)
+    assert kb.smem_bytes((1, 1), (8, 8), 16, 25, 64) == 81_920
+    # neither paths, RX elements, subcarriers nor slots enter the bound
+    for p in (1, 350, 351, 100_000):
+        assert kb.beam_gain_fits((1, 1), (8, 8), 16, p, 64)
+        assert kb.smem_bytes((4, 4), (8, 8), 16, p, 4096) == 81_920
+    # odd T*B rounds up to 16 bytes: 80 complex -> 640 bytes, 8 warps
+    assert kb.smem_bytes((2, 2), (4, 4), 5, 100, 17) == 640 + 8 * 9_216
+    # T = 256, B = 64: 131,072 bytes of codebook and 10 warps' room -> 8
+    assert kb.smem_bytes((1, 1), (16, 16), 64, 39, 256) == \
+        131_072 + 8 * 9_216
+    # a codebook that leaves no room for a warp of 32 paths: chunks of 8
+    # (two 8 x 18 complex buffers, 2,304 bytes per warp)
+    assert kb.smem_bytes((1, 1), (8, 8), 440, 25, 64) == 225_280 + 3 * 2_304
+    # conj(W) and one warp of 8: T*B <= 28,768
+    assert kb.beam_gain_fits((1, 1), (8, 8), 449, 25, 64)
+    assert kb.smem_bytes((1, 1), (8, 8), 449, 25, 64) == 229_888 + 2_304
+    assert not kb.beam_gain_fits((1, 1), (8, 8), 450, 25, 64)
+    assert kb.smem_bytes((1, 1), (8, 8), 450, 25, 64) > 232_448
     assert not kb.beam_gain_fits((1, 1), (8, 8), 0, 25, 64)
+    assert not kb.beam_gain_fits((1, 1), (8, 8), 16, 0, 64)
+
+
+def _smem_bytes_until_pr6(rx_shape, tx_shape, n_beams, n_paths, n_k):
+    """The one-block-per-user kernel's shared memory, as it was: conj(W)
+    [T, B], a_tx [T, P] sharing its space with one slot's g [P, K], E
+    [P, R*B] and, when R > 1, a_rx [P, R]."""
+    r = rx_shape[0] * rx_shape[1]
+    t = tx_shape[0] * tx_shape[1]
+    return 2 * 4 * (t * n_beams + n_paths * max(t, n_k) +
+                    n_paths * r * n_beams + (n_paths * r if r > 1 else 0))
+
+
+def test_beam_gain_fits_admits_every_shape_the_old_bound_took():
+    """Every (R, T, B, K, P) that the one-block-per-user kernel took is
+    taken; the sweep includes, for each panel, the widest codebook that the
+    old bound admits at one path (where conj(W) fills the block)."""
+    limit = 232_448
+    rxs = [(1, 1), (2, 1), (2, 2), (4, 4), (1, 64)]
+    txs = [(1, 1), (3, 5), (4, 4), (8, 8), (16, 4), (16, 16), (1, 128),
+           (32, 32), (2, 1000)]
+    beams = [1, 5, 16, 64, 113, 200, 320, 449, 1000]
+    ks = [1, 17, 64, 256, 1024, 30_000]
+    paths = [1, 25, 39, 100, 350, 351, 1000]
+    n_old = 0
+    for rx in rxs:
+        for tx in txs:
+            t = tx[0] * tx[1]
+            b_max = max((b for b in range(1, limit // (8 * t) + 1)
+                         if _smem_bytes_until_pr6(rx, tx, b, 1, 1) <= limit),
+                        default=1)
+            for b in beams + [b_max]:
+                for k in ks:
+                    for p in paths:
+                        if _smem_bytes_until_pr6(rx, tx, b, p, k) > limit:
+                            continue
+                        n_old += 1
+                        assert kb.beam_gain_fits(rx, tx, b, p, k), \
+                            (rx, tx, b, k, p)
+    assert n_old > 1000
+    # and more: 351 paths at the headline, 320 beams
+    assert _smem_bytes_until_pr6((1, 1), (8, 8), 16, 351, 64) > limit
+    assert kb.beam_gain_fits((1, 1), (8, 8), 16, 351, 64)
+    assert kb.beam_gain_fits((1, 1), (8, 8), 320, 25, 64)
+
+
+def _factored_beam_gain(gry, grz, gty, gtz, amp, psi, omega, wr, wi,
+                        rx_shape, tx_shape, n_k):
+    """The kernel's trig in float32 plain torch: a_tx from ey[m % 8] and
+    one phasor per (n, block of 8 m), g from fine[k % 8] and
+    coarse[s, k // 8], a_rx per element; then the fold and the path sum."""
+    def ph(x):
+        return torch.polar(torch.ones_like(x), x)
+
+    u, p = omega.shape
+    n_s, n_sa = psi.shape[1] // p, amp.shape[1] // p
+    (r1, r2), (t1, t2) = rx_shape, tx_shape
+    m = torch.arange(t1, dtype=torch.float32)
+    ey = ph(gty[..., None] * (m % 8))                         # [U, P, t1]
+    blk = ph(gty[..., None] * (m - m % 8))
+    ez = ph(gtz[..., None] * torch.arange(t2, dtype=torch.float32))
+    a_tx = ((ez[..., :, None] * blk[..., None, :]) *
+            ey[..., None, :]).reshape(u, p, t2 * t1)          # t = n t1 + m
+    mr = torch.arange(r1 * r2)
+    a_rx = ph(gry[..., None] * (mr % r1).float() +
+              grz[..., None] * (mr // r1).float())            # [U, P, R]
+    cw = torch.complex(wr, -wi)                               # conj(W)
+    eb = torch.einsum("upt,bt->upb", a_tx, cw)
+    e = (a_rx[..., :, None] * eb[..., None, :]).reshape(u, p, -1)
+    k = torch.arange(n_k, dtype=torch.float32)
+    fine = ph(-omega[..., None] * (k % 8))
+    out = []
+    for s in range(n_s):
+        a_s = amp[:, (s if n_sa > 1 else 0) * p:][:, :p]
+        coarse = a_s[..., None] * ph(psi[:, s * p:(s + 1) * p, None] -
+                                     omega[..., None] * (k - k % 8))
+        y = torch.einsum("upq,upk->uqk", e, fine * coarse)
+        out.append(y.real ** 2 + y.imag ** 2)
+    return torch.cat(out, -1)
+
+
+@pytest.mark.parametrize("tx, n_s", [((8, 8), 4), ((16, 4), 1)],
+                         ids=["headline_polar", "t1_16"])
+def test_factored_trig_holds_in_float32(tx, n_s):
+    """The kernel's separable trig (design of csrc/beamgain.cu) in float32
+    against the plain version in float64, with per-slot amp and delays up
+    to chip_smoke.make_data's 4e-6 s: omega * k reaches ~31 rad."""
+    u, p, b, k = 64, 25, 16, 64
+    rng = np.random.RandomState(12)
+    mk = lambda lo, hi, n: rng.uniform(lo, hi, (u, n)).astype(np.float32)
+    arrs = [mk(-np.pi, np.pi, p) for _ in range(4)] + [
+        mk(0, 1e-4, n_s * p), mk(-np.pi, np.pi, n_s * p),
+        mk(0, 2 * np.pi * 40 / 512, p)]
+    w = _codebook(b, tx[0] * tx[1], seed=13)
+    f32 = [torch.from_numpy(a) for a in (*arrs, *w)]
+    got = _factored_beam_gain(*f32, (1, 1), tx, k)
+    want = kb.beam_gain_reference(*(x.double() for x in f32), (1, 1), tx, k)
+    assert float(arrs[6].max()) * (k - 1) > 30
+    assert tuple(got.shape) == tuple(want.shape) == (u, b, n_s * k)
+    scale = float(want.max())
+    assert float((got.double() - want).abs().max()) <= RTOL * scale
 
 
 # ----------------------------------------------------------------------------
@@ -259,13 +374,14 @@ def test_render_beam_gains_refuses(change):
 @pytest.mark.parametrize("polar", [False, True], ids=["single", "polar"])
 def test_beyond_shared_memory_plain_on_cpu_raises_on_card(polar,
                                                           monkeypatch):
-    """320 beams at the headline exceed the kernel's shared memory: the
-    fused backend runs the plain version on CPU tensors and refuses card
-    tensors (the device check patched here); backend "xla" runs the plain
-    version on either."""
+    """450 beams at the headline exceed the kernel's shared memory (conj(W)
+    and one warp): the fused backend runs the plain version on CPU tensors
+    and refuses card tensors (the device check patched here); backend "xla"
+    runs the plain version on either."""
     _, (pd, bs, ue, cfg) = _state("isotropic")
-    wr, wi = (torch.from_numpy(x) for x in _codebook(320, 64))
-    assert not tch.beam_gain_eligible(cfg, 320)
+    wr, wi = (torch.from_numpy(x) for x in _codebook(450, 64))
+    assert not tch.beam_gain_eligible(cfg, 450)
+    assert tch.beam_gain_eligible(cfg, 449)
     assert tch.beam_gain_eligible(cfg, 16)
     fn, pol = tch.render_beam_gains, ()
     if polar:
@@ -404,11 +520,26 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+# name: (rx_shape, tx_shape, B, K, U, P, S, per-slot amp) on the card
+CUDA_CASES = {
+    "headline": ((1, 1), (8, 8), 16, 64, 12 * 257, 25, 1, False),
+    "multi_rx": ((2, 1), (4, 2), 8, 16, 12 * 257, 25, 1, False),
+    "four_chunks": ((2, 2), (4, 4), 5, 17, 1031, 100, 3, False),
+    "polar_slots": ((1, 1), (8, 8), 16, 64, 2053, 25, 4, True),
+    "one_user": ((1, 1), (8, 8), 16, 64, 1, 25, 1, False),
+    # more users than one round of the grid's warps, not a multiple of 8;
+    # T1 = 16 (two blocks of 8), two chunks (K stays 64: with omega up to
+    # 6 rad per subcarrier, float32 phases past ~400 rad lose the bound)
+    "ragged_round": ((1, 1), (16, 4), 16, 64, 132 * 16 + 13, 39, 1, False),
+    "chunks_of_8": ((1, 1), (8, 8), 440, 64, 37, 20, 2, True),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["headline", "multi_rx"])
+@pytest.mark.parametrize("name", sorted(CUDA_CASES))
 def test_cuda_kernel_matches_plain_version(cuda, name):
-    rx, tx, b, k, u, p, s, per_slot = CASES[name]
-    arrs = _scalars(u * 257, p, s, per_slot, seed=4)
+    rx, tx, b, k, u, p, s, per_slot = CUDA_CASES[name]
+    arrs = _scalars(u, p, s, per_slot, seed=4)
     w = _codebook(b, tx[0] * tx[1], seed=5)
     args = [torch.from_numpy(a).to(cuda) for a in (*arrs, *w)]
     before = kb.LAUNCHES
@@ -444,24 +575,41 @@ def test_cuda_dataset_serving_loop_reuses_out(cuda):
 
 @pytest.mark.gpu
 def test_cuda_beyond_shared_memory_raises(cuda):
-    """351 paths at the headline exceed the kernel's shared memory: on the
+    """450 beams at the headline exceed the kernel's shared memory: on the
     card compute_beam_gains raises, with no launch, instead of forming H
-    for the plain version; 350 paths launch the kernel."""
+    for the plain version; 449 beams with 351 paths launch the kernel."""
     old = dmt.config.get("device")
     dmt.config.set("device", "cuda")
     try:
         ds = dmt.Dataset(_data(n_ue=8, max_paths=351))
         params = _params(dmt)
         params[dmt.consts.PARAMSET_NUM_PATHS] = 351
-        w = _bench_codebook()
+        w = _bench_codebook(b=450)
         before = kb.LAUNCHES
         with pytest.raises(ValueError, match="shared memory"):
             ds.compute_beam_gains(params, codebook=w, to_device=True)
         assert kb.LAUNCHES == before
-        params[dmt.consts.PARAMSET_NUM_PATHS] = 350
-        g = ds.compute_beam_gains(params, codebook=w, to_device=True)
+        g = ds.compute_beam_gains(params, codebook=w[:449], to_device=True)
         torch.cuda.synchronize()
         assert kb.LAUNCHES == before + 1
-        assert tuple(g.shape) == (8, 16, 64) and bool(torch.isfinite(g).all())
+        assert tuple(g.shape) == (8, 449, 64) and \
+            bool(torch.isfinite(g).all())
     finally:
         dmt.config.set("device", old)
+
+
+@pytest.mark.gpu
+def test_cuda_smem_bytes_is_the_kernels_own(cuda):
+    """smem_bytes mirrors the launcher's arithmetic (csrc/beamgain.cu
+    exports it)."""
+    import ctypes
+
+    from deepmimo_tpu_torch.ops.kernels import _build
+    fn = _build.load_library("beamgain").beamgain_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    for tx in [(1, 1), (3, 5), (8, 8), (16, 16), (32, 32)]:
+        for b in (1, 5, 16, 64, 113, 320, 440, 449, 450, 1000):
+            t = tx[0] * tx[1]
+            want = kb.smem_bytes((1, 1), tx, b, 25, 64)
+            assert fn(t, b) == (want if want <= 232_448 else 0), (tx, b)
