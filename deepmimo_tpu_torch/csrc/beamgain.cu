@@ -289,6 +289,10 @@ __device__ __forceinline__ void zero(float2 (&y)[8][4]) {
   }
 }
 
+// kOneChunk: P <= chunk. A separate instantiation, so that the registers
+// the chunked path keeps live across its fold (y beside the fold's
+// accumulators) do not cost the one-chunk path spills.
+template <bool kOneChunk>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 beamgain_kernel(Args a, const float2* __restrict__ cw_g) {
   extern __shared__ float4 smem[];
@@ -315,7 +319,7 @@ beamgain_kernel(Args a, const float2* __restrict__ cw_g) {
     float* out_u = a.out + static_cast<size_t>(u) * R * a.B * a.S * a.K;
     for (int r = 0; r < R; ++r) {
       for (int b0 = 0; b0 < a.B; b0 += kRows) {
-        if (n_ch == 1) {
+        if (kOneChunk) {
           // One chunk: fold E once, reuse it for every slot and column tile.
           build_e(a, cw, e, lane, row, lane, r, b0);
           for (int s = 0; s < a.S; ++s) {
@@ -376,10 +380,12 @@ extern "C" int beamgain_launch(const float* gry, const float* grz,
   if (lp.warps < 1) return cudaErrorInvalidValue;
   const int threads = 32 * lp.warps;
   const int smem = static_cast<int>(lp.smem);
+  const auto kernel = n_paths <= lp.chunk ? beamgain_kernel<true>
+                                          : beamgain_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      beamgain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(beamgain_kernel,
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
@@ -387,7 +393,7 @@ extern "C" int beamgain_launch(const float* gry, const float* grz,
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, beamgain_kernel,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -397,7 +403,7 @@ extern "C" int beamgain_launch(const float* gry, const float* grz,
   const int grid = static_cast<int>(need < full ? need : full);
   const Args a{gry, grz, gty, gtz, amp, psi, omega, out, n_users, n_paths,
                r1, r2, t1, t2, n_beams, n_k, n_s, n_sa, lp.chunk};
-  beamgain_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       a, reinterpret_cast<const float2*>(cw));
   return cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-// Shared register-tiled complex product of the path-sum kernels
-// (render_fwd.cu, pathsum.cu, beamgain.cu):
+// Shared register-tiled complex product of the path-sum kernel
+// (pathsum.cu):
 //
 //   Y[q, kk] = sum_n A[n, q] B[n, kk]
 //
@@ -13,9 +13,8 @@
 // at the ragged edge. The epilogue is called once per output as
 // epi(q, kk, re, im).
 //
-// The forward render and the path sum run the 16 x 16 thread, 4 x 4 tile
-// layout of store_tiles (64 x 64 output tiles); the beam-gain kernel picks
-// layouts that fit its small Q = R*B without clamped duplicate rows.
+// The path sum runs the 16 x 16 thread, 4 x 4 tile layout of store_tiles
+// (64 x 64 output tiles).
 
 #pragma once
 
