@@ -69,9 +69,9 @@
 namespace {
 
 constexpr int kMaxWarps = 8;
-constexpr int kRows = 16;        // output rows (beams of one RX element) per tile
+constexpr int kRows = 16;        // output rows (beams of one RX element)
 constexpr int kCols = 64;        // output columns (subcarriers) per tile
-constexpr int kPitch = 18;       // float2 per row of a warp's E and table buffers
+constexpr int kPitch = 18;       // float2 per row of a warp's two buffers
 constexpr int kL = 8;            // k = k2*kL + k1; TX m in blocks of kL
 constexpr size_t kSmemLimit = 232448;   // dynamic shared memory of a block
 
@@ -82,7 +82,7 @@ constexpr size_t kSmemLimit = 232448;   // dynamic shared memory of a block
 // ops/kernels/beamgain.py's smem_bytes mirrors it.
 struct Plan {
   int chunk, warps;
-  size_t cw_bytes, smem;
+  size_t smem;
 };
 
 Plan plan(int n_tx, int n_beams) {
@@ -92,10 +92,10 @@ Plan plan(int n_tx, int n_beams) {
     if (cw + per_warp <= kSmemLimit) {
       size_t warps = (kSmemLimit - cw) / per_warp;
       if (warps > static_cast<size_t>(kMaxWarps)) warps = kMaxWarps;
-      return {chunk, static_cast<int>(warps), cw, cw + warps * per_warp};
+      return {chunk, static_cast<int>(warps), cw + warps * per_warp};
     }
   }
-  return {8, 0, cw, cw + 2 * sizeof(float2) * 8 * kPitch};
+  return {8, 0, cw + 2 * sizeof(float2) * 8 * kPitch};
 }
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
@@ -151,7 +151,8 @@ __device__ __forceinline__ void fold(const float2* __restrict__ cw, int B,
           }
         } else {
 #pragma unroll
-          for (int j = 0; j < kRows; ++j) cmac(eb[j], w[min(b0 + j, B - 1)], a);
+          for (int j = 0; j < kRows; ++j)
+            cmac(eb[j], w[min(b0 + j, B - 1)], a);
         }
       }
     }
@@ -231,7 +232,8 @@ __device__ __forceinline__ void path_sum(const float2* __restrict__ e,
   const int f = 2 * (kg & 3);
   const int ca = kL + (kg >> 2), cb = ca + 4;
   for (int pp = 0; pp < n_p; ++pp) {
-    const float4* e4 = reinterpret_cast<const float4*>(e + pp * kPitch + 8 * qg);
+    const float4* e4 =
+        reinterpret_cast<const float4*>(e + pp * kPitch + 8 * qg);
     const float2* t = tab + pp * kPitch;
     const float4 fn = *reinterpret_cast<const float4*>(t + f);
     const float2 c_a = t[ca], c_b = t[cb];

@@ -199,7 +199,7 @@ def test_beam_gain_fits_is_the_shared_memory_bound():
     assert not kb.beam_gain_fits((1, 1), (8, 8), 16, 0, 64)
 
 
-def _smem_bytes_until_pr6(rx_shape, tx_shape, n_beams, n_paths, n_k):
+def _old_smem_bytes(rx_shape, tx_shape, n_beams, n_paths, n_k):
     """The one-block-per-user kernel's shared memory, as it was: conj(W)
     [T, B], a_tx [T, P] sharing its space with one slot's g [P, K], E
     [P, R*B] and, when R > 1, a_rx [P, R]."""
@@ -225,19 +225,19 @@ def test_beam_gain_fits_admits_every_shape_the_old_bound_took():
         for tx in txs:
             t = tx[0] * tx[1]
             b_max = max((b for b in range(1, limit // (8 * t) + 1)
-                         if _smem_bytes_until_pr6(rx, tx, b, 1, 1) <= limit),
+                         if _old_smem_bytes(rx, tx, b, 1, 1) <= limit),
                         default=1)
             for b in beams + [b_max]:
                 for k in ks:
                     for p in paths:
-                        if _smem_bytes_until_pr6(rx, tx, b, p, k) > limit:
+                        if _old_smem_bytes(rx, tx, b, p, k) > limit:
                             continue
                         n_old += 1
                         assert kb.beam_gain_fits(rx, tx, b, p, k), \
                             (rx, tx, b, k, p)
     assert n_old > 1000
     # and more: 351 paths at the headline, 320 beams
-    assert _smem_bytes_until_pr6((1, 1), (8, 8), 16, 351, 64) > limit
+    assert _old_smem_bytes((1, 1), (8, 8), 16, 351, 64) > limit
     assert kb.beam_gain_fits((1, 1), (8, 8), 16, 351, 64)
     assert kb.beam_gain_fits((1, 1), (8, 8), 320, 25, 64)
 
