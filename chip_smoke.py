@@ -13,11 +13,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main paths' shapes (``KERNEL_CASES``, ``BG_CASES``), with
    CUDA-event times of both at the headline width: the forward render and
-   the path sum within 3e-5 * max|H|, the render's backward within
+   the path sum within 3e-5 * max|H| (also at ``PS_WIDE_CASES``, past the
+   old kernel's shared memory: a 16 x 16 BS at 1,024 subcarriers, and 300
+   paths), the render's backward within
    3e-4 * max|g| for each of its 7 gradients, the beam-gain kernel within
    3e-5 * max|G| at 6 shapes, from 5 users to 131,072 and up to 100 paths,
    256 subcarriers and 64 beams of a 16 x 16 panel (and, for context, the
-   forward render plus an einsum fold at the headline width).
+   forward render plus an einsum fold at the headline width). The path
+   sum's yardstick is timed beside it: one complex64 ``torch.einsum`` over
+   the same planes with g given (its ``library_ms``).
 4. Serving path: four 131,072-user x 25-path datasets (synthetic, seed 7)
    through ``Dataset.compute_channels(params, to_device=True, out=prev)``
    — one kernel launch per call — checked for shape and finiteness and on
@@ -335,19 +339,56 @@ def _pathsum_inputs(torch, u, p, r, t, k_sel, seed):
             torch.as_tensor(k_sel, dtype=torch.float32, device=DEV)]
 
 
+# Path-sum shapes past the shared memory of a kernel that staged E and g of
+# all P paths of a user at once (8 P (Q + K) bytes > 232,448): a 16 x 16 BS
+# at 1,024 non-arithmetic subcarriers of 2,048, and 300 paths at the
+# headline panel. name, U, P, rx_shape, tx_shape, K, non-arithmetic
+PS_WIDE_CASES = [
+    ("wide_bs", 2048, MAX_PATHS, UE_SHAPE, (16, 16), 1024, True),
+    ("many_paths", 4096, 300, UE_SHAPE, BS_SHAPE, N_SC, False),
+]
+
+
+def einsum_yardstick(torch, args, want):
+    """The library call that computes the path sum: one complex64
+    ``torch.einsum("urp,utp,upk->urtk", arx, atx, g)`` with g formed
+    before the timed window (so it leaves out g's trig). Returns its
+    CUDA-event ms and its max abs deviation from the plain version."""
+    arx_r, arx_i, atx_r, atx_i, amp, psi, omega, k_sel = args
+    arx = torch.complex(arx_r, arx_i)
+    atx = torch.complex(atx_r, atx_i)
+    ph = psi[..., None] - omega[..., None] * k_sel
+    g = torch.complex(amp[..., None] * torch.cos(ph),
+                      amp[..., None] * torch.sin(ph))
+    del ph
+
+    def call():
+        return torch.einsum("urp,utp,upk->urtk", arx, atx, g)
+
+    h = call().reshape(want[0].shape)
+    err = max(float((h.real - want[0]).abs().max()),
+              float((h.imag - want[1]).abs().max()))
+    del h
+    return event_ms(torch, call, reps=5), err
+
+
 def phase_pathsum_kernels(torch):
     """The path-sum kernel vs its plain version at the KERNEL_CASES shapes
-    (R*T antennas, S*K subcarriers); the two-slot case selects a
-    non-arithmetic set of subcarriers."""
+    (R*T antennas, S*K subcarriers; the two-slot case selects a
+    non-arithmetic set of subcarriers) and at PS_WIDE_CASES; at the
+    headline also the einsum yardstick."""
     from deepmimo_tpu_torch.ops.kernels import pathsum as kp
+    cases = [(name, u, p, rx, tx, s * k, per_slot)
+             for name, u, p, rx, tx, k, s, per_slot, _ in KERNEL_CASES]
     headline = None
-    for name, u, p, rx, tx, k, s, per_slot, _ in KERNEL_CASES:
+    for name, u, p, rx, tx, k, non_ap in cases + PS_WIDE_CASES:
         r, t = rx[0] * rx[1], tx[0] * tx[1]
-        if per_slot:
+        if non_ap:
             rng = np.random.RandomState(5)
-            k_sel = np.sort(rng.choice(N_FFT, s * k, replace=False))
+            n_fft = N_FFT if k <= N_FFT // 2 else 2 * k
+            k_sel = np.sort(rng.choice(n_fft, k, replace=False))
         else:
-            k_sel = np.arange(s * k)
+            k_sel = np.arange(k)
         args = _pathsum_inputs(torch, u, p, r, t, k_sel, seed=len(name))
         got = kp.fused_path_sum(*args)
         want = kp.fused_path_sum_reference(*args)
@@ -355,21 +396,29 @@ def phase_pathsum_kernels(torch):
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         scale = max(float(w.abs().max()) for w in want)
         log(f"[kernel] fused_path_sum {name}: U={u} P={p} R={r} T={t} "
-            f"K={len(k_sel)} arithmetic={not per_slot} "
+            f"K={len(k_sel)} arithmetic={not non_ap} "
+            f"8P(Q+K)={8 * p * (r * t + len(k_sel))} "
             f"max_abs_err={err:.3e} max|H|={scale:.3e} "
             f"rel={err / scale:.3e} (limit {KERNEL_RTOL:g})")
         if not (math.isfinite(err) and err <= KERNEL_RTOL * scale):
             raise AssertionError(f"fused_path_sum {name}: kernel disagrees "
                                  f"with its plain version")
-        del got, want
+        del got
         if name == "headline":
             ms = event_ms(torch, lambda: kp.fused_path_sum(*args), reps=20)
             plain_ms = event_ms(
                 torch, lambda: kp.fused_path_sum_reference(*args), reps=3)
+            lib_ms, lib_err = einsum_yardstick(torch, args, want)
             log(f"[kernel] fused_path_sum headline: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms")
-            headline = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        del args
+                f"plain {plain_ms:.4f} ms; einsum yardstick (complex64, g "
+                f"given) {lib_ms:.4f} ms, max_abs_err vs plain "
+                f"{lib_err:.3e}")
+            if not lib_err <= KERNEL_RTOL * scale:
+                raise AssertionError("the einsum yardstick computes another "
+                                     "function")
+            headline = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=lib_ms)
+        del args, want
         torch.cuda.empty_cache()
     return headline
 
@@ -785,10 +834,10 @@ def kernel_bounds(fma=False):
         # dE = ct g and dG = ct^T E; reads ct, writes 7 gradients
         "fused_render_bwd": (2 * per_path + 4 * u * q * 2 * k,
                              16 * u * q * k * p),
-        # E from the planes (6 flops each), then the path sum
+        # B = (amp a_rx) g (8 flops per (r, k, p)), then the path sum
         "fused_path_sum": (4 * u * p * (2 * r + 2 * t + 3) + 4 * k +
                            4 * 2 * u * q * k,
-                           6 * u * q * p + 8 * u * q * k * p),
+                           8 * u * r * k * p + 8 * u * q * k * p),
         # fold B*T*P and path sum R*B*K*P complex MACs, |y|^2
         "fused_beam_gain": (per_path + 4 * 2 * b * t + 4 * u * r * b * k,
                             8 * u * b * t * p + 8 * u * r * b * k * p +
@@ -995,13 +1044,17 @@ def main():
         ("fused_beam_gain", "beamgain.cu", "beamgain.py:77",
          bg_launches + polar_bg, bg),
     ]
-    # No single PyTorch call computes any of these functions.
+    # library_ms: one PyTorch call computing the same function. The path
+    # sum has one (the complex einsum over its given planes, g formed
+    # outside the timed window); the render and beam-gain kernels build
+    # their operands from trig inside, and the beam gain never forms H, so
+    # no single call computes theirs.
     kernels = [
         {"name": name, "route": "cuda", "source": src + source,
          "replaces": tpu + replaces, "launches": launches,
          "max_abs_err": m["max_abs_err"], "ms": m["ms"],
          "plain_ms": m["plain_ms"], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": None}
+         "bound_by": bounds[name][1], "library_ms": m.get("library_ms")}
         for name, source, replaces, launches, m in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

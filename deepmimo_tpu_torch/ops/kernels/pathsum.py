@@ -7,16 +7,21 @@ Source note.
 
 - Replaces the TPU kernel ``deepmimo_tpu/ops/pallas/pathsum.py::_kernel``
   (wrapper ``_pallas_call``, public ``fused_path_sum``). It computes
-  exactly ``pathsum.py::_reference_impl``: E = a_rx (x) a_tx [Q, P] from
-  the given planes, g = amp e^{j(psi - omega k_sel[k])} [K, P] at any
-  selected subcarriers, and H = E g^T per user, as (hr, hi) [U, Q, K].
-- What bounds it on an H100: the same path sum as the fused render (FP32
-  FMA and the HBM write of H); the panel planes add 2*(R + T)*P floats
-  of input per user.
-- What the design does about it: one block per user builds E (products,
-  no trig) and g (direct ``sincosf``) once in shared memory and runs the
-  fused render's register-tiled loop (``csrc/path_sum_tile.cuh``), so H
-  is written once. The TPU's user/k tiling is not carried over.
+  ``pathsum.py::_reference_impl``, H = (a_rx (x) a_tx) g^T per user with
+  g = amp e^{j(psi - omega k_sel[k])} at any selected subcarriers, as
+  (hr, hi) [U, R*T, K], regrouped as H[r*T + t] = sum_p atx[t, p]
+  (arx[r, p] g[p, k]) so that E is never formed.
+- What bounds it on an H100: HBM bytes (the planes read once, H written
+  once: 6.0 GB at the headline), with the tensor cores' mma.sync issue
+  close behind.
+- What the design does about it: per (user, r) one real GEMM on the
+  tensor cores at 3xTF32 (``mma.sync``, f32 grade), with the atx planes
+  copied as they lie in HBM (``cp.async``, two stages, so the next
+  chunk's loads run under this chunk's products) as A and only
+  B = amp arx (x) g built on the chip; persistent blocks walk 64 x 64
+  output tiles in 32-path chunks, so shared memory is one constant
+  (:func:`smem_bytes`) whatever the shape. The TPU's user/k tiling is not
+  carried over.
 
 :func:`fused_path_sum` is the ``apply`` of :class:`FusedPathSum`: CUDA
 tensors launch the kernel or raise, CPU tensors take the plain version
@@ -32,15 +37,32 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .render import SMEM_LIMIT
+from .render import INDEX_LIMIT
 
 #: Number of CUDA kernel launches made by :func:`fused_path_sum`.
 LAUNCHES = 0
 
+# Tiles of the kernel: paths per chunk, rows (t) and columns (k) per tile,
+# A and B plane rows, staged per-path scalars.
+_PC, _MT, _NT = 32, 64, 64
+_AS = _BS = _PC + 4
+_SCAL = 5
 
-def smem_bytes(q: int, k: int, n_paths: int) -> int:
-    """Shared memory of one block: E [P, Q] and g [P, K], re and im."""
-    return 2 * 4 * n_paths * (q + k)
+
+def smem_bytes() -> int:
+    """Dynamic shared memory of one block, as ``pathsum_smem_bytes`` of
+    the kernel computes it: the split B plane [kNT][kBS] float4 and two
+    stages of the atx planes [kMT][kAS] (re, im) and the chunk's scalars.
+    It depends on the tiles only, not on P, R, T or K."""
+    return 16 * _NT * _BS + 4 * 2 * (2 * _MT * _AS + _SCAL * _PC)
+
+
+def kernel_fits(q: int, k: int, n_paths: int) -> bool:
+    """Does the CUDA kernel take Q = R*T rows, K subcarriers and P paths?
+    Shared memory does not grow with the shape, so only the kernel's C-int
+    indices bound it."""
+    return (min(q, k, n_paths) >= 1 and q <= INDEX_LIMIT and
+            k <= INDEX_LIMIT and n_paths <= INDEX_LIMIT)
 
 
 _NAMES = ("arx_r", "arx_i", "atx_r", "atx_i", "amp", "psi", "omega",
@@ -116,10 +138,10 @@ def _path_sum(args):
     if dev.type != "cuda":
         raise ValueError(f"fused_path_sum runs on CUDA or CPU tensors, not "
                          f"{dev}")
-    if smem_bytes(r * t, k, p) > SMEM_LIMIT:
-        raise ValueError(
-            f"shape exceeds the kernel's shared memory: Q={r * t}, K={k}, "
-            f"P={p} needs {smem_bytes(r * t, k, p)} > {SMEM_LIMIT} bytes")
+    if not kernel_fits(r * t, k, p):
+        raise ValueError(f"shape exceeds the kernel's C-int indices: "
+                         f"Q={r * t}, K={k}, P={p} (each must be <= "
+                         f"{INDEX_LIMIT})")
     hr = torch.empty((u, r * t, k), dtype=torch.float32, device=dev)
     hi = torch.empty_like(hr)
     fn = _build.launcher("pathsum", 10, 5)

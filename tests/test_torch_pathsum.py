@@ -1,7 +1,9 @@
 """Path-sum kernel of the PyTorch port: plain version and autograd Function
 against the JAX kernel (Pallas in interpret mode) and its XLA reference,
-ragged U and K, a non-arithmetic subcarrier selection, gradients, and — on
-a CUDA card only — the CUDA kernel vs its plain version.
+ragged U and K, a non-arithmetic subcarrier selection, more than one path
+chunk, gradients, the kernel's shape envelope, and — on a CUDA card only —
+the CUDA kernel vs its plain version, also past the shared-memory bound of
+the kernel that staged all P paths of a user at once.
 
 JAX is imported only inside the tests that use it, so the ``gpu`` tests
 also run where JAX is not installed:
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from deepmimo_tpu_torch.ops.kernels import pathsum as kp
+from deepmimo_tpu_torch.ops.kernels.render import INDEX_LIMIT, SMEM_LIMIT
 
 torch.set_num_threads(1)
 ATOL = 1e-5      # absolute, as tests/test_pallas.py:25-55 (|H| ~ 1-10)
@@ -24,6 +27,18 @@ CASES = {
     "ragged_u_k": (7, 2, 8, 5, np.arange(5)),
     "non_arithmetic": (9, 1, 4, 7, np.array([0, 3, 4, 10, 17, 18])),
     "single_antenna": (5, 1, 1, 3, np.array([2])),
+    # two 32-path chunks and a full 64-row tile
+    "two_chunks": (3, 2, 64, 40, np.arange(11)),
+}
+
+# Shapes whose 8 P (Q + K) bytes exceed SMEM_LIMIT (the old kernel staged
+# E and g of all P paths in shared memory): (U, R, T, P, k_sel). A 16 x 16
+# BS at 1,024 non-arithmetic subcarriers of 2,048, and 300 paths at the
+# headline panel. Card only: the JAX kernel in interpret mode is slow here.
+WIDE_CASES = {
+    "wide_bs": (300, 1, 256, 25, np.sort(np.random.RandomState(1).choice(
+        2048, 1024, replace=False))),
+    "many_paths": (400, 1, 64, 300, np.arange(64)),
 }
 
 
@@ -111,6 +126,32 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         kp.fused_path_sum(*args)
 
 
+def test_kernel_fits_past_the_old_shared_memory_bound():
+    # One block's shared memory is one constant: the split B plane and two
+    # stages of atx rows and scalars, whatever P, R, T and K.
+    assert kp.smem_bytes() == 75_008 <= SMEM_LIMIT
+    # Every shape the kernel staging all P paths of a user at once took
+    # (8 P (Q + K) bytes of shared memory) is taken, and more.
+    n_old = 0
+    for q in (1, 2, 8, 15, 16, 64, 256, 1024, 4096):
+        for k in (1, 6, 16, 17, 64, 1024, 4096):
+            for p in (1, 5, 25, 37, 40, 100, 227, 300, 1000):
+                if 8 * p * (q + k) <= SMEM_LIMIT:
+                    n_old += 1
+                    assert kp.kernel_fits(q, k, p), (q, k, p)
+    assert n_old > 100
+    for u, r, t, p, k_sel in WIDE_CASES.values():
+        assert 8 * p * (r * t + len(k_sel)) > SMEM_LIMIT
+        assert kp.kernel_fits(r * t, len(k_sel), p)
+    assert kp.kernel_fits(1, 1, 100_000)
+    # What is left: C-int indices and empty axes.
+    assert kp.kernel_fits(INDEX_LIMIT, INDEX_LIMIT, INDEX_LIMIT)
+    assert not kp.kernel_fits(INDEX_LIMIT + 1, 64, 25)
+    assert not kp.kernel_fits(64, INDEX_LIMIT + 1, 25)
+    assert not kp.kernel_fits(64, 64, 0)
+    assert not kp.kernel_fits(64, 0, 25)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -135,3 +176,33 @@ def test_cuda_kernel_matches_plain_version(cuda, name):
     for g, w in zip(got, want):
         scale = float(w.abs().max())
         assert float((g - w).abs().max()) <= RTOL * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+def test_cuda_kernel_past_the_old_shared_memory_bound(cuda, name):
+    u, r, t, p, k_sel = WIDE_CASES[name]
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _inputs(u, r, t, p, k_sel, seed=5)]
+    before = kp.LAUNCHES
+    got = kp.fused_path_sum(*args)
+    want = kp.fused_path_sum_reference(*args)
+    torch.cuda.synchronize()
+    assert kp.LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == (u, r * t, len(k_sel))
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= RTOL * scale
+
+
+@pytest.mark.gpu
+def test_cuda_smem_bytes_is_the_kernels_own(cuda):
+    """smem_bytes mirrors the launcher's constant (csrc/pathsum.cu exports
+    it)."""
+    import ctypes
+
+    from deepmimo_tpu_torch.ops.kernels import _build
+    fn = _build.load_library("pathsum").pathsum_smem_bytes
+    fn.argtypes = []
+    fn.restype = ctypes.c_longlong
+    assert fn() == kp.smem_bytes()
