@@ -12,16 +12,16 @@ Source note.
   (hr, hi) [U, R*T, K], regrouped as H[r*T + t] = sum_p atx[t, p]
   (arx[r, p] g[p, k]) so that E is never formed.
 - What bounds it on an H100: HBM bytes (the planes read once, H written
-  once: 6.0 GB at the headline), with the tensor cores' mma.sync issue
-  close behind.
+  once: 6.0 GB at the headline), with the GEMM's issue and the trig that
+  builds its B operand behind.
 - What the design does about it: per (user, r) one real GEMM on the
   tensor cores at 3xTF32 (``mma.sync``, f32 grade), with the atx planes
-  copied as they lie in HBM (``cp.async``, two stages, so the next
-  chunk's loads run under this chunk's products) as A and only
-  B = amp arx (x) g built on the chip; persistent blocks walk 64 x 64
-  output tiles in 32-path chunks, so shared memory is one constant
-  (:func:`smem_bytes`) whatever the shape. The TPU's user/k tiling is not
-  carried over.
+  copied as they lie in HBM (``cp.async``, two stages) as A and only
+  B = amp arx (x) g built on the chip, by producer warps while the
+  consumer warps run the products of another chunk; persistent blocks
+  walk 64 x 64 output tiles in 32-path chunks, so shared memory is one
+  constant (:func:`smem_bytes`) whatever the shape. The TPU's user/k
+  tiling is not carried over.
 
 :func:`fused_path_sum` is the ``apply`` of :class:`FusedPathSum`: CUDA
 tensors launch the kernel or raise, CPU tensors take the plain version
@@ -51,18 +51,22 @@ _SCAL = 5
 
 def smem_bytes() -> int:
     """Dynamic shared memory of one block, as ``pathsum_smem_bytes`` of
-    the kernel computes it: the split B plane [kNT][kBS] float4 and two
-    stages of the atx planes [kMT][kAS] (re, im) and the chunk's scalars.
-    It depends on the tiles only, not on P, R, T or K."""
-    return 16 * _NT * _BS + 4 * 2 * (2 * _MT * _AS + _SCAL * _PC)
+    the kernel computes it: two stages of the split B plane [kNT][kBS]
+    float4, the atx planes [kMT][kAS] (re, im) and the chunk's scalars and
+    k_sel. It depends on the tiles only, not on P, R, T or K."""
+    return 2 * (16 * _NT * _BS + 4 * (2 * _MT * _AS + _SCAL * _PC + _NT))
 
 
-def kernel_fits(q: int, k: int, n_paths: int) -> bool:
-    """Does the CUDA kernel take Q = R*T rows, K subcarriers and P paths?
-    Shared memory does not grow with the shape, so only the kernel's C-int
-    indices bound it."""
-    return (min(q, k, n_paths) >= 1 and q <= INDEX_LIMIT and
-            k <= INDEX_LIMIT and n_paths <= INDEX_LIMIT)
+def kernel_fits(n_rx: int, n_tx: int, n_k: int, n_paths: int) -> bool:
+    """Does the CUDA kernel take R RX and T TX elements, K subcarriers and
+    P paths? Shared memory does not grow with the shape, so only the
+    kernel's C ints bound it: Q = R*T, K, P and the 64 x 64 output tiles
+    per user must each fit in one."""
+    if min(n_rx, n_tx, n_k, n_paths) < 1:
+        return False
+    tiles = n_rx * -(-n_tx // _MT) * -(-n_k // _NT)
+    return (n_rx * n_tx <= INDEX_LIMIT and n_k <= INDEX_LIMIT and
+            n_paths <= INDEX_LIMIT and tiles <= INDEX_LIMIT)
 
 
 _NAMES = ("arx_r", "arx_i", "atx_r", "atx_i", "amp", "psi", "omega",
@@ -138,9 +142,10 @@ def _path_sum(args):
     if dev.type != "cuda":
         raise ValueError(f"fused_path_sum runs on CUDA or CPU tensors, not "
                          f"{dev}")
-    if not kernel_fits(r * t, k, p):
+    if not kernel_fits(r, t, k, p):
         raise ValueError(f"shape exceeds the kernel's C-int indices: "
-                         f"Q={r * t}, K={k}, P={p} (each must be <= "
+                         f"R={r}, T={t}, K={k}, P={p} (Q, K, P and the "
+                         f"64 x 64 tiles per user must each be <= "
                          f"{INDEX_LIMIT})")
     hr = torch.empty((u, r * t, k), dtype=torch.float32, device=dev)
     hi = torch.empty_like(hr)

@@ -127,29 +127,32 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_fits_past_the_old_shared_memory_bound():
-    # One block's shared memory is one constant: the split B plane and two
-    # stages of atx rows and scalars, whatever P, R, T and K.
-    assert kp.smem_bytes() == 75_008 <= SMEM_LIMIT
+    # One block's shared memory is one constant: two stages of the split B
+    # operand, the atx rows and the scalars, whatever P, R, T and K; two
+    # blocks fit on an SM.
+    assert kp.smem_bytes() == 112_384 <= SMEM_LIMIT // 2
     # Every shape the kernel staging all P paths of a user at once took
     # (8 P (Q + K) bytes of shared memory) is taken, and more.
     n_old = 0
-    for q in (1, 2, 8, 15, 16, 64, 256, 1024, 4096):
+    for r, t in ((1, 1), (1, 2), (2, 1), (1, 8), (4, 4), (1, 15), (2, 8),
+                 (1, 64), (4, 64), (1, 256), (1, 1024), (16, 256)):
         for k in (1, 6, 16, 17, 64, 1024, 4096):
             for p in (1, 5, 25, 37, 40, 100, 227, 300, 1000):
-                if 8 * p * (q + k) <= SMEM_LIMIT:
+                if 8 * p * (r * t + k) <= SMEM_LIMIT:
                     n_old += 1
-                    assert kp.kernel_fits(q, k, p), (q, k, p)
+                    assert kp.kernel_fits(r, t, k, p), (r, t, k, p)
     assert n_old > 100
     for u, r, t, p, k_sel in WIDE_CASES.values():
         assert 8 * p * (r * t + len(k_sel)) > SMEM_LIMIT
-        assert kp.kernel_fits(r * t, len(k_sel), p)
-    assert kp.kernel_fits(1, 1, 100_000)
+        assert kp.kernel_fits(r, t, len(k_sel), p)
+    assert kp.kernel_fits(1, 1, 1, 100_000)
     # What is left: C-int indices and empty axes.
-    assert kp.kernel_fits(INDEX_LIMIT, INDEX_LIMIT, INDEX_LIMIT)
-    assert not kp.kernel_fits(INDEX_LIMIT + 1, 64, 25)
-    assert not kp.kernel_fits(64, INDEX_LIMIT + 1, 25)
-    assert not kp.kernel_fits(64, 64, 0)
-    assert not kp.kernel_fits(64, 0, 25)
+    assert kp.kernel_fits(1, INDEX_LIMIT, 64, INDEX_LIMIT)
+    assert not kp.kernel_fits(2, 2**30, 64, 25)
+    assert not kp.kernel_fits(1, 64, INDEX_LIMIT + 1, 25)
+    assert not kp.kernel_fits(1, 2**20, 2**24, 25)      # 2**32 tiles
+    assert not kp.kernel_fits(1, 64, 64, 0)
+    assert not kp.kernel_fits(1, 64, 0, 25)
 
 
 @pytest.fixture
