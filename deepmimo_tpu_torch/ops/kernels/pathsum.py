@@ -15,13 +15,13 @@ Source note.
   once: 6.0 GB at the headline), with the GEMM's issue and the trig that
   builds its B operand behind.
 - What the design does about it: per (user, r) one real GEMM on the
-  tensor cores at 3xTF32 (``mma.sync``, f32 grade), with the atx planes
+  tensor cores at 3xTF32 (``wgmma``, f32 grade), with the atx planes
   copied as they lie in HBM (``cp.async``, two stages) as A and only
   B = amp arx (x) g built on the chip, by producer warps while the
-  consumer warps run the products of another chunk; persistent blocks
-  walk 64 x 64 output tiles in 32-path chunks, so shared memory is one
-  constant (:func:`smem_bytes`) whatever the shape. The TPU's user/k
-  tiling is not carried over.
+  consumer warpgroup runs the products of another chunk; persistent
+  blocks walk 64 x 64 output tiles in 16-path chunks, so shared memory is
+  one constant (:func:`smem_bytes`) whatever the shape. The TPU's
+  user/k tiling is not carried over.
 
 :func:`fused_path_sum` is the ``apply`` of :class:`FusedPathSum`: CUDA
 tensors launch the kernel or raise, CPU tensors take the plain version
@@ -43,18 +43,20 @@ from .render import INDEX_LIMIT
 LAUNCHES = 0
 
 # Tiles of the kernel: paths per chunk, rows (t) and columns (k) per tile,
-# A and B plane rows, staged per-path scalars.
-_PC, _MT, _NT = 32, 64, 64
-_AS = _BS = _PC + 4
+# A plane row, staged per-path scalars, the GEMM's columns and depth.
+_PC, _MT, _NT = 16, 64, 64
+_AS = _PC + 4
 _SCAL = 5
+_N, _K = 2 * _NT, 2 * _PC
 
 
 def smem_bytes() -> int:
     """Dynamic shared memory of one block, as ``pathsum_smem_bytes`` of
-    the kernel computes it: two stages of the split B plane [kNT][kBS]
-    float4, the atx planes [kMT][kAS] (re, im) and the chunk's scalars and
-    k_sel. It depends on the tiles only, not on P, R, T or K."""
-    return 2 * (16 * _NT * _BS + 4 * (2 * _MT * _AS + _SCAL * _PC + _NT))
+    the kernel computes it: two stages of the B operand's tf32 hi and lo
+    planes [2*kNT x 2*kPC], the atx planes [kMT][kAS] (re, im) and the
+    chunk's scalars and k_sel. It depends on the tiles only, not on P, R, T
+    or K."""
+    return 4 * 2 * (2 * _N * _K + 2 * _MT * _AS + _SCAL * _PC + _NT)
 
 
 def kernel_fits(n_rx: int, n_tx: int, n_k: int, n_paths: int) -> bool:
