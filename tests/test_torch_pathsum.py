@@ -27,7 +27,7 @@ CASES = {
     "ragged_u_k": (7, 2, 8, 5, np.arange(5)),
     "non_arithmetic": (9, 1, 4, 7, np.array([0, 3, 4, 10, 17, 18])),
     "single_antenna": (5, 1, 1, 3, np.array([2])),
-    # two 32-path chunks and a full 64-row tile
+    # three 16-path chunks and a full 64-row tile
     "two_chunks": (3, 2, 64, 40, np.arange(11)),
 }
 
