@@ -21,13 +21,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    256 subcarriers and 64 beams of a 16 x 16 panel (and, for context, the
    forward render plus an einsum fold at the headline width). The path
    sum's yardstick is timed beside it: one complex64 ``torch.einsum`` over
-   the same planes with g given (its ``library_ms``).
+   the same planes with g given (its ``library_ms``). Every mode is held
+   against its plain version in the same mode at every case, and timed
+   at the headline: the forward with bf16 output (2^-7 * max|H|), one-pass
+   bf16 products (1e-2 * max|H|) and both; the backward and the beam gain
+   with one-pass bf16 products (1e-2 * max|g|, max|G|).
 4. Serving path: four 131,072-user x 25-path datasets (synthetic, seed 7)
    through ``Dataset.compute_channels(params, to_device=True, out=prev)``
    — one kernel launch per call — checked for shape and finiteness and on
    64 users per dataset against the float64 oracle ``tests/oracle.py``;
    then a timed sweep and a ``torch.profiler`` breakdown (device window,
-   busy and idle share, largest kernels), as in phases 5b and 5c.
+   busy and idle share, largest kernels), as in phases 5b, 5c and 5f.
 5. Streamed path: ``to_device=False`` over 3 user blocks must equal the
    single-dispatch result exactly.
 5b. Beam-gain serving: ``Dataset.compute_beam_gains(params, codebook=W,
@@ -35,7 +39,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    codebook — one beam-gain launch and no render launch per call — on 64
    users per dataset against |conj(W) . H| ** 2 from the float64 oracle
    (1e-4 * max|G|); then a timed sweep.
-5c. Dual-polar: a 131,072-user dataset with four NaN-padded polarization
+5c. bf16 serving on the four datasets, counted by kernel mode:
+   ``compute_channels`` with ``planes_out_dtype`` "bfloat16" (f32
+   products, then bf16 products) and ``compute_beam_gains`` with bf16
+   products, each against the oracle (2^-7, 1e-2) and timed as phase 4.
+5d. Angle space: the four datasets with a half-wave dipole BS pattern
+   through ``compute_channels`` and an ops-level ``render_channels_planes``
+   with bs_fov=(120, 180), both through the fused render, against the
+   oracle; ms per call.
+5e. Doppler: one 131,072-user dataset with radial velocities and
+   accelerations at 4 snapshots, ``compute_channels`` (17.2 GB, one
+   launch with 4 slots) and ``compute_beam_gains``, each snapshot against
+   the oracle; ms per call.
+5f. Dual-polar: a 131,072-user dataset with four NaN-padded polarization
    matrices; ``compute_channels(..., to_device=True, out=prev)`` in one
    render launch with 4 slots, 64 users per polarization against the
    oracle (5e-5 * max|H|); dual-polar ``compute_beam_gains`` in one
@@ -50,15 +66,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    exactly one forward and one backward launch per step; ms per step,
    peak device memory, the step's split and a ``torch.profiler``
    breakdown of one step.
+6b. The planes step with ``matmul_dtype`` "bfloat16": 3 steps, one
+   forward and one backward launch per step in their one-pass modes, the
+   first step's gradients against the plain versions in that mode
+   (1e-2 * max|g|), the first loss within 1e-2 of the f32 one.
 7. The ``pallas`` trainer: ``training_step`` at the same width, one
    path-sum launch per step, first loss equal to the planes loss at rtol
    1e-4.
 
-The line before the last is a JSON object describing every kernel, with
-``bound_ms``: the larger of its bytes (each input read once, each output
-written once) over 3.35 TB/s and its flops at f32 grade on the tensor
-cores (3 TF32 passes at 495 TFLOP/s), at the headline shapes of this run;
-a ``[bounds]`` line beside it gives the FP32-FMA figure (67 TFLOP/s) too.
+The line before the last is a JSON object describing every kernel in each
+of its modes (``fused_render[bf16_out]``, ...; each launched on a main
+path, counted by mode), with ``bound_ms``: the larger of its bytes (each
+input read once, each output written once) over 3.35 TB/s and its flops
+at f32 grade on the tensor cores (3 TF32 passes at 495 TFLOP/s), or for
+one-pass bf16 products at 989 TFLOP/s, at the headline shapes of this
+run; a ``[bounds]`` line beside it gives the FP32-FMA figure (67 TFLOP/s)
+too.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
 the script exits non-zero before printing any result.
 """
@@ -69,6 +92,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -101,10 +125,30 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM, HBM3 peak
 FP32_FLOPS_PER_S = 67e12     # H100 SXM, FP32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12    # H100 SXM, dense TF32 on the tensor cores
 TF32_PASSES = 3              # f32 grade: hi*hi + hi*lo + lo*hi
+BF16_FLOPS_PER_S = 989e12    # H100 SXM, dense bf16 on the tensor cores
+# Modes with bf16 in them (tests/test_torch_render.py states the reasons):
+BF16_OUT_RTOL = 2 ** -7      # bf16 output vs f32, relative to max|H|
+BF16_MM_RTOL = 1e-2          # one-pass bf16 products, rel. max|H|, |G|, |g|
+DOPPLER_TIMES = (0.0, 1e-3, 2e-3, 3e-3)     # snapshots of the Doppler cell
+BF16_STEPS = 3               # training_step_planes steps in bf16 products
+# Forward modes held against their plain versions: mm_dtype, out_dtype,
+# tolerance relative to max|H|.
+FWD_MODES = [("float32", "float32", KERNEL_RTOL),
+             ("float32", "bfloat16", BF16_OUT_RTOL),
+             ("bfloat16", "float32", BF16_MM_RTOL),
+             ("bfloat16", "bfloat16", BF16_MM_RTOL)]
+# Backward and beam-gain modes (their outputs are float32).
+MM_MODES = ("float32", "bfloat16")
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def entry(name, key):
+    """A kernel's entry in the kernels line: ``name``, or ``name[mode]`` for
+    a mode other than f32 (``render.mode_key``)."""
+    return name if key == "f32" else f"{name}[{key}]"
 
 
 def make_data(n_ue, max_paths, seed=7):
@@ -220,34 +264,45 @@ KERNEL_CASES = [
 
 
 def phase_kernels(torch):
+    """The forward kernel in each of FWD_MODES against its plain version in
+    the same mode at every KERNEL_CASES shape; at the headline, times of
+    both. Returns the headline's metrics by mode."""
     from deepmimo_tpu_torch.ops.kernels import render as kr
-    headline = None
+    headline = {}
     for name, u, p, rx, tx, k, s, per_slot, packed in KERNEL_CASES:
         args = _render_inputs(torch, u, p, s, s if per_slot else 1,
                               seed=len(name))
-        h = kr.fused_render(*args, rx, tx, k, packed)
-        ref = kr.fused_render_reference(*args, rx, tx, k, packed)
-        torch.cuda.synchronize()
-        err = float((h - ref).abs().max())
-        scale = float(ref.abs().max())
-        log(f"[kernel] fused_render {name}: U={u} P={p} rx={rx} tx={tx} "
-            f"K={k} S={s} packed={packed} out={tuple(h.shape)} "
-            f"max_abs_err={err:.3e} max|H|={scale:.3e} "
-            f"rel={err / scale:.3e} (limit {KERNEL_RTOL:g})")
-        if not (math.isfinite(err) and err <= KERNEL_RTOL * scale):
-            raise AssertionError(f"fused_render {name}: kernel disagrees "
-                                 f"with its plain version")
-        if name == "headline":
-            out = torch.empty_like(h)
-            ms = event_ms(torch, lambda: kr.fused_render(
-                *args, rx, tx, k, packed, out=out), reps=20)
-            plain_ms = event_ms(torch, lambda: kr.fused_render_reference(
-                *args, rx, tx, k, packed), reps=3)
-            gbps = h.numel() * 4 / (ms * 1e-3) / 1e9
-            log(f"[kernel] fused_render headline: kernel {ms:.4f} ms "
-                f"({gbps:.1f} GB/s of H written), plain {plain_ms:.4f} ms")
-            headline = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        del h, ref, args
+        for mm, out_dtype, tol in FWD_MODES:
+            key = kr.mode_key(mm, out_dtype)
+            h = kr.fused_render(*args, rx, tx, k, packed, mm_dtype=mm,
+                                out_dtype=out_dtype)
+            ref = kr.fused_render_reference(*args, rx, tx, k, packed, mm)
+            torch.cuda.synchronize()
+            err = float((h.float() - ref).abs().max())
+            scale = float(ref.abs().max())
+            log(f"[kernel] {entry('fused_render', key)} {name}: U={u} P={p} "
+                f"rx={rx} tx={tx} K={k} S={s} packed={packed} "
+                f"out={tuple(h.shape)} {h.dtype} max_abs_err={err:.3e} "
+                f"max|H|={scale:.3e} rel={err / scale:.3e} (limit {tol:g})")
+            if not (math.isfinite(err) and err <= tol * scale):
+                raise AssertionError(f"fused_render {name} {key}: kernel "
+                                     f"disagrees with its plain version")
+            if name == "headline":
+                out = torch.empty_like(h)
+                ms = event_ms(torch, lambda: kr.fused_render(
+                    *args, rx, tx, k, packed, out=out, mm_dtype=mm,
+                    out_dtype=out_dtype), reps=20)
+                plain_ms = event_ms(torch, lambda: kr.fused_render_reference(
+                    *args, rx, tx, k, packed, mm).to(h.dtype), reps=3)
+                gbps = h.numel() * h.element_size() / (ms * 1e-3) / 1e9
+                log(f"[kernel] {entry('fused_render', key)} headline: kernel "
+                    f"{ms:.4f} ms ({gbps:.1f} GB/s of H written), plain "
+                    f"{plain_ms:.4f} ms")
+                headline[key] = dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms)
+                del out
+            del h, ref
+        del args
         torch.cuda.empty_cache()
     return headline
 
@@ -271,10 +326,11 @@ def largest_fitting_ms(torch, make_fn, u_max, reps):
 
 
 def phase_bwd_kernels(torch):
-    """The render's backward kernel vs its plain version (the VJP of the
-    plain forward) at every KERNEL_CASES shape."""
+    """The render's backward kernel in each of MM_MODES vs its plain
+    version in the same mode at every KERNEL_CASES shape. Returns the
+    headline's metrics by mode."""
     from deepmimo_tpu_torch.ops.kernels import render as kr
-    headline = None
+    headline = {}
     for name, u, p, rx, tx, k, s, per_slot, packed in KERNEL_CASES:
         args = _render_inputs(torch, u, p, s, s if per_slot else 1,
                               seed=len(name) + 100)
@@ -282,38 +338,43 @@ def phase_bwd_kernels(torch):
         gen = torch.Generator(device=DEV).manual_seed(len(name))
         ct = _cuda_rand(torch, (u, q, 2 * s * k) if packed
                         else (2, u, q, s * k), gen)
-        got = kr.fused_render_bwd(*args, ct, rx, tx, k, packed)
-        want = kr.fused_render_bwd_reference(*args, ct, rx, tx, k, packed)
-        torch.cuda.synchronize()
-        errs, worst = [], 0.0
-        for gname, g, w in zip(("gry", "grz", "gty", "gtz", "amp", "psi",
-                                "omega"), got, want):
-            err = float((g - w).abs().max())
-            scale = float(w.abs().max())
-            rel = err / scale if scale > 0 else err
-            errs.append(f"{gname} {rel:.2e}")
-            worst = max(worst, err)
-            if not (math.isfinite(err) and err <= GRAD_RTOL * scale + 1e-30):
-                raise AssertionError(f"fused_render_bwd {name}: d{gname} "
-                                     f"disagrees with its plain version "
-                                     f"(err {err:.3e}, max|g| {scale:.3e})")
-        log(f"[kernel] fused_render_bwd {name}: U={u} P={p} rx={rx} tx={tx} "
-            f"K={k} S={s} packed={packed} rel err per grad: "
-            f"{', '.join(errs)} (limit {GRAD_RTOL:g})")
-        del got, want
-        if name == "headline":
-            ms = event_ms(torch, lambda: kr.fused_render_bwd(
-                *args, ct, rx, tx, k, packed), reps=20)
-            plain_ms, plain_u = largest_fitting_ms(
-                torch, lambda n: lambda: kr.fused_render_bwd_reference(
-                    *[a[:n] for a in args], ct[:n], rx, tx, k, packed),
-                u, reps=3)
-            gbps = ct.numel() * 4 / (ms * 1e-3) / 1e9
-            log(f"[kernel] fused_render_bwd headline: kernel {ms:.4f} ms "
-                f"({gbps:.1f} GB/s of ct read), plain {plain_ms:.4f} ms at "
-                f"{plain_u} users")
-            headline = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                            plain_users=plain_u)
+        for mm in MM_MODES:
+            key = kr.mode_key(mm)
+            tol = GRAD_RTOL if key == "f32" else BF16_MM_RTOL
+            got = kr.fused_render_bwd(*args, ct, rx, tx, k, packed, mm)
+            want = kr.fused_render_bwd_reference(*args, ct, rx, tx, k,
+                                                 packed, mm)
+            torch.cuda.synchronize()
+            errs, worst = [], 0.0
+            for gname, g, w in zip(("gry", "grz", "gty", "gtz", "amp", "psi",
+                                    "omega"), got, want):
+                err = float((g - w).abs().max())
+                scale = float(w.abs().max())
+                rel = err / scale if scale > 0 else err
+                errs.append(f"{gname} {rel:.2e}")
+                worst = max(worst, err)
+                if not (math.isfinite(err) and err <= tol * scale + 1e-30):
+                    raise AssertionError(
+                        f"fused_render_bwd {name} {key}: d{gname} disagrees "
+                        f"with its plain version (err {err:.3e}, max|g| "
+                        f"{scale:.3e})")
+            log(f"[kernel] {entry('fused_render_bwd', key)} {name}: U={u} "
+                f"P={p} rx={rx} tx={tx} K={k} S={s} packed={packed} rel err "
+                f"per grad: {', '.join(errs)} (limit {tol:g})")
+            del got, want
+            if name == "headline":
+                ms = event_ms(torch, lambda: kr.fused_render_bwd(
+                    *args, ct, rx, tx, k, packed, mm), reps=20)
+                plain_ms, plain_u = largest_fitting_ms(
+                    torch, lambda n: lambda: kr.fused_render_bwd_reference(
+                        *[a[:n] for a in args], ct[:n], rx, tx, k, packed,
+                        mm), u, reps=3)
+                gbps = ct.numel() * 4 / (ms * 1e-3) / 1e9
+                log(f"[kernel] {entry('fused_render_bwd', key)} headline: "
+                    f"kernel {ms:.4f} ms ({gbps:.1f} GB/s of ct read), plain "
+                    f"{plain_ms:.4f} ms at {plain_u} users")
+                headline[key] = dict(max_abs_err=worst, ms=ms,
+                                     plain_ms=plain_ms, plain_users=plain_u)
         del args, ct
         torch.cuda.empty_cache()
     return headline
@@ -454,40 +515,47 @@ def phase_bg_kernels(torch):
     """The beam-gain kernel vs its plain version at the BG_CASES shapes."""
     from deepmimo_tpu_torch.ops.kernels import beamgain as kb
     from deepmimo_tpu_torch.ops.kernels import render as kr
-    headline = None
+    headline = {}
     for name, u, rx, tx, b, k, p, s, n_sa in BG_CASES:
         args = _render_inputs(torch, u, p, s, n_sa, seed=len(name) + 200)
         t = tx[0] * tx[1]
         wr, wi = _planes_on_card(torch, codebook(b, t, seed=len(name)))
-        got = kb.fused_beam_gain(*args, wr, wi, rx, tx, k)
-        want = kb.beam_gain_reference(*args, wr, wi, rx, tx, k)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = float(want.max())
-        log(f"[kernel] fused_beam_gain {name}: U={u} P={p} rx={rx} tx={tx} "
-            f"B={b} K={k} S={s} n_sa={n_sa} out={tuple(got.shape)} "
-            f"max_abs_err={err:.3e} max|G|={scale:.3e} "
-            f"rel={err / scale:.3e} (limit {BG_RTOL:g})")
-        if not (math.isfinite(err) and err <= BG_RTOL * scale):
-            raise AssertionError(f"fused_beam_gain {name}: kernel disagrees "
-                                 f"with its plain version")
-        del want
-        if name == "headline":
-            ms = event_ms(torch, lambda: kb.fused_beam_gain(
-                *args, wr, wi, rx, tx, k, out=got), reps=20)
-            plain_ms = event_ms(torch, lambda: kb.beam_gain_reference(
-                *args, wr, wi, rx, tx, k), reps=3)
-            h = torch.empty((2, u, t, k), device=DEV)
-            pair_ms = event_ms(torch, lambda: kb.codebook_gain(
-                wr, wi, *kr.fused_render(*args, rx, tx, k, False, out=h)),
-                reps=3)
-            log(f"[kernel] fused_beam_gain headline: kernel {ms:.4f} ms "
-                f"({u / ms * 1e3:.1f} users/s), plain {plain_ms:.4f} ms; "
-                f"for context, forward render kernel + einsum fold "
-                f"{pair_ms:.4f} ms")
-            headline = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-            del h
-        del got, args
+        for mm in MM_MODES:
+            key = kr.mode_key(mm)
+            tol = BG_RTOL if key == "f32" else BF16_MM_RTOL
+            got = kb.fused_beam_gain(*args, wr, wi, rx, tx, k, mm_dtype=mm)
+            want = kb.beam_gain_reference(*args, wr, wi, rx, tx, k, mm)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            scale = float(want.max())
+            log(f"[kernel] {entry('fused_beam_gain', key)} {name}: U={u} "
+                f"P={p} rx={rx} tx={tx} B={b} K={k} S={s} n_sa={n_sa} "
+                f"out={tuple(got.shape)} max_abs_err={err:.3e} "
+                f"max|G|={scale:.3e} rel={err / scale:.3e} (limit {tol:g})")
+            if not (math.isfinite(err) and err <= tol * scale):
+                raise AssertionError(f"fused_beam_gain {name} {key}: kernel "
+                                     f"disagrees with its plain version")
+            del want
+            if name == "headline":
+                ms = event_ms(torch, lambda: kb.fused_beam_gain(
+                    *args, wr, wi, rx, tx, k, out=got, mm_dtype=mm), reps=20)
+                plain_ms = event_ms(torch, lambda: kb.beam_gain_reference(
+                    *args, wr, wi, rx, tx, k, mm), reps=3)
+                log(f"[kernel] {entry('fused_beam_gain', key)} headline: "
+                    f"kernel {ms:.4f} ms ({u / ms * 1e3:.1f} users/s), "
+                    f"plain {plain_ms:.4f} ms")
+                headline[key] = dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms)
+                if key == "f32":
+                    h = torch.empty((2, u, t, k), device=DEV)
+                    pair_ms = event_ms(torch, lambda: kb.codebook_gain(
+                        wr, wi, *kr.fused_render(*args, rx, tx, k, False,
+                                                 out=h)), reps=3)
+                    log(f"[kernel] for context, forward render kernel + "
+                        f"einsum fold {pair_ms:.4f} ms")
+                    del h
+            del got
+        del args
         torch.cuda.empty_cache()
     return headline
 
@@ -576,18 +644,67 @@ def phase_streamed(torch, dmt, datasets, params):
         f"{streamed.dtype} equals the single dispatch exactly")
 
 
-def _oracle(ds, n, power, phase):
+def _oracle(ds, n, power, phase, **kw):
     """float64 oracle channels of the first ``n`` users of ``ds``, fed the
-    given power and phase matrices."""
+    given power and phase matrices (``kw``: the oracle's pattern, FoV and
+    Doppler arguments; Doppler arrays are cut to ``n`` users here)."""
     if os.path.join(HERE, "tests") not in sys.path:
         sys.path.insert(0, os.path.join(HERE, "tests"))
     from oracle import oracle_channels
+    for key in ("doppler_vel", "doppler_acc"):
+        if key in kw:
+            kw[key] = kw[key][:n]
     return oracle_channels(
         power[:n], phase[:n], *(ds[key][:n] for key in (
             "delay", "aoa_az", "aoa_el", "aod_az", "aod_el")),
         bs_shape=BS_SHAPE, ue_shape=UE_SHAPE, n_fft=N_FFT,
         selected_subcarriers=tuple(range(N_SC)), bandwidth=BANDWIDTH,
-        num_paths=MAX_PATHS)
+        num_paths=MAX_PATHS, **kw)
+
+
+def _check_oracle(tag, what, got, want, tol):
+    """Fail unless ``got`` is within ``tol`` * max|want| of the oracle's
+    ``want``; logs the error under ``[tag] what``."""
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    log(f"[{tag}] {what}: oracle {got.shape[0]} users max_abs_err={err:.3e} "
+        f"max={scale:.3e} rel={err / scale:.3e} (limit {tol:g})")
+    if not err <= tol * scale:
+        raise AssertionError(f"{tag} {what}: disagrees with the oracle")
+
+
+def _beam_oracle(w, h):
+    """|conj(W) H|^2 [U, R*B, K] of oracle channels H [U, R, T, K]."""
+    g = np.abs(np.einsum("bt,urtk->urbk", w.conj(), h)) ** 2
+    return g.reshape(h.shape[0], -1, h.shape[-1])
+
+
+def _counted_calls(torch, tag, call, n, shape, dtype):
+    """``h = call(i, prev)`` for i < n, each writing into the previous
+    result: checks shape, dtype, finiteness and the reuse of ``out=``.
+    Returns the last result."""
+    h = None
+    for i in range(n):
+        prev = h
+        h = call(i, prev)
+        if tuple(h.shape) != tuple(shape) or h.dtype != dtype:
+            raise AssertionError(f"{tag} {i}: {tuple(h.shape)} {h.dtype}, "
+                                 f"expected {tuple(shape)} {dtype}")
+        if prev is not None and h.data_ptr() != prev.data_ptr():
+            raise AssertionError(f"{tag} {i}: out= buffer not reused")
+        if not bool(torch.isfinite(h).all()):
+            raise AssertionError(f"{tag} {i}: non-finite values")
+    return h
+
+
+def _modes(counts, name, want):
+    """Fail unless the launches by mode in ``counts`` are ``want``
+    ({mode key: launches}); returns them under their kernels-line names."""
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise AssertionError(f"{name}: launches by mode {got}, expected "
+                             f"{want}")
+    return {entry(name, k): v for k, v in want.items()}
 
 
 def profile_cell(torch, tag, calls, top=4):
@@ -817,37 +934,271 @@ def phase_polar(torch, dmt):
     return ch_launches[0], bg_launches[0]
 
 
+def phase_bf16_serving(torch, dmt, datasets):
+    """bf16 serving on the four headline datasets, counted by kernel mode:
+    ``compute_channels(..., to_device=True, out=prev)`` with
+    ``planes_out_dtype`` "bfloat16" (f32 products, then bf16 products too)
+    and ``compute_beam_gains`` with bf16 products, against the oracle;
+    then a timed sweep of each (the f32 cells' recipe)."""
+    from deepmimo_tpu_torch.ops.channel import unpack_planes_np
+    from deepmimo_tpu_torch.ops.kernels import beamgain as kb
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+
+    old = {k: dmt.config.get(k) for k in ("planes_out_dtype", "matmul_dtype")}
+    launches, n = {}, len(datasets)
+    try:
+        dmt.config.set("planes_out_dtype", "bfloat16")
+        for mm, tol in (("float32", BF16_OUT_RTOL),
+                        ("bfloat16", BF16_MM_RTOL)):
+            dmt.config.set("matmul_dtype", mm)
+            params = make_params(dmt)
+            cfg, _, _ = params.to_config(CHUNK)
+            key = kr.mode_key(mm, "bfloat16")
+            tag = f"bf16-serving {key}"
+            kr.MODE_LAUNCHES.clear()
+            h = _counted_calls(
+                torch, tag, lambda i, prev: datasets[i].compute_channels(
+                    params, to_device=True, out=prev), n,
+                (CHUNK, 1, BS_SHAPE[0] * BS_SHAPE[1], 2 * N_SC),
+                torch.bfloat16)
+            launches.update(_modes(kr.MODE_LAUNCHES, "fused_render",
+                                   {key: n}))
+            ds = datasets[-1]
+            _check_oracle(f"bf16-serving {key}", f"dataset {n - 1}",
+                          unpack_planes_np(h[:N_ORACLE], cfg),
+                          _oracle(ds, N_ORACLE, ds["power"], ds["phase"]),
+                          tol)
+            calls = [lambda ds=ds: ds.compute_channels(params, to_device=True,
+                                                       out=h)
+                     for ds in datasets]
+            ms, wall = timed_sweep(torch, calls)
+            log(f"[bf16-serving {key}] sweep of 5 x {n} datasets: {ms:.4f} "
+                f"ms per {CHUNK}-user dataset (CUDA events), "
+                f"{CHUNK / ms * 1e3:.1f} users/s; host wall {wall:.4f} ms; "
+                f"planes {h.numel() * 2 / 1e9:.2f} GB bf16")
+            profile_cell(torch, f"bf16 serving {key}", calls)
+            del h, calls
+            torch.cuda.empty_cache()
+
+        dmt.config.set("planes_out_dtype", "float32")
+        dmt.config.set("matmul_dtype", "bfloat16")
+        params = make_params(dmt)
+        w = codebook(BG_BEAMS, BS_SHAPE[0] * BS_SHAPE[1], seed=75)
+        kb.MODE_LAUNCHES.clear()
+        kr.LAUNCHES = 0
+        g = _counted_calls(
+            torch, "bf16 beam gains",
+            lambda i, prev: datasets[i].compute_beam_gains(
+                params, codebook=w, to_device=True, out=prev), n,
+            (CHUNK, BG_BEAMS, N_SC), torch.float32)
+        launches.update(_modes(kb.MODE_LAUNCHES, "fused_beam_gain",
+                               {"bf16_mm": n}))
+        if kr.LAUNCHES:
+            raise AssertionError("bf16 beam gains launched the render")
+        ds = datasets[-1]
+        _check_oracle("bf16-serving beam gains bf16_mm", f"dataset {n - 1}",
+                      g[:N_ORACLE].cpu().numpy(),
+                      _beam_oracle(w, _oracle(ds, N_ORACLE, ds["power"],
+                                              ds["phase"])), BF16_MM_RTOL)
+        calls = [lambda ds=ds: ds.compute_beam_gains(
+            params, codebook=w, to_device=True, out=g) for ds in datasets]
+        ms, wall = timed_sweep(torch, calls)
+        log(f"[bf16-serving beam gains bf16_mm] sweep of 5 x {n} datasets: "
+            f"{ms:.4f} ms per {CHUNK}-user call (CUDA events), "
+            f"{CHUNK / ms * 1e3:.1f} users/s; host wall {wall:.4f} ms")
+        del g, calls
+    finally:
+        for k, v in old.items():
+            dmt.config.set(k, v)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_doppler(torch, dmt):
+    """Doppler: one 131,072-user dataset with synthetic radial velocities
+    and accelerations (seed 9) at len(DOPPLER_TIMES) snapshots, through
+    ``compute_channels`` (packed [U, 1, 64, 2*4*64], 17.2 GB, one render
+    launch with 4 slots) and ``compute_beam_gains`` (16 beams, [U, 16,
+    4*64]), counted, each snapshot against the oracle; ms per call."""
+    from deepmimo_tpu_torch.ops.channel import unpack_planes_np
+    from deepmimo_tpu_torch.ops.kernels import beamgain as kb
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+
+    c = dmt.consts
+    d = make_data(CHUNK, MAX_PATHS, seed=9)
+    rng = np.random.RandomState(10)
+    nan = np.isnan(d["power"])
+    for key, lo, hi in (("doppler_vel", -30, 30), ("doppler_acc", -5, 5)):
+        d[key] = np.where(nan, np.nan, rng.uniform(lo, hi, nan.shape)
+                          ).astype(np.float32)
+    d["rx_pos"] = np.zeros((CHUNK, 3), np.float32)
+    d["tx_pos"] = np.zeros((1, 3), np.float32)
+    ds = dmt.Dataset(d)
+    params = make_params(dmt)
+    params[c.PARAMSET_DOPPLER_EN] = 1
+    params[c.PARAMSET_DOPPLER_TIMES] = np.array(DOPPLER_TIMES)
+    cfg, _, _ = params.to_config(CHUNK)
+    n_s, t = len(DOPPLER_TIMES), BS_SHAPE[0] * BS_SHAPE[1]
+    wants = [_oracle(ds, N_ORACLE, d["power"], d["phase"],
+                     doppler_vel=d["doppler_vel"],
+                     doppler_acc=d["doppler_acc"], doppler_time=ts)
+             for ts in DOPPLER_TIMES]
+
+    kr.MODE_LAUNCHES.clear()
+    kb.LAUNCHES = 0
+    h = _counted_calls(
+        torch, "doppler channels",
+        lambda i, prev: ds.compute_channels(params, to_device=True,
+                                            out=prev), 2,
+        (CHUNK, 1, t, 2 * n_s * N_SC), torch.float32)
+    launches = _modes(kr.MODE_LAUNCHES, "fused_render", {"f32": 2})
+    got = unpack_planes_np(h[:N_ORACLE], cfg)            # [..., K, S]
+    for i, ts in enumerate(DOPPLER_TIMES):
+        _check_oracle("doppler", f"channels t={ts:g} s", got[..., i],
+                      wants[i], ORACLE_RTOL)
+    calls = [lambda: ds.compute_channels(params, to_device=True, out=h)]
+    ms, wall = timed_sweep(torch, calls, reps=3)
+    log(f"[doppler] compute_channels: {tuple(h.shape)} "
+        f"({h.numel() * 4 / 1e9:.2f} GB), 1 render launch per call with "
+        f"{n_s} slots; {ms:.4f} ms per {CHUNK}-user call (CUDA events), "
+        f"host wall {wall:.4f} ms")
+    del h, calls
+    torch.cuda.empty_cache()
+
+    w = codebook(BG_BEAMS, t, seed=77)
+    kb.MODE_LAUNCHES.clear()
+    kr.LAUNCHES = 0
+    g = _counted_calls(
+        torch, "doppler beam gains",
+        lambda i, prev: ds.compute_beam_gains(params, codebook=w,
+                                              to_device=True, out=prev), 2,
+        (CHUNK, BG_BEAMS, n_s * N_SC), torch.float32)
+    launches.update(_modes(kb.MODE_LAUNCHES, "fused_beam_gain",
+                           {"f32": 2}))
+    if kr.LAUNCHES:
+        raise AssertionError("Doppler beam gains launched the render")
+    gh = g[:N_ORACLE].cpu().numpy()
+    for i, ts in enumerate(DOPPLER_TIMES):
+        _check_oracle("doppler", f"beam gains t={ts:g} s",
+                      gh[..., i * N_SC:(i + 1) * N_SC],
+                      _beam_oracle(w, wants[i]), BG_ORACLE_RTOL)
+    calls = [lambda: ds.compute_beam_gains(params, codebook=w,
+                                           to_device=True, out=g)]
+    ms, wall = timed_sweep(torch, calls, reps=3)
+    log(f"[doppler] compute_beam_gains: {tuple(g.shape)}, 1 beam-gain "
+        f"launch per call; {ms:.4f} ms per {CHUNK}-user call (CUDA events), "
+        f"host wall {wall:.4f} ms")
+    del g, calls
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_angle_space(torch, dmt, datasets):
+    """The fused render's angle-space prologue: the four headline datasets
+    with a half-wave dipole BS pattern through ``compute_channels``, and an
+    ops-level ``render_channels_planes`` with bs_fov=(120, 180) on the
+    first; counted (one f32 render launch per call), against the oracle;
+    ms per call."""
+    from deepmimo_tpu_torch.ops.channel import (render_channels_planes,
+                                                unpack_planes_np)
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+
+    c = dmt.consts
+    params = make_params(dmt)
+    params[c.PARAMSET_ANT_BS][c.PARAMSET_ANT_RAD_PAT] = "halfwave-dipole"
+    cfg, _, _ = params.to_config(CHUNK)
+    n, t = len(datasets), BS_SHAPE[0] * BS_SHAPE[1]
+    shape = (CHUNK, 1, t, 2 * N_SC)
+    kr.MODE_LAUNCHES.clear()
+    h = _counted_calls(
+        torch, "dipole channels",
+        lambda i, prev: datasets[i].compute_channels(params, to_device=True,
+                                                     out=prev), n, shape,
+        torch.float32)
+    launches = _modes(kr.MODE_LAUNCHES, "fused_render", {"f32": n})
+    ds = datasets[-1]
+    _check_oracle("angle-space", f"dipole dataset {n - 1}",
+                  unpack_planes_np(h[:N_ORACLE], cfg),
+                  _oracle(ds, N_ORACLE, ds["power"], ds["phase"],
+                          bs_pattern="halfwave-dipole"), ORACLE_RTOL)
+    calls = [lambda ds=ds: ds.compute_channels(params, to_device=True, out=h)
+             for ds in datasets]
+    ms, wall = timed_sweep(torch, calls)
+    log(f"[angle-space] dipole compute_channels: {ms:.4f} ms per "
+        f"{CHUNK}-user dataset (CUDA events), {CHUNK / ms * 1e3:.1f} "
+        f"users/s; host wall {wall:.4f} ms")
+
+    ds = datasets[0]
+    fov_cfg, bs, ue = make_params(dmt).to_config(CHUNK)
+    fov_cfg = fov_cfg.replace(bs_fov=(120.0, 180.0))
+    paths = dmt.PathData.from_numpy(*(ds[k] for k in (
+        "power", "phase", "delay", "aoa_az", "aoa_el", "aod_az", "aod_el")),
+        device=DEV)
+    kr.MODE_LAUNCHES.clear()
+    buf = h
+    h = _counted_calls(
+        torch, "fov channels",
+        lambda i, prev: render_channels_planes(paths, bs, ue, fov_cfg,
+                                               out=buf), 1, shape,
+        torch.float32)
+    launches["fused_render"] += _modes(kr.MODE_LAUNCHES,
+                                       "fused_render", {"f32": 1})[
+        "fused_render"]
+    _check_oracle("angle-space", "bs_fov=(120, 180)",
+                  unpack_planes_np(h[:N_ORACLE], fov_cfg),
+                  _oracle(ds, N_ORACLE, ds["power"], ds["phase"],
+                          bs_fov=(120.0, 180.0)), ORACLE_RTOL)
+    ms, wall = timed_sweep(torch, [lambda: render_channels_planes(
+        paths, bs, ue, fov_cfg, out=h)])
+    log(f"[angle-space] bs_fov render_channels_planes: {ms:.4f} ms per "
+        f"{CHUNK}-user call (CUDA events), host wall {wall:.4f} ms")
+    del h, buf, paths, calls
+    torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_bounds(fma=False):
-    """Least card time (ms) of each kernel's work at its headline shapes,
-    and what bounds it: bytes (each input read once, each output written
-    once) over HBM_BYTES_PER_S, or flops (FMA = 2) at f32 grade on the
-    tensor cores, TF32_PASSES * flops over TF32_FLOPS_PER_S, the fastest
-    f32-grade route the card offers (``fma``: flops over FP32_FLOPS_PER_S
-    instead, the SIMT FP32 rate). sincosf is not counted."""
+    """Least card time (ms) of each kernel's work, in each mode, at its
+    headline shapes, and what bounds it: bytes (each input read once, each
+    output written once; bf16 output half of H's) over HBM_BYTES_PER_S, or
+    flops (FMA = 2): at f32 grade on the tensor cores, TF32_PASSES * flops
+    over TF32_FLOPS_PER_S, the fastest f32-grade route the card offers;
+    one-pass bf16 products at BF16_FLOPS_PER_S (``fma``: all flops over
+    FP32_FLOPS_PER_S instead, the SIMT FP32 rate). sincosf is not
+    counted."""
     u, p, k = CHUNK, MAX_PATHS, N_SC
     r, t = UE_SHAPE[0] * UE_SHAPE[1], BS_SHAPE[0] * BS_SHAPE[1]
     q, b = r * t, BG_BEAMS
     per_path = 4 * 7 * u * p                       # the 7 [U, P] inputs
-    work = {
-        # H = E g^T: 8 flops per complex MAC
-        "fused_render": (per_path + 4 * u * q * 2 * k, 8 * u * q * k * p),
-        # dE = ct g and dG = ct^T E; reads ct, writes 7 gradients
-        "fused_render_bwd": (2 * per_path + 4 * u * q * 2 * k,
-                             16 * u * q * k * p),
+    h_planes = u * q * 2 * k                       # values of H's planes
+    fwd = 8 * u * q * k * p        # H = E g^T: 8 flops per complex MAC
+    bwd = 16 * u * q * k * p       # dE = ct g and dG = ct^T E
+    fold = 8 * u * b * t * p       # eb = conj(W) a_tx, B*T*P MACs
+    bg_sum = 8 * u * r * b * k * p     # the path sum, R*B*K*P MACs
+    bg_pow = 3 * u * r * b * k         # |y|^2
+    bg_bytes = per_path + 4 * 2 * b * t + 4 * u * r * b * k
+    work = {   # name: (bytes, flops at f32 grade, flops of one bf16 pass)
+        "fused_render": (per_path + 4 * h_planes, fwd, 0),
+        "fused_render[bf16_out]": (per_path + 2 * h_planes, fwd, 0),
+        "fused_render[bf16_mm]": (per_path + 4 * h_planes, 0, fwd),
+        "fused_render[bf16_mm+bf16_out]": (per_path + 2 * h_planes, 0, fwd),
+        # reads ct, writes 7 gradients
+        "fused_render_bwd": (2 * per_path + 4 * h_planes, bwd, 0),
+        "fused_render_bwd[bf16_mm]": (2 * per_path + 4 * h_planes, 0, bwd),
         # B = (amp a_rx) g (8 flops per (r, k, p)), then the path sum
         "fused_path_sum": (4 * u * p * (2 * r + 2 * t + 3) + 4 * k +
                            4 * 2 * u * q * k,
-                           8 * u * r * k * p + 8 * u * q * k * p),
-        # fold B*T*P and path sum R*B*K*P complex MACs, |y|^2
-        "fused_beam_gain": (per_path + 4 * 2 * b * t + 4 * u * r * b * k,
-                            8 * u * b * t * p + 8 * u * r * b * k * p +
-                            3 * u * r * b * k),
+                           8 * u * r * k * p + 8 * u * q * k * p, 0),
+        # the fold stays f32 grade in every mode
+        "fused_beam_gain": (bg_bytes, fold + bg_sum + bg_pow, 0),
+        "fused_beam_gain[bf16_mm]": (bg_bytes, fold + bg_pow, bg_sum),
     }
     out = {}
-    for name, (n_bytes, flops) in work.items():
+    for name, (n_bytes, flops, bf16_flops) in work.items():
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = (flops / FP32_FLOPS_PER_S if fma else
-                 TF32_PASSES * flops / TF32_FLOPS_PER_S) * 1e3
+        t_ops = ((flops + bf16_flops) / FP32_FLOPS_PER_S if fma else
+                 TF32_PASSES * flops / TF32_FLOPS_PER_S +
+                 bf16_flops / BF16_FLOPS_PER_S) * 1e3
         out[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
                      else (t_ops, "operations"))
     return out
@@ -895,26 +1246,22 @@ def run_steps(torch, step, params, n, per_step):
     return losses, step_ms, torch.cuda.max_memory_allocated()
 
 
-def phase_train(torch, dmt, fwd_ms, bwd_ms):
-    """The calibration step on the planes path: fused fwd + bwd kernels."""
+def _planes_target(torch, dmt, paths, cfg):
+    """The calibration target: the planes with the BS rotated 10 degrees."""
     from deepmimo_tpu_torch.ops.channel import render_channels_planes
-    from deepmimo_tpu_torch.ops.kernels import render as kr
-    from deepmimo_tpu_torch.parallel import sharded as sh
+    with torch.no_grad():
+        return render_channels_planes(
+            paths, dmt.AntennaPanel.make((0.0, 0.0, 10.0), device=DEV),
+            dmt.AntennaPanel.make(device=DEV), cfg)
 
-    d = make_data(CHUNK, MAX_PATHS, seed=11)
-    paths = dmt.PathData.from_numpy(
-        d["power"], d["phase"], d["delay"], d["aoa_az"], d["aoa_el"],
-        d["aod_az"], d["aod_el"], device=DEV)
+
+def _check_train_grads(torch, dmt, paths, target, cfg, tol, tag):
+    """The first step's gradients of every CalibParams leaf on GRAD_USERS
+    users: kernels (card) vs plain versions (CPU), within ``tol`` *
+    max|g|."""
+    from deepmimo_tpu_torch.parallel import sharded as sh
     ue = dmt.AntennaPanel.make(device=DEV)
     bs0 = dmt.AntennaPanel.make((0.0, 0.0, 0.0), device=DEV)
-    cfg = _train_config(dmt, "fused")
-    with torch.no_grad():
-        target = render_channels_planes(
-            paths, dmt.AntennaPanel.make((0.0, 0.0, 10.0), device=DEV),
-            ue, cfg)
-    params = sh.init_calib_params(paths, bs0, ue)
-
-    # First step's gradients on a slice: kernels (card) vs plain (CPU).
     sub = paths.slice_users(0, GRAD_USERS)
     p_sub = sh.init_calib_params(sub, bs0, ue)
     t_sub = target[:GRAD_USERS]
@@ -931,14 +1278,30 @@ def phase_train(torch, dmt, fwd_ms, bwd_ms):
         err = float((a.cpu() - b).abs().max())
         scale = float(b.abs().max())
         rels.append(f"{name} {err / scale if scale else err:.2e}")
-        if not (math.isfinite(err) and err <= GRAD_RTOL * scale + 1e-30):
+        if not (math.isfinite(err) and err <= tol * scale + 1e-30):
             raise AssertionError(f"training gradient {name}: kernels "
                                  f"{err:.3e} off the plain versions "
                                  f"(max|g| {scale:.3e})")
-    log(f"[train] {GRAD_USERS}-user gradients, kernels vs plain, rel err "
-        f"per leaf: {', '.join(rels)} (limit {GRAD_RTOL:g}); loss "
+    log(f"[{tag}] {GRAD_USERS}-user gradients, kernels vs plain, rel err "
+        f"per leaf: {', '.join(rels)} (limit {tol:g}); loss "
         f"{float(loss_k):.6f} vs {float(loss_p):.6f}")
-    del g_k, g_p, t_sub, sub, p_sub
+
+
+def phase_train(torch, dmt, fwd_ms, bwd_ms):
+    """The calibration step on the planes path: fused fwd + bwd kernels."""
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+    from deepmimo_tpu_torch.parallel import sharded as sh
+
+    d = make_data(CHUNK, MAX_PATHS, seed=11)
+    paths = dmt.PathData.from_numpy(
+        d["power"], d["phase"], d["delay"], d["aoa_az"], d["aoa_el"],
+        d["aod_az"], d["aod_el"], device=DEV)
+    cfg = _train_config(dmt, "fused")
+    target = _planes_target(torch, dmt, paths, cfg)
+    params = sh.init_calib_params(
+        paths, dmt.AntennaPanel.make((0.0, 0.0, 0.0), device=DEV),
+        dmt.AntennaPanel.make(device=DEV))
+    _check_train_grads(torch, dmt, paths, target, cfg, GRAD_RTOL, "train")
 
     # The training path, counted: one forward + one backward per step.
     kr.LAUNCHES = kr.BWD_LAUNCHES = 0
@@ -966,6 +1329,50 @@ def phase_train(torch, dmt, fwd_ms, bwd_ms):
     del target
     torch.cuda.empty_cache()
     return paths, launches, first_loss
+
+
+def phase_train_bf16(torch, dmt, paths, planes_loss):
+    """The calibration step with ``matmul_dtype`` "bfloat16": the forward
+    and backward kernels in their one-pass modes, once each per step,
+    counted; the first step's gradients against the plain versions in the
+    same mode, the first loss against the f32 planes loss (the same
+    start), ms per step and peak memory."""
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+    from deepmimo_tpu_torch.parallel import sharded as sh
+
+    cfg = _train_config(dmt, "fused").replace(matmul_dtype="bfloat16")
+    target = _planes_target(torch, dmt, paths, cfg.replace(
+        matmul_dtype="float32"))
+    _check_train_grads(torch, dmt, paths, target, cfg, BF16_MM_RTOL,
+                       "train-bf16")
+    params = sh.init_calib_params(
+        paths, dmt.AntennaPanel.make((0.0, 0.0, 0.0), device=DEV),
+        dmt.AntennaPanel.make(device=DEV))
+    kr.MODE_LAUNCHES.clear()
+    kr.BWD_MODE_LAUNCHES.clear()
+    losses, step_ms, peak = run_steps(
+        torch, lambda p: sh.training_step_planes(p, paths, target, cfg,
+                                                 lr=LR),
+        params, BF16_STEPS, per_step=(1, 1, 0))
+    launches = _modes(kr.MODE_LAUNCHES, "fused_render",
+                      {"bf16_mm": BF16_STEPS})
+    launches.update(_modes(kr.BWD_MODE_LAUNCHES, "fused_render_bwd",
+                           {"bf16_mm": BF16_STEPS}))
+    rel = abs(losses[0] - planes_loss) / abs(planes_loss)
+    log(f"[train-bf16] {BF16_STEPS} training_step_planes steps, {CHUNK} "
+        f"users, matmul_dtype bfloat16: losses "
+        f"{['%.7f' % x for x in losses]}; first loss vs f32 "
+        f"{planes_loss:.7f}: rel {rel:.2e} (limit {BF16_MM_RTOL:g}); ms per "
+        f"step (CUDA events; the first warms up) "
+        f"{', '.join('%.4f' % x for x in step_ms)}; peak device memory "
+        f"{peak / 2**30:.3f} GiB; launches {launches}")
+    if not (all(math.isfinite(x) for x in losses) and
+            losses[-1] < losses[0] and rel <= BF16_MM_RTOL):
+        raise AssertionError("bf16 training loss not finite, not "
+                             "decreasing or off the f32 loss")
+    del target
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_train_pallas(torch, dmt, paths, planes_loss):
@@ -1014,48 +1421,66 @@ def main():
     bwd = phase_bwd_kernels(torch)
     psum = phase_pathsum_kernels(torch)
     bg = phase_bg_kernels(torch)
+    launches = Counter()                 # main-path launches by entry
     datasets, params, serve_launches = phase_main(torch, dmt)
     phase_streamed(torch, dmt, datasets, params)
     bg_launches = phase_beamgain(torch, datasets, params)
+    bf16_serving = phase_bf16_serving(torch, dmt, datasets)
+    angle_space = phase_angle_space(torch, dmt, datasets)
     del datasets
     torch.cuda.empty_cache()
+    doppler = phase_doppler(torch, dmt)
     polar_render, polar_bg = phase_polar(torch, dmt)
     torch.cuda.empty_cache()
     paths, (train_fwd, train_bwd), planes_loss = phase_train(
-        torch, dmt, fwd["ms"], bwd["ms"])
+        torch, dmt, fwd["f32"]["ms"], bwd["f32"]["ms"])
+    train_bf16 = phase_train_bf16(torch, dmt, paths, planes_loss)
     pallas_launches = phase_train_pallas(torch, dmt, paths, planes_loss)
+    launches.update({"fused_render": serve_launches + polar_render +
+                     train_fwd, "fused_render_bwd": train_bwd,
+                     "fused_path_sum": pallas_launches,
+                     "fused_beam_gain": bg_launches + polar_bg})
+    for phase in (bf16_serving, angle_space, doppler, train_bf16):
+        launches.update(phase)
     log(f"[launches] fused_render: serving {serve_launches} + dual-polar "
-        f"{polar_render} + training {train_fwd}; fused_render_bwd: training "
-        f"{train_bwd}; fused_path_sum: pallas training {pallas_launches}; "
-        f"fused_beam_gain: serving {bg_launches} + dual-polar {polar_bg}")
+        f"{polar_render} + training {train_fwd} + angle space "
+        f"{angle_space['fused_render']} + Doppler {doppler['fused_render']};"
+        f" fused_render_bwd: training {train_bwd}; fused_path_sum: pallas "
+        f"training {pallas_launches}; fused_beam_gain: serving "
+        f"{bg_launches} + dual-polar {polar_bg} + Doppler "
+        f"{doppler['fused_beam_gain']}; modes: bf16 serving {bf16_serving}, "
+        f"bf16 training {train_bf16}")
     src = "deepmimo_tpu_torch/csrc/"
     tpu = "deepmimo_tpu/ops/pallas/"
     bounds = kernel_bounds()
-    log("[bounds] ms, 3xTF32 tensor-core rule (FP32-FMA rule): " + "; ".join(
-        f"{name} {t:.4f} {by} ({f:.4f} {fby})" for (name, (t, by)), (f, fby)
-        in zip(bounds.items(), kernel_bounds(fma=True).values())))
-    rows = [
-        ("fused_render", "render_fwd.cu", "render.py:432",
-         serve_launches + polar_render + train_fwd, fwd),
-        ("fused_render_bwd", "render_bwd.cu", "render.py:659", train_bwd,
-         bwd),
-        ("fused_path_sum", "pathsum.cu", "pathsum.py:66", pallas_launches,
-         psum),
-        ("fused_beam_gain", "beamgain.cu", "beamgain.py:77",
-         bg_launches + polar_bg, bg),
-    ]
+    log("[bounds] ms, tensor-core rule (3xTF32 for f32 grade, one bf16 "
+        "pass for bf16_mm) (FP32-FMA rule): " + "; ".join(
+            f"{name} {t:.4f} {by} ({f:.4f} {fby})"
+            for (name, (t, by)), (f, fby)
+            in zip(bounds.items(), kernel_bounds(fma=True).values())))
+    sources = {  # kernel: (source, TPU kernel, headline metrics by mode)
+        "fused_render": ("render_fwd.cu", "render.py:432", fwd),
+        "fused_render_bwd": ("render_bwd.cu", "render.py:659", bwd),
+        "fused_path_sum": ("pathsum.cu", "pathsum.py:66", {"f32": psum}),
+        "fused_beam_gain": ("beamgain.cu", "beamgain.py:77", bg),
+    }
     # library_ms: one PyTorch call computing the same function. The path
     # sum has one (the complex einsum over its given planes, g formed
     # outside the timed window); the render and beam-gain kernels build
     # their operands from trig inside, and the beam gain never forms H, so
     # no single call computes theirs.
-    kernels = [
-        {"name": name, "route": "cuda", "source": src + source,
-         "replaces": tpu + replaces, "launches": launches,
-         "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-         "plain_ms": m["plain_ms"], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1], "library_ms": m.get("library_ms")}
-        for name, source, replaces, launches, m in rows]
+    kernels = []
+    for name, (source, replaces, by_mode) in sources.items():
+        for key, m in by_mode.items():
+            e = entry(name, key)
+            if not launches[e]:
+                raise AssertionError(f"{e} was not launched on a main path")
+            kernels.append({
+                "name": e, "route": "cuda", "source": src + source,
+                "replaces": tpu + replaces, "launches": launches[e],
+                "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+                "plain_ms": m["plain_ms"], "bound_ms": bounds[e][0],
+                "bound_by": bounds[e][1], "library_ms": m.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

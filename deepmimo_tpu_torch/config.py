@@ -31,9 +31,18 @@ class DeepMIMOConfig:
         "compute_dtype": "complex64",     # channel output dtype
         "render_backend": "fused",        # path-sum backend: fused|pallas|xla
         "planes_layout": "packed",        # H plane layout: packed|stacked
-        # Path-sum precision: "float32" = FP32 FMA accumulation
+        # Precision of the fused kernels' products (ops/kernels/render.py
+        # MM_PASSES): "float32" and "highest" = 3xTF32 on the tensor cores
+        # (hi*hi + hi*lo + lo*hi, f32 grade) in the render kernels and the
+        # path sum, FP32 FMA in the beam gain; "bfloat16" and "default" =
+        # one pass on operands rounded to bf16, f32 accumulation (render
+        # forward and backward, the beam gain's path sum; the path sum and
+        # render_channels stay f32). Any other string raises ValueError.
         "matmul_dtype": "float32",
-        "planes_out_dtype": "float32",    # planes-renderer output dtype
+        # Planes-renderer output dtype: "float32" or "bfloat16" (half the
+        # bytes of H, stored by the kernel; widened to complex64 on the
+        # host)
+        "planes_out_dtype": "float32",
         "user_block": 16384,              # users per block when streaming
         # compute_channels renders in ONE launch when the output tensor fits
         # this budget (bytes); larger outputs stream over user_block blocks

@@ -59,8 +59,17 @@
 //   - with one chunk (P <= 32) E is folded once per user and tile and kept
 //     for every slot and column tile; with more, the chunks accumulate in
 //     registers and E is folded again per slot and column tile.
+// Mode (template argument kBf16, matmul_dtype "bfloat16"/"default"): the
+// path sum's operands, E = a_rx eb and g, are rounded to bf16 (RNE) before
+// its FP32 FMAs, as the TPU kernel rounds e2 and g2 for its one-pass dot
+// (beamgain.py:132-135). The products of two bf16 values are exact in
+// FP32, so this is a one-pass bf16 product with f32 accumulation. The
+// codebook fold stays f32 grade: the TPU kernel runs it at HIGHEST for
+// "float32", and at DEFAULT, one pass on the TPU, for the bf16 modes; on
+// the CPU (the interpret mode the port is held against) DEFAULT is f32.
 // Invalid paths arrive with zero amp and zero phases from the wrapper.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -118,6 +127,14 @@ __device__ __forceinline__ float4 pack(float2 a, float2 b) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+// x rounded to bf16 (RNE) when kBf16, as it is otherwise.
+template <bool kBf16>
+__device__ __forceinline__ float2 operand(float2 x) {
+  if (!kBf16) return x;
+  return make_float2(__bfloat162float(__float2bfloat16_rn(x.x)),
+                     __bfloat162float(__float2bfloat16_rn(x.y)));
+}
+
 // eb[j] = sum_t cw[t][b0 + j] a_tx[t] for j < kRows, for this lane's path.
 // kVec: B is even and the tile's kRows beams all exist, so 16-byte loads of
 // two beams are aligned; otherwise 8-byte loads, clamped at beam B - 1.
@@ -166,7 +183,8 @@ struct Args {
 };
 
 // E[lane][j] = a_rx[r] eb[j] of path p (zero for paths past P), written by
-// the lanes of the chunk.
+// the lanes of the chunk (rounded to bf16 when kBf16).
+template <bool kBf16>
 __device__ __forceinline__ void build_e(const Args& a, const float2* cw,
                                         float2* e, int lane, size_t row,
                                         int p, int r, int b0) {
@@ -193,7 +211,8 @@ __device__ __forceinline__ void build_e(const Args& a, const float2* cw,
   }
   float4* dst = reinterpret_cast<float4*>(e + lane * kPitch);
 #pragma unroll
-  for (int j = 0; j < kRows / 2; ++j) dst[j] = pack(eb[2 * j], eb[2 * j + 1]);
+  for (int j = 0; j < kRows / 2; ++j)
+    dst[j] = pack(operand<kBf16>(eb[2 * j]), operand<kBf16>(eb[2 * j + 1]));
 }
 
 // The OFDM tables of path p for slot s and columns k0 .. k0 + kCols - 1:
@@ -224,7 +243,9 @@ __device__ __forceinline__ void build_tables(const Args& a, float2* tab,
 }
 
 // y[i][c] += sum over the chunk's n_p paths of E[p][qg*8 + i] g[p][col c],
-// columns k0 + 2 kg + (0, 1, 32, 33) of the tile.
+// columns k0 + 2 kg + (0, 1, 32, 33) of the tile (g rounded to bf16 when
+// kBf16).
+template <bool kBf16>
 __device__ __forceinline__ void path_sum(const float2* __restrict__ e,
                                          const float2* __restrict__ tab,
                                          int n_p, int qg, int kg,
@@ -238,8 +259,9 @@ __device__ __forceinline__ void path_sum(const float2* __restrict__ e,
     const float4 fn = *reinterpret_cast<const float4*>(t + f);
     const float2 c_a = t[ca], c_b = t[cb];
     const float2 f0 = make_float2(fn.x, fn.y), f1 = make_float2(fn.z, fn.w);
-    const float2 g[4] = {cmul(f0, c_a), cmul(f1, c_a), cmul(f0, c_b),
-                         cmul(f1, c_b)};
+    const float2 g[4] = {
+        operand<kBf16>(cmul(f0, c_a)), operand<kBf16>(cmul(f1, c_a)),
+        operand<kBf16>(cmul(f0, c_b)), operand<kBf16>(cmul(f1, c_b))};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float4 x = e4[i];
@@ -294,7 +316,7 @@ __device__ __forceinline__ void zero(float2 (&y)[8][4]) {
 // kOneChunk: P <= chunk. A separate instantiation, so that the registers
 // the chunked path keeps live across its fold (y beside the fold's
 // accumulators) do not cost the one-chunk path spills.
-template <bool kOneChunk>
+template <bool kOneChunk, bool kBf16>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 beamgain_kernel(Args a, const float2* __restrict__ cw_g) {
   extern __shared__ float4 smem[];
@@ -323,13 +345,13 @@ beamgain_kernel(Args a, const float2* __restrict__ cw_g) {
       for (int b0 = 0; b0 < a.B; b0 += kRows) {
         if (kOneChunk) {
           // One chunk: fold E once, reuse it for every slot and column tile.
-          build_e(a, cw, e, lane, row, lane, r, b0);
+          build_e<kBf16>(a, cw, e, lane, row, lane, r, b0);
           for (int s = 0; s < a.S; ++s) {
             for (int k0 = 0; k0 < a.K; k0 += kCols) {
               build_tables(a, tab, lane, u, row, lane, s, k0);
               __syncwarp();
               zero(y);
-              path_sum(e, tab, a.P, qg, kg, y);
+              path_sum<kBf16>(e, tab, a.P, qg, kg, y);
               __syncwarp();         // E and the tables are read
               store_power(a, out_u, r, b0, s, k0, qg, kg, y);
             }
@@ -340,10 +362,10 @@ beamgain_kernel(Args a, const float2* __restrict__ cw_g) {
               zero(y);
               for (int c = 0; c < n_ch; ++c) {
                 const int p0 = c * a.chunk;
-                build_e(a, cw, e, lane, row, p0 + lane, r, b0);
+                build_e<kBf16>(a, cw, e, lane, row, p0 + lane, r, b0);
                 build_tables(a, tab, lane, u, row, p0 + lane, s, k0);
                 __syncwarp();
-                path_sum(e, tab, min(a.chunk, a.P - p0), qg, kg, y);
+                path_sum<kBf16>(e, tab, min(a.chunk, a.P - p0), qg, kg, y);
                 __syncwarp();
               }
               store_power(a, out_u, r, b0, s, k0, qg, kg, y);
@@ -367,8 +389,9 @@ extern "C" long long beamgain_smem_bytes(int n_tx, int n_beams) {
 // Launches the beam-gain kernel on `stream`. Pointers are device pointers to
 // contiguous float32 arrays: gry..gtz and omega [U, P], amp [U, n_sa*P],
 // psi [U, n_s*P], cw [T, B, 2] (conj(W) transposed, real and imaginary parts
-// interleaved), out [U, R*B, n_s*n_k]. Returns the cudaError_t of the setup
-// and the launch (0 on success); the kernel is not waited for.
+// interleaved), out [U, R*B, n_s*n_k]; bf16 != 0 rounds the path sum's
+// operands to bf16. Returns the cudaError_t of the setup and the launch (0
+// on success); the kernel is not waited for.
 extern "C" int beamgain_launch(const float* gry, const float* grz,
                                const float* gty, const float* gtz,
                                const float* amp, const float* psi,
@@ -376,14 +399,17 @@ extern "C" int beamgain_launch(const float* gry, const float* grz,
                                float* out, int n_users,
                                int n_paths, int r1, int r2, int t1, int t2,
                                int n_beams, int n_k, int n_s, int n_sa,
-                               void* stream) {
+                               int bf16, void* stream) {
   if (n_users == 0) return cudaSuccess;
   const Plan lp = plan(t1 * t2, n_beams);
   if (lp.warps < 1) return cudaErrorInvalidValue;
   const int threads = 32 * lp.warps;
   const int smem = static_cast<int>(lp.smem);
-  const auto kernel = n_paths <= lp.chunk ? beamgain_kernel<true>
-                                          : beamgain_kernel<false>;
+  const bool one = n_paths <= lp.chunk;
+  const auto kernel = bf16 ? (one ? beamgain_kernel<true, true>
+                                  : beamgain_kernel<false, true>)
+                           : (one ? beamgain_kernel<true, false>
+                                  : beamgain_kernel<false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

@@ -62,6 +62,12 @@
 //     deterministic;
 //   - shared memory depends only on the tile sizes and the table
 //     capacities, so every shape the forward takes is taken here.
+// Mode (template argument kPasses, one instantiation each, chosen at
+// launch): 1 (matmul_dtype "bfloat16"/"default") rounds the ct plane and
+// the B fragments of E and U to bf16 and runs one pass, hi*hi, as the TPU
+// kernel's one-pass mode rounds both products' operands (render.py
+// _dot_mode, :710-711); the ct plane's lo half is then never built. The
+// chains (E, U and amp in the folds) stay f32.
 
 #include <cuda_runtime.h>
 
@@ -132,7 +138,9 @@ struct Stage {
         amp(reinterpret_cast<float*>(w + kNT * kES)) {}
 };
 
-// The producers: every tile of the block's walk into stage n % 2.
+// The producers: every tile of the block's walk into stage n % 2, ct split
+// for a product of kPasses passes.
+template <int kPasses>
 __device__ __forceinline__ void produce(
     const Shape& s, int packed, const float* gry, const float* grz,
     const float* gty, const float* gtz, const float* amp, const float* psi,
@@ -186,13 +194,14 @@ __device__ __forceinline__ void produce(
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int r = r_base + kRowStep * i;
-      st.c[r * kNT + ct_col(r, kl)] = split4(make_float2(cr[i], ci[i]));
+      st.c[r * kNT + ct_col(r, kl)] =
+          split4<kPasses>(make_float2(cr[i], ci[i]));
     }
     if (tm.id < np) {
       st.amp[tm.id] = __ldg(amp + u * s.n_sa * s.P +
                             (s.n_sa > 1 ? it.sl * s.P : 0) + it.p0 + tm.id);
     }
-    build_planes<kES>(tm, tl, np, tab, row_ix, col_ix, st.e, st.w);
+    build_planes<kES, kPasses>(tm, tl, np, tab, row_ix, col_ix, st.e, st.w);
     bar_arrive(kFull + b, kHandoff);   // stage b full
     it = nx;
   }
@@ -201,6 +210,7 @@ __device__ __forceinline__ void produce(
   if (n > 0) bar_sync(kEmpty + ((n - 1) & 1), kHandoff);
 }
 
+template <int kPasses>
 __global__ void __launch_bounds__(kThreads, 1)
 render_bwd_kernel(const float* __restrict__ gry, const float* __restrict__ grz,
                   const float* __restrict__ gty, const float* __restrict__ gtz,
@@ -214,7 +224,8 @@ render_bwd_kernel(const float* __restrict__ gry, const float* __restrict__ grz,
   char* stages = reinterpret_cast<char*>(smem4);     // [2][kStage]
   float* reds = reinterpret_cast<float*>(stages + 2 * kStage);
   if (threadIdx.x >= kConsumers) {                    // [2][2][kPC][kRed]
-    produce(s, packed, gry, grz, gty, gtz, amp, psi, omega, ct, stages,
+    produce<kPasses>(s, packed, gry, grz, gty, gtz, amp, psi, omega, ct,
+                     stages,
             reinterpret_cast<char*>(reds + 2 * 2 * kPC * kRed));
     return;
   }
@@ -260,7 +271,7 @@ render_bwd_kernel(const float* __restrict__ gry, const float* __restrict__ grz,
         Split a[2][4], bf[4][2];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          if (j < n_nt) cplx_b(bf[j], b_pl[kx * kES + 4 * j], g & 1);
+          if (j < n_nt) cplx_b<kPasses>(bf[j], b_pl[kx * kES + 4 * j], g & 1);
         }
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
@@ -274,7 +285,7 @@ render_bwd_kernel(const float* __restrict__ gry, const float* __restrict__ grz,
                    c_pl[kx * kNT + ct_col(kx, r1)]);
           }
         }
-        mma3(acc, a, bf, m1 ? 2 : 1, n_nt);
+        mma3<kPasses>(acc, a, bf, m1 ? 2 : 1, n_nt);
       }
 
       // Fold this tile's rows into the per-path sums.
@@ -389,8 +400,9 @@ render_bwd_kernel(const float* __restrict__ gry, const float* __restrict__ grz,
 // Launches the backward on `stream`. Pointers are device pointers to
 // contiguous float32 arrays: inputs as render_fwd_launch takes them, ct in
 // the forward's output layout, and the 7 gradients shaped like the inputs
-// (every element is written). Returns the cudaError_t of the launch (0 on
-// success); the kernel itself is not waited for.
+// (every element is written). passes: 3 (3xTF32) or 1 (bf16 operands).
+// Returns the cudaError_t of the launch (0 on success); the kernel itself
+// is not waited for.
 extern "C" int render_bwd_launch(const float* gry, const float* grz,
                                  const float* gty, const float* gtz,
                                  const float* amp, const float* psi,
@@ -399,24 +411,27 @@ extern "C" int render_bwd_launch(const float* gry, const float* grz,
                                  float* dgtz, float* damp, float* dpsi,
                                  float* domega, int n_users, int n_paths,
                                  int r1, int r2, int t1, int t2, int n_k,
-                                 int n_s, int n_sa, int packed, void* stream) {
+                                 int n_s, int n_sa, int packed, int passes,
+                                 void* stream) {
   if (n_users == 0) return cudaSuccess;
+  if (passes != 1 && passes != 3) return cudaErrorInvalidValue;
+  const auto kernel =
+      passes == 3 ? render_bwd_kernel<3> : render_bwd_kernel<1>;
   const Shape s =
       make_shape(n_users, n_paths, r1, r2, t1, t2, n_k, n_s, n_sa);
   const int smem = static_cast<int>(smem_bytes(s));
   cudaError_t err = cudaFuncSetAttribute(
-      render_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, n_sm = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, render_bwd_kernel, kThreads, smem);
+      &per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
   const int grid = imin(n_users, n_sm * (per_sm > 0 ? per_sm : 1));
-  render_bwd_kernel<<<grid, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       gry, grz, gty, gtz, amp, psi, omega, ct, dgry, dgrz, dgty, dgtz, damp,
       dpsi, domega, s, packed);
   return cudaGetLastError();

@@ -45,8 +45,21 @@
 //   - the accumulators hold 4 adjacent kk of one row per lane and go
 //     straight to HBM as coalesced 16-byte streaming stores (64 contiguous
 //     bytes per row and instruction), which do not block the warp.
+// Modes (template arguments, one instantiation each, chosen at launch):
+//   - kPasses = 1 (matmul_dtype "bfloat16"/"default"): E and g are rounded
+//     to bf16 as they are staged and the product is one pass, hi*hi
+//     (render_tables.cuh), the TPU kernel's one-pass mode (render.py
+//     _dot_mode);
+//   - OutT = __nv_bfloat16 (out_dtype "bfloat16"): H is stored in bf16,
+//     rounded to nearest even from the f32 accumulators, as the TPU kernel
+//     casts at its store (render.py:516-528). Lanes t and t ^ 1 swap the hr
+//     and hi halves of their 4 columns with two shuffles, so that each
+//     stores 8 adjacent bf16 of one plane as one 16-byte vector.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "render_tables.cuh"
 
@@ -92,7 +105,8 @@ __device__ __forceinline__ Item next_item(const Shape& s, Item it) {
 }
 
 // Producer group g: the operands of every other tile of the block's walk
-// (from the g-th) into stage g.
+// (from the g-th) into stage g, split for a product of kPasses passes.
+template <int kPasses>
 __device__ __forceinline__ void produce(
     const Shape& s, int g, const float* gry, const float* grz,
     const float* gty, const float* gtz, const float* amp, const float* psi,
@@ -126,25 +140,32 @@ __device__ __forceinline__ void produce(
                  amp, tab, row_ix, col_ix);
     bar_sync(kGroupBar + g, kGroup);   // tables ready
     if (n > 0) bar_sync(kEmpty + g, kHandoff);   // stage g consumed
-    build_planes<kES>(tm, tl, imin(kPC, s.P - it.p0), tab, row_ix, col_ix,
-                      e_pl, g_pl);
+    build_planes<kES, kPasses>(tm, tl, imin(kPC, s.P - it.p0), tab, row_ix,
+                               col_ix, e_pl, g_pl);
     bar_arrive(kFull + g, kHandoff);   // stage g full
     it = nx;
   }
   if (n > 0) bar_sync(kEmpty + g, kHandoff);     // the last release
 }
 
+// Two bf16 (RNE) in one word, a in the low half.
+__device__ __forceinline__ uint32_t bf16x2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int kPasses, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
 render_fwd_kernel(const float* __restrict__ gry, const float* __restrict__ grz,
                   const float* __restrict__ gty, const float* __restrict__ gtz,
                   const float* __restrict__ amp, const float* __restrict__ psi,
-                  const float* __restrict__ omega, float* __restrict__ out,
+                  const float* __restrict__ omega, OutT* __restrict__ out,
                   Shape s, int packed, int vec) {
   extern __shared__ float4 smem4[];
   float4* planes = smem4;             // [stage][E, g][kPlane]
   if (threadIdx.x >= kConsumers) {
     const int g = (threadIdx.x - kConsumers) / kGroup;
-    produce(s, g, gry, grz, gty, gtz, amp, psi, omega,
+    produce<kPasses>(s, g, gry, grz, gty, gtz, amp, psi, omega,
             planes + 2 * g * kPlane, planes + (2 * g + 1) * kPlane,
             reinterpret_cast<char*>(planes + 4 * kPlane) + g * group_bytes(s));
     return;
@@ -203,7 +224,7 @@ render_fwd_kernel(const float* __restrict__ gry, const float* __restrict__ grz,
           cplx_a(a[i], e_pl[(ra + 16 * i) * kES + pp],
                  e_pl[(ra + 16 * i + 8) * kES + pp]);
         }
-        mma3(acc, a, b4, m1 ? 2 : 1, 4);
+        mma3<kPasses>(acc, a, b4, m1 ? 2 : 1, 4);
       }
     }
     bar_arrive(kEmpty + b, kHandoff);  // stage b may be refilled
@@ -215,33 +236,71 @@ render_fwd_kernel(const float* __restrict__ gry, const float* __restrict__ grz,
 
     // Packed [U, Q, 2*SK] (hr | hi on each row) or stacked [2, U, Q, SK].
     // Streaming stores: they drain while the next tile is computed.
-    float* out_r = out + (u * s.Q + it.q0) * stride + it.kk0;
-    float* out_i = packed ? out_r + s.SK
-                          : out + ((s.U + u) * s.Q + it.q0) * s.SK + it.kk0;
+    OutT* out_r = out + (u * s.Q + it.q0) * stride + it.kk0;
+    OutT* out_i = packed ? out_r + s.SK
+                         : out + ((s.U + u) * s.Q + it.q0) * s.SK + it.kk0;
     const int c = 16 * wn + 4 * t;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = ra + 16 * i + 8 * h;
-        if (r >= rows || c >= cols) continue;
-        const float4 vr = make_float4(acc[i][0][2 * h], acc[i][0][2 * h + 1],
-                                      acc[i][1][2 * h], acc[i][1][2 * h + 1]);
-        const float4 vi = make_float4(acc[i][2][2 * h], acc[i][2][2 * h + 1],
-                                      acc[i][3][2 * h], acc[i][3][2 * h + 1]);
-        float* dr = out_r + r * stride + c;
-        float* di = out_i + r * stride + c;
-        if (vec) {             // cols is a multiple of 4 here
-          __stcs(reinterpret_cast<float4*>(dr), vr);
-          __stcs(reinterpret_cast<float4*>(di), vi);
-        } else {
-          const float xr[4] = {vr.x, vr.y, vr.z, vr.w};
-          const float xi[4] = {vi.x, vi.y, vi.z, vi.w};
+        if constexpr (std::is_same<OutT, float>::value) {
+          if (r >= rows || c >= cols) continue;
+          const float4 vr = make_float4(acc[i][0][2 * h], acc[i][0][2 * h + 1],
+                                        acc[i][1][2 * h], acc[i][1][2 * h + 1]);
+          const float4 vi = make_float4(acc[i][2][2 * h], acc[i][2][2 * h + 1],
+                                        acc[i][3][2 * h], acc[i][3][2 * h + 1]);
+          float* dr = out_r + r * stride + c;
+          float* di = out_i + r * stride + c;
+          if (vec) {             // cols is a multiple of 4 here
+            __stcs(reinterpret_cast<float4*>(dr), vr);
+            __stcs(reinterpret_cast<float4*>(di), vi);
+          } else {
+            const float xr[4] = {vr.x, vr.y, vr.z, vr.w};
+            const float xi[4] = {vi.x, vi.y, vi.z, vi.w};
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (c + e < cols) {
-              __stcs(dr + e, xr[e]);
-              __stcs(di + e, xi[e]);
+            for (int e = 0; e < 4; ++e) {
+              if (c + e < cols) {
+                __stcs(dr + e, xr[e]);
+                __stcs(di + e, xi[e]);
+              }
+            }
+          }
+        } else {
+          const uint2 pr = make_uint2(
+              bf16x2(acc[i][0][2 * h], acc[i][0][2 * h + 1]),
+              bf16x2(acc[i][1][2 * h], acc[i][1][2 * h + 1]));
+          const uint2 pi = make_uint2(
+              bf16x2(acc[i][2][2 * h], acc[i][2][2 * h + 1]),
+              bf16x2(acc[i][3][2 * h], acc[i][3][2 * h + 1]));
+          if (vec) {             // cols is a multiple of 8 here
+            // Even t keeps hr and takes its neighbour's (kk c .. c + 7); odd
+            // t keeps hi and takes its neighbour's (c - 4 .. c + 3). The
+            // shuffles run on every lane, before any lane skips its store.
+            const uint2 send = (t & 1) ? pr : pi;
+            const uint2 got = make_uint2(
+                __shfl_xor_sync(0xffffffffu, send.x, 1),
+                __shfl_xor_sync(0xffffffffu, send.y, 1));
+            if (r >= rows || c >= cols) continue;
+            const uint4 v = (t & 1) ? make_uint4(got.x, got.y, pi.x, pi.y)
+                                    : make_uint4(pr.x, pr.y, got.x, got.y);
+            OutT* dst = ((t & 1) ? out_i : out_r) + r * stride + (c & ~7);
+            __stcs(reinterpret_cast<uint4*>(dst), v);
+          } else {
+            if (r >= rows || c >= cols) continue;
+            const uint32_t xr[2] = {pr.x, pr.y}, xi[2] = {pi.x, pi.y};
+            unsigned short* dr =
+                reinterpret_cast<unsigned short*>(out_r + r * stride + c);
+            unsigned short* di =
+                reinterpret_cast<unsigned short*>(out_i + r * stride + c);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if (c + e < cols) {
+                const int sh = 16 * (e & 1);
+                dr[e] = static_cast<unsigned short>(xr[e >> 1] >> sh);
+                di[e] = static_cast<unsigned short>(xi[e >> 1] >> sh);
+              }
             }
           }
         }
@@ -251,39 +310,63 @@ render_fwd_kernel(const float* __restrict__ gry, const float* __restrict__ grz,
   }
 }
 
-}  // namespace
-
-// Launches the render on `stream`. Pointers are device pointers to
-// contiguous float32 arrays: gry..gtz and omega [U, P], amp [U, n_sa*P],
-// psi [U, n_s*P], out as described above. Returns the cudaError_t of the
-// launch (0 on success); the kernel itself is not waited for.
-extern "C" int render_fwd_launch(const float* gry, const float* grz,
-                                 const float* gty, const float* gtz,
-                                 const float* amp, const float* psi,
-                                 const float* omega, float* out, int n_users,
-                                 int n_paths, int r1, int r2, int t1, int t2,
-                                 int n_k, int n_s, int n_sa, int packed,
-                                 void* stream) {
-  if (n_users == 0) return cudaSuccess;
-  const Shape s =
-      make_shape(n_users, n_paths, r1, r2, t1, t2, n_k, n_s, n_sa);
+template <int kPasses, typename OutT>
+cudaError_t launch(const float* gry, const float* grz, const float* gty,
+                   const float* gtz, const float* amp, const float* psi,
+                   const float* omega, void* out, const Shape& s, int packed,
+                   cudaStream_t stream) {
+  const auto kernel = render_fwd_kernel<kPasses, OutT>;
   const int smem = static_cast<int>(smem_bytes(s));
   cudaError_t err = cudaFuncSetAttribute(
-      render_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, n_sm = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, render_fwd_kernel, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
   if (err != cudaSuccess) return err;
-  const int grid = imin(n_users, n_sm * (per_sm > 0 ? per_sm : 1));
-  // 16-byte stores need every row segment 16-byte aligned.
-  const int vec = s.SK % 4 == 0 &&
+  const int grid = imin(s.U, n_sm * (per_sm > 0 ? per_sm : 1));
+  // 16-byte stores need every row segment 16-byte aligned: 4 float or 8
+  // bf16 columns.
+  constexpr int kVec = 16 / sizeof(OutT);
+  const int vec = s.SK % kVec == 0 &&
                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  render_fwd_kernel<<<grid, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      gry, grz, gty, gtz, amp, psi, omega, out, s, packed, vec);
+  kernel<<<grid, kThreads, smem, stream>>>(gry, grz, gty, gtz, amp, psi,
+                                           omega, static_cast<OutT*>(out), s,
+                                           packed, vec);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// Launches the render on `stream`. Pointers are device pointers to
+// contiguous arrays: gry..gtz and omega [U, P], amp [U, n_sa*P],
+// psi [U, n_s*P] float32, out as described above, float32 or (out_bf16)
+// bf16. passes: 3 (3xTF32) or 1 (bf16 operands). Returns the cudaError_t
+// of the launch (0 on success); the kernel itself is not waited for.
+extern "C" int render_fwd_launch(const float* gry, const float* grz,
+                                 const float* gty, const float* gtz,
+                                 const float* amp, const float* psi,
+                                 const float* omega, void* out, int n_users,
+                                 int n_paths, int r1, int r2, int t1, int t2,
+                                 int n_k, int n_s, int n_sa, int packed,
+                                 int passes, int out_bf16, void* stream) {
+  if (n_users == 0) return cudaSuccess;
+  if (passes != 1 && passes != 3) return cudaErrorInvalidValue;
+  const Shape s =
+      make_shape(n_users, n_paths, r1, r2, t1, t2, n_k, n_s, n_sa);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (passes == 3 && !out_bf16)
+    return launch<3, float>(gry, grz, gty, gtz, amp, psi, omega, out, s,
+                            packed, st);
+  if (passes == 3)
+    return launch<3, __nv_bfloat16>(gry, grz, gty, gtz, amp, psi, omega, out,
+                                    s, packed, st);
+  if (!out_bf16)
+    return launch<1, float>(gry, grz, gty, gtz, amp, psi, omega, out, s,
+                            packed, st);
+  return launch<1, __nv_bfloat16>(gry, grz, gty, gtz, amp, psi, omega, out, s,
+                                  packed, st);
 }

@@ -20,11 +20,12 @@ import torch
 
 from .. import consts as c
 from ..config import config
-from ..ops.channel import (polar_fused_eligible, polar_out_shape,
-                           render_beam_gains, render_beam_gains_polar,
-                           render_channels_planes,
+from ..ops.channel import (_fused_n_snap, polar_fused_eligible,
+                           polar_out_shape, render_beam_gains,
+                           render_beam_gains_polar, render_channels_planes,
                            render_channels_planes_polar, render_out_shape,
                            unpack_planes_np, unpack_polar_planes_np)
+from ..ops.kernels.render import out_torch_dtype
 from ..ops.types import AntennaPanel, PathData, _small_tensor
 from ..utils import DotDict
 from .params import ChannelGenParameters
@@ -101,7 +102,10 @@ class Dataset(DotDict):
         ``config['user_block']`` blocks with each block's device->host copy
         overlapping the next block's render — and returns a numpy complex
         array [n_ue, n_rx_ant, n_tx_ant, K], cached under
-        ``dataset.channel``.
+        ``dataset.channel`` (with several Doppler snapshots a trailing
+        time axis [..., K, S]). With ``config['planes_out_dtype']``
+        "bfloat16" the planes are rendered and copied to the host in bf16
+        (half the bytes) and widened to complex64 there.
 
         Args:
             params: channel-generation parameters (defaults applied).
@@ -109,8 +113,9 @@ class Dataset(DotDict):
                 (no host copy; not cached). Its layout is the renderer's
                 (see ``ops.channel.render_channels_planes``); convert
                 with ``ops.channel.unpack_planes_np``.
-            out: a planes tensor from a previous identical call. When its
-                shape and dtype match, the new result is written into it
+            out: a planes tensor from a previous identical call (float32,
+                or bfloat16 in the bf16 output mode). When its shape,
+                dtype and device match, the new result is written into it
                 in place — the previous result is overwritten — so serving
                 loops run in constant device memory. Ignored otherwise.
 
@@ -241,7 +246,8 @@ class Dataset(DotDict):
                 in place (the previous result is overwritten); ignored
                 otherwise.
 
-        Returns [n_ue, n_rx_ant, n_beams, K] float32. Dual-polar scenarios
+        Returns [n_ue, n_rx_ant, n_beams, K] float32, with a trailing time
+        axis [..., K, S] for several Doppler snapshots. Dual-polar scenarios
         (``params['enable_dual_polar']``) return a dict {'VV', 'VH', 'HH',
         'HV'} of such maps, all four from ONE kernel launch (with
         ``to_device``, the raw [U, R*B, 4*S*K], slot axis pol-major); ``out``
@@ -270,8 +276,9 @@ class Dataset(DotDict):
         polar = bool(params.get(c.PARAMSET_POLAR_EN, 0))
         n_pol = len(POLS) if polar else 1
         n_b, n_k = wr.shape[0], cfg.n_sel_subcarriers
-        shape = (self.n_ue, cfg.n_rx_ant * n_b, n_pol * n_k)
-        out = _reusable(out, shape, dev)
+        n_s = _fused_n_snap(cfg)
+        shape = (self.n_ue, cfg.n_rx_ant * n_b, n_pol * n_s * n_k)
+        out = _reusable(out, shape, dev, torch.float32)
         if polar:
             self._check_pols()
             g = render_beam_gains_polar(pd, bs_panel, ue_panel, cfg,
@@ -281,10 +288,11 @@ class Dataset(DotDict):
         if to_device:
             return g
         arr = g.cpu().numpy().reshape(self.n_ue, cfg.n_rx_ant, n_b, n_pol,
-                                      n_k)
-        if not polar:
-            return arr[:, :, :, 0]
-        return {pol: arr[:, :, :, i] for i, pol in enumerate(POLS)}
+                                      n_s, n_k)
+        # [U, R, B, S, K] per polarization -> time axis last
+        maps = [arr[:, :, :, i].transpose(0, 1, 2, 4, 3) if n_s > 1
+                else arr[:, :, :, i, 0] for i in range(n_pol)]
+        return dict(zip(POLS, maps)) if polar else maps[0]
 
     def _device_dtype(self):
         dev = torch.device(config.get("device"))
@@ -390,19 +398,19 @@ def _print_delay_clipping_warning(r: dict) -> None:
 # Streaming renderer (host-side batching over user blocks)
 # ============================================================================
 
-def _reusable(out, shape, dev):
-    """``out`` when it can take a result of ``shape`` on ``dev`` in place
-    (float32, contiguous), else None: the config changed and there is
-    nothing to reuse."""
+def _reusable(out, shape, dev, dtype):
+    """``out`` when it can take a result of ``shape`` and ``dtype`` on
+    ``dev`` in place (contiguous), else None: the config changed and there
+    is nothing to reuse."""
     if out is None or (tuple(out.shape) == tuple(shape) and
-                       out.dtype == torch.float32 and out.device == dev and
+                       out.dtype == dtype and out.device == dev and
                        out.is_contiguous()):
         return out
     return None
 
 
-def _fits_one_launch(shape, to_device: bool) -> bool:
-    return to_device or int(np.prod(shape)) * 4 <= int(
+def _fits_one_launch(shape, dtype, to_device: bool) -> bool:
+    return to_device or int(np.prod(shape)) * dtype.itemsize <= int(
         config.get("max_device_output_bytes"))
 
 
@@ -417,11 +425,12 @@ def _render_streamed(path_data: PathData, bs_panel, ue_panel, cfg,
     user blocks (:func:`_stream_blocks`).
     """
     shape = render_out_shape(path_data.n_ue, cfg)
-    if _fits_one_launch(shape, to_device):
+    dtype = out_torch_dtype(cfg.out_dtype)
+    if _fits_one_launch(shape, dtype, to_device):
         h = render_channels_planes(
             path_data, bs_panel, ue_panel, cfg,
-            out=_reusable(out, shape, path_data.valid.device))
-        return h if to_device else unpack_planes_np(h.cpu().numpy(), cfg)
+            out=_reusable(out, shape, path_data.valid.device, dtype))
+        return h if to_device else unpack_planes_np(h, cfg)
     return _stream_blocks(
         path_data, bs_panel, ue_panel,
         lambda pd, bsp, uep, start, size: render_channels_planes(
@@ -440,13 +449,14 @@ def _render_polar_streamed(path_data: PathData, bs_panel, ue_panel, cfg,
     """
     n_pol = pol_power_dbw.shape[0]
     shape = polar_out_shape(path_data.n_ue, cfg, n_pol)
-    if _fits_one_launch(shape, to_device):
+    dtype = out_torch_dtype(cfg.out_dtype)
+    if _fits_one_launch(shape, dtype, to_device):
         h = render_channels_planes_polar(
             path_data, bs_panel, ue_panel, cfg, pol_power_dbw, pol_phase_deg,
-            out=_reusable(out, shape, path_data.valid.device))
+            out=_reusable(out, shape, path_data.valid.device, dtype))
         if to_device:
             return h
-        return unpack_polar_planes_np(h.cpu().numpy(), cfg, n_pol)
+        return unpack_polar_planes_np(h, cfg, n_pol)
     return _stream_blocks(
         path_data, bs_panel, ue_panel,
         lambda pd, bsp, uep, start, size: render_channels_planes_polar(
@@ -459,9 +469,11 @@ def _stream_blocks(path_data: PathData, bs_panel, ue_panel, render_block,
                    unpack, axis: int):
     """Render ``config['user_block']`` user blocks in turn on the current
     stream with ``render_block(pd, bs, ue, start, size)``; each block's
-    device->host copy runs on a side stream into pinned memory while the
-    next block renders, with at most two blocks in flight. Returns the
-    host blocks, each through ``unpack``, joined along ``axis``."""
+    device->host copy runs on a side stream into pinned memory (in the
+    planes' own dtype, so bf16 planes move half the bytes) while the next
+    block renders, with at most two blocks in flight. Returns the host
+    blocks, each through ``unpack`` (which takes the host tensor), joined
+    along ``axis``."""
     n_ue = path_data.n_ue
     block = int(config.get("user_block"))
     per_user_rot = bs_panel.rotation_deg.dim() == 2 or \
@@ -475,7 +487,7 @@ def _stream_blocks(path_data: PathData, bs_panel, ue_panel, render_block,
         idx, host, done = entry
         if done is not None:
             done.synchronize()
-        chunks[idx] = unpack(host.numpy())
+        chunks[idx] = unpack(host)
 
     for start in range(0, n_ue, block):
         size = min(block, n_ue - start)

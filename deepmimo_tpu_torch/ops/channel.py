@@ -17,6 +17,12 @@ Counterpart of the complex64, OFDM branches of
   eager planes path (rotated angles, FoV, pattern gains, array responses,
   OFDM gains, four real batched products).
 
+Both take several Doppler snapshots (the kernel on its slot axis, the
+eager path one snapshot at a time), FoV masks and antenna patterns (the
+fused path's angle-space prologue), ``out_dtype`` "bfloat16" (the kernel
+stores bf16; the eager path casts at the end) and the ``matmul_dtype``
+modes of :data:`kernels.render.MM_PASSES`.
+
 ``render_channels`` always goes through angle space and the array-response
 planes; its path sum is the eager planes product, or with ``backend``
 "pallas" the hand-written CUDA path-sum kernel (``ops/kernels/pathsum.py``).
@@ -29,8 +35,9 @@ beam gains |conj(W) H|^2 come without H. Dual-polar scenarios render their
 four polarizations in one launch, riding the kernels' slot axis
 (``render_channels_planes_polar``, ``render_beam_gains_polar``).
 
-Configurations outside this slice raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+Configurations not ported yet (time domain, the receive filter,
+complex128) raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -60,7 +67,8 @@ def not_ported(what: str, item: str):
 
 
 def _check_complex_path(cfg: ChannelConfig) -> None:
-    """The configurations :func:`render_channels` does not take yet."""
+    """The configurations :func:`render_channels` does not take yet
+    (NotImplementedError), and an unknown ``matmul_dtype`` (ValueError)."""
     if not cfg.freq_domain:
         raise not_ported("Time-domain rendering", "9 (non-fused paths)")
     if cfg.rx_filter:
@@ -69,35 +77,14 @@ def _check_complex_path(cfg: ChannelConfig) -> None:
     if cfg.dtype != "complex64":
         raise not_ported(f"compute_dtype={cfg.dtype!r}",
                           "9 (non-fused paths)")
-    if cfg.matmul_dtype != "float32":
-        raise not_ported(f"matmul_dtype={cfg.matmul_dtype!r}",
-                          "4 (forward variants)")
-
-
-def _check_forward_variants(cfg: ChannelConfig) -> None:
-    """The fused forward variants still to port: several Doppler snapshots
-    and bfloat16 products."""
-    if cfg.enable_doppler and len(cfg.doppler_times) > 1:
-        raise not_ported("Doppler with several snapshots",
-                         "4 (forward variants)")
-    if cfg.matmul_dtype != "float32":
-        raise not_ported(f"matmul_dtype={cfg.matmul_dtype!r}",
-                         "4 (forward variants)")
+    _render.mm_passes(cfg.matmul_dtype)
 
 
 def check_in_slice(cfg: ChannelConfig) -> None:
     """Raise NotImplementedError for planes configurations not yet
-    ported."""
+    ported, ValueError for an unknown ``matmul_dtype`` or ``out_dtype``."""
     _check_complex_path(cfg)
-    _check_forward_variants(cfg)
-    if cfg.out_dtype != "float32":
-        raise not_ported(f"out_dtype={cfg.out_dtype!r}",
-                          "4 (forward variants)")
-    if cfg.backend in ("pallas", "fused") and _fused_render_eligible(cfg) \
-            and _angles_needed(cfg):
-        raise not_ported("The fused render with FoV or a non-isotropic "
-                          "pattern (angle-space prologue)",
-                          "4 (forward variants)")
+    _render.out_torch_dtype(cfg.out_dtype)
 
 
 # ============================================================================
@@ -159,9 +146,13 @@ def _ofdm_gain_planes(cfg: ChannelConfig, powers_lin, delays, phase_deg,
     return amp[..., None] * torch.cos(base), amp[..., None] * torch.sin(base)
 
 
-def _path_sum_planes_ri(arx, atx, gr, gi):
+def _path_sum_planes_ri(arx, atx, gr, gi, mm_dtype: str = "float32"):
     """H = sum_p (a_rx a_tx) g via four real batched products -> (hr, hi),
-    each [U, R, T, K]; accumulation in float32."""
+    each [U, R, T, K]; accumulation in float32. For ``mm_dtype``
+    "bfloat16"/"default" E and g are rounded to bf16 first, as the JAX
+    package casts them and asks for float32 results
+    (``preferred_element_type``)."""
+    rnd = _render.operand_rounding(mm_dtype)
     (arx_r, arx_i), (atx_r, atx_i) = arx, atx
     u, r, p = arx_r.shape
     t = atx_r.shape[1]
@@ -169,6 +160,7 @@ def _path_sum_planes_ri(arx, atx, gr, gi):
           arx_i[:, :, None, :] * atx_i[:, None, :, :]).reshape(u, r * t, p)
     ei = (arx_r[:, :, None, :] * atx_i[:, None, :, :] +
           arx_i[:, :, None, :] * atx_r[:, None, :, :]).reshape(u, r * t, p)
+    er, ei, gr, gi = rnd(er), rnd(ei), rnd(gr), rnd(gi)
 
     def mm(a, b):
         return torch.einsum("uqp,upk->uqk", a, b)
@@ -350,10 +342,11 @@ def _render_fused_planes(cfg: ChannelConfig, paths: PathData, valid,
                          powers_lin, gry, grz, gty, gtz,
                          out: Optional[torch.Tensor] = None):
     """Fully fused OFDM render: per-path scalars -> H planes, one kernel
-    launch. ``gry..gtz`` are the RX/TX wave-vector phase steps kd*y',
-    kd*z' in the rotated frame; invalid paths are zeroed here. Returns the
-    kernel's layout viewed as [U, R, T, 2*S*K] (packed) or
-    [2, U, R, T, S, K] (stacked); ``out`` (that shape) is written in place.
+    launch with every Doppler snapshot on its slot axis. ``gry..gtz`` are
+    the RX/TX wave-vector phase steps kd*y', kd*z' in the rotated frame;
+    invalid paths are zeroed here. Returns the kernel's layout viewed as
+    [U, R, T, 2*S*K] (packed) or [2, U, R, T, S, K] (stacked) in
+    ``cfg.out_dtype``; ``out`` (that shape) is written in place.
     """
     u, p = paths.delay_s.shape
     valid_f = valid.reshape(-1)
@@ -374,18 +367,22 @@ def _render_fused_planes(cfg: ChannelConfig, paths: PathData, valid,
             out.view(2, u, r * t, n_s * n_k)
     h = _render.fused_render(z(gry), z(grz), z(gty), z(gtz), amp, psi,
                              omega, cfg.ue_shape, cfg.bs_shape, n_k,
-                             packed, out=kout)
+                             packed, out=kout, mm_dtype=cfg.matmul_dtype,
+                             out_dtype=cfg.out_dtype)
     if packed:
         return h.view(u, r, t, 2 * n_s * n_k)
     return h.view(2, u, r, t, n_s, n_k)
 
 
 def render_out_shape(n_ue: int, cfg: ChannelConfig):
-    """Shape of :func:`render_channels_planes`' output for ``n_ue`` users."""
+    """Shape of :func:`render_channels_planes`' output for ``n_ue`` users:
+    packed [U, R, T, 2*S*K], stacked [2, U, R, T, K] and, with several
+    Doppler snapshots, [2, U, R, T, K, S]."""
     r, t, k = cfg.n_rx_ant, cfg.n_tx_ant, cfg.n_sel_subcarriers
+    n_s = _fused_n_snap(cfg)
     if _packed_layout(cfg):
-        return (n_ue, r, t, 2 * _fused_n_snap(cfg) * k)
-    return (2, n_ue, r, t, k)
+        return (n_ue, r, t, 2 * n_s * k)
+    return (2, n_ue, r, t, k) + ((n_s,) if n_s > 1 else ())
 
 
 # ============================================================================
@@ -396,29 +393,41 @@ def render_channels_planes(paths: PathData, bs: AntennaPanel,
                            ue: AntennaPanel, cfg: ChannelConfig,
                            out: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """Render OFDM channels as float32 real/imag planes.
+    """Render OFDM channels as real/imag planes in ``cfg.out_dtype``
+    (float32, or bfloat16: half the bytes, ~2^-9 relative).
 
-    Layout (:func:`_packed_layout`):
-    - stacked: [2, U, R, T, K];
-    - packed (cfg.planes_layout == "packed", K % 64 == 0):
-      [U, R, T, 2*K] with hr in the first minor half.
+    Layout (:func:`_packed_layout`, :func:`render_out_shape`), with S the
+    Doppler snapshots:
+    - stacked: [2, U, R, T, K], or [2, U, R, T, K, S] when S > 1 (time
+      axis last);
+    - packed (cfg.planes_layout == "packed", S*K % 64 == 0):
+      [U, R, T, 2*S*K], hr of every (s, k) snapshot-major in the first
+      minor half and hi in the second.
 
-    ``out``, when given, must have exactly that shape (float32, on the
+    ``out``, when given, must have exactly that shape and dtype (on the
     paths' device); the result is written into it, overwriting what it
     held, and returned. Tensors are on the device of ``paths``.
     """
     check_in_slice(cfg)
     shape = render_out_shape(paths.n_ue, cfg)
+    dtype = _render.out_torch_dtype(cfg.out_dtype)
     if out is not None:
-        _render._check_layout("out", out, shape, paths.valid.device)
+        _render._check_layout("out", out, shape, paths.valid.device, dtype)
     paths = paths.trim_paths(cfg.num_paths)
+    packed = _packed_layout(cfg)
     if cfg.backend in ("pallas", "fused") and _fused_render_eligible(cfg):
-        # Isotropic patterns and full-sphere FoV (check_in_slice): angle
-        # space is never entered.
+        # Angle space (FoV, patterns) is entered only when a stage needs
+        # it (_wavevec_steps).
+        several = _fused_n_snap(cfg) > 1 and not packed
         h = _render_fused_planes(cfg, paths,
                                  *_wavevec_inputs(cfg, paths, bs, ue),
-                                 out=out)
-        return h if _packed_layout(cfg) else h.view(shape)
+                                 out=None if several else out)
+        if packed:
+            return h
+        if not several:
+            return h.view(shape)
+        h = h.movedim(4, 5)              # [2, U, R, T, K, S]: time last
+        return h.contiguous() if out is None else out.copy_(h)
 
     aod_theta, aod_phi, aoa_theta, aoa_phi = _rotated_angles(paths, bs, ue)
     valid = _fov_valid(cfg, paths.valid, aod_theta, aod_phi, aoa_theta,
@@ -429,13 +438,18 @@ def render_channels_planes(paths: PathData, bs: AntennaPanel,
                                 aoa_phi, valid)
     atx = array_response_planes(cfg.bs_shape, bs.spacing, aod_theta,
                                 aod_phi, valid)
-    t_snap = cfg.doppler_times[0] if cfg.enable_doppler else 0.0
-    gr, gi = _ofdm_gain_planes(cfg, powers_lin, paths.delay_s,
-                               paths.phase_deg, valid, t_snap, paths)
-    hr, hi = _path_sum_planes_ri(arx, atx, gr, gi)
-    h = torch.cat((hr, hi), dim=-1) if _packed_layout(cfg) else \
-        torch.stack((hr, hi))
-    return h if out is None else out.copy_(h)
+    snapshots = cfg.doppler_times if cfg.enable_doppler else (0.0,)
+    outs = [_path_sum_planes_ri(
+        arx, atx, *_ofdm_gain_planes(cfg, powers_lin, paths.delay_s,
+                                     paths.phase_deg, valid, t_snap, paths),
+        cfg.matmul_dtype) for t_snap in snapshots]
+    if packed:                           # hr of all (s, k), then hi
+        h = torch.cat([o[0] for o in outs] + [o[1] for o in outs], dim=-1)
+    elif len(outs) > 1:
+        h = torch.stack([torch.stack(o) for o in outs], dim=-1)
+    else:
+        h = torch.stack(outs[0])
+    return h.to(dtype) if out is None else out.copy_(h)
 
 
 def render_channels(paths: PathData, bs: AntennaPanel, ue: AntennaPanel,
@@ -444,7 +458,10 @@ def render_channels(paths: PathData, bs: AntennaPanel, ue: AntennaPanel,
 
     With Doppler over several snapshots a trailing time axis is added:
     [U, R, T, K, len(cfg.doppler_times)]. ``backend`` "pallas" takes the
-    path-sum kernel; any other backend the eager planes product.
+    path-sum kernel; any other backend the eager planes product. Both stay
+    f32 grade whatever ``matmul_dtype`` (which must be one of
+    :data:`kernels.render.MM_PASSES`): the JAX path-sum kernel takes no
+    ``mm_dtype``.
     """
     _check_complex_path(cfg)
     paths = paths.trim_paths(cfg.num_paths)
@@ -510,14 +527,25 @@ def render_channels_and_grads(paths: PathData, bs: AntennaPanel,
     return h.detach(), out
 
 
+def planes_to_numpy(x) -> np.ndarray:
+    """Planes as a host numpy array. A tensor is copied to the host as it
+    lies; bfloat16 planes (half the bytes over the bus) are widened to
+    float32 there, since numpy has no bfloat16."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
+
+
 def unpack_planes_np(arr, cfg: ChannelConfig) -> np.ndarray:
     """Host-side inverse of :func:`render_channels_planes`' layouts.
 
-    Takes the planes as a numpy array and returns the complex channel
-    [U, R, T, K] (complex64 for float32 planes), with a trailing time axis
-    for multi-snapshot Doppler.
+    Takes the planes (a numpy array or a tensor, :func:`planes_to_numpy`)
+    and returns the complex channel [U, R, T, K] (complex64 for float32 or
+    bfloat16 planes), with a trailing time axis for multi-snapshot
+    Doppler.
     """
-    arr = np.asarray(arr)
+    arr = planes_to_numpy(arr)
     cdt = np.complex128 if arr.dtype == np.float64 else np.complex64
     if arr.dtype not in (np.float32, np.float64):
         arr = arr.astype(np.float32)
@@ -557,7 +585,7 @@ def _check_beam_gain_cfg(cfg: ChannelConfig, what: str) -> None:
     if cfg.dtype != "complex64":
         raise not_ported(f"Beam gains with compute_dtype={cfg.dtype!r}",
                          "9 (non-fused paths)")
-    _check_forward_variants(cfg)
+    _render.mm_passes(cfg.matmul_dtype)
 
 
 def beam_gain_eligible(cfg: ChannelConfig, n_beams: int) -> bool:
@@ -616,16 +644,18 @@ def _beam_gains(cfg: ChannelConfig, args, wr, wi,
         _render._check_layout("out", out, shape, dev)
     if _beam_gain_route(cfg, wr.shape[0], dev):
         return _beamgain.fused_beam_gain(*args, wr, wi, cfg.ue_shape,
-                                         cfg.bs_shape, n_k, out=out)
+                                         cfg.bs_shape, n_k, out=out,
+                                         mm_dtype=cfg.matmul_dtype)
     g = _beamgain.beam_gain_reference(*args, wr, wi, cfg.ue_shape,
-                                      cfg.bs_shape, n_k)
+                                      cfg.bs_shape, n_k, cfg.matmul_dtype)
     return g if out is None else out.copy_(g)
 
 
 def render_beam_gains(paths: PathData, bs: AntennaPanel, ue: AntennaPanel,
                       cfg: ChannelConfig, wr, wi,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Codebook beam-gain maps G [U, R*B, S*K] without materializing H.
+    """Codebook beam-gain maps G [U, R*B, S*K] (float32, snapshot-major
+    columns) without materializing H.
 
     G[u, r*B + b, k] = |sum_t conj(w[b, t]) H[u, r, t, k]|^2, with the
     codebook folded into the path sum (``ops/kernels/beamgain.py``): H is
@@ -723,8 +753,9 @@ def render_channels_planes_polar(paths: PathData, bs: AntennaPanel,
             phase are not used.
         pol_power_dbw / pol_phase_deg: [N_pol, U, P] per-polarization power
             (dBW) and phase (deg), NaN-padded as loaded.
-        out: a tensor of the output's shape (float32, contiguous, on the
-            paths' device), overwritten with the result.
+        out: a tensor of the output's shape and ``cfg.out_dtype``
+            (contiguous, on the paths' device), overwritten with the
+            result.
 
     Returns (pol-major, slot = pol*S + s):
         packed layout: [U, R, T, 2*N_pol*S*K], hr of every (pol, s, k) in
@@ -733,10 +764,8 @@ def render_channels_planes_polar(paths: PathData, bs: AntennaPanel,
     Unpack host-side with :func:`unpack_polar_planes_np`.
     """
     n_pol = pol_power_dbw.shape[0]
-    _check_forward_variants(cfg)
-    if cfg.out_dtype != "float32":
-        raise not_ported(f"out_dtype={cfg.out_dtype!r}",
-                         "4 (forward variants)")
+    _render.mm_passes(cfg.matmul_dtype)
+    dtype = _render.out_torch_dtype(cfg.out_dtype)
     if not polar_fused_eligible(cfg, n_pol):
         raise ValueError(
             "render_channels_planes_polar needs a fused-eligible config "
@@ -745,7 +774,7 @@ def render_channels_planes_polar(paths: PathData, bs: AntennaPanel,
             "polarization with render_channels_planes instead.")
     shape = polar_out_shape(paths.n_ue, cfg, n_pol)
     if out is not None:
-        _render._check_layout("out", out, shape, paths.valid.device)
+        _render._check_layout("out", out, shape, paths.valid.device, dtype)
     args = _polar_fused_inputs(cfg, paths, bs, ue, pol_power_dbw,
                                pol_phase_deg)
     n_k = len(cfg.selected_subcarriers)
@@ -756,17 +785,20 @@ def render_channels_planes_polar(paths: PathData, bs: AntennaPanel,
     if out is not None:
         kout = out.view(u, q, 2 * sk) if packed else out.view(2, u, q, sk)
     h = _render.fused_render(*args, cfg.ue_shape, cfg.bs_shape, n_k, packed,
-                             out=kout)
+                             out=kout, mm_dtype=cfg.matmul_dtype,
+                             out_dtype=cfg.out_dtype)
     return h.view(shape)
 
 
 def unpack_polar_planes_np(arr, cfg: ChannelConfig, n_pol: int = 4):
     """Host-side inverse of :func:`render_channels_planes_polar`.
 
-    Returns [N_pol, U, R, T, K] complex (complex64 for float32 planes),
-    the per-polarization output of :func:`render_channels`.
+    Returns [N_pol, U, R, T, K] complex (complex64 for float32 or bfloat16
+    planes, as :func:`unpack_planes_np` takes them), with a trailing time
+    axis for multi-snapshot Doppler: the per-polarization output of
+    :func:`render_channels`.
     """
-    arr = np.asarray(arr)
+    arr = planes_to_numpy(arr)
     cdt = np.complex128 if arr.dtype == np.float64 else np.complex64
     if arr.dtype not in (np.float32, np.float64):
         arr = arr.astype(np.float32)

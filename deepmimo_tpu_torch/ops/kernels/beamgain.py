@@ -29,12 +29,21 @@ Source note.
   lane packing, hi/lo split, ``pltpu.roll`` reassembly and VMEM budget
   (``pick_user_tile_bg``, ``vmem_estimate_bg``, ``pad_store``) are not
   carried over; :func:`beam_gain_fits` is the kernel's shared-memory bound.
+- Modes, as the TPU kernel's ``mm_dtype``: "float32" and "highest" keep
+  every product f32 grade; "bfloat16" and "default" round the path sum's
+  operands, E = a_rx (x) eb and g, to bf16 (RNE) before its FP32 FMAs,
+  as the TPU kernel rounds them for its one-pass dot (``beamgain.py:132-
+  135``). The codebook fold stays f32 grade in every mode: the TPU kernel
+  runs it at HIGHEST for "float32", and at DEFAULT for the others, which
+  is one pass on the TPU but f32 in the interpret mode the port is held
+  against on the CPU.
 
 :func:`fused_beam_gain` is the ``apply`` of :class:`FusedBeamGain`: CUDA
 tensors launch the kernel or raise, CPU tensors take the plain version
 :func:`beam_gain_reference`. Its backward is the VJP of the plain version,
 recomputed, as in the JAX package (which has no backward kernel here).
-``LAUNCHES`` counts kernel launches.
+``LAUNCHES`` counts kernel launches, ``MODE_LAUNCHES`` those of each mode
+(``render.mode_key``: "f32" or "bf16_mm").
 """
 
 from __future__ import annotations
@@ -44,11 +53,14 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .render import (SMEM_LIMIT, _check_inputs, _check_layout,
-                     fused_render_reference)
+from .render import (SMEM_LIMIT, _check_inputs, _check_layout, _count,
+                     mm_passes, mode_key, ofdm_gains, operand_rounding,
+                     response)
 
 #: Number of CUDA kernel launches made by :func:`fused_beam_gain`.
 LAUNCHES = 0
+#: Launches of each mode, keyed by ``render.mode_key``.
+MODE_LAUNCHES: dict = {}
 
 _MAX_WARPS = 8          # warps per block
 _PITCH = 18             # complex entries per row of a warp's two buffers
@@ -104,9 +116,13 @@ def codebook_gain(wr, wi, hr, hi) -> torch.Tensor:
 
 def beam_gain_reference(gry, grz, gty, gtz, amp, psi, omega, wr, wi,
                         rx_shape: Tuple[int, int], tx_shape: Tuple[int, int],
-                        n_k: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (``beam_gain_reference``'s math):
-    H from :func:`fused_render_reference`, then :func:`codebook_gain`.
+                        n_k: int, mm_dtype: str = "float32") -> torch.Tensor:
+    """Plain PyTorch version of the kernel (``beam_gain_reference``'s
+    function), factored as the kernel factors it: the codebook fold
+    eb = conj(W) a_tx (f32), E = a_rx (x) eb, y = E g^T and G = |y|^2. For
+    ``mm_dtype`` "bfloat16"/"default" the path sum's operands E and g are
+    rounded to bf16 (:func:`..render.operand_rounding`), as the kernel
+    rounds them.
 
     Args:
         gry..omega: the 7 per-path inputs of the fused render.
@@ -116,15 +132,32 @@ def beam_gain_reference(gry, grz, gty, gtz, amp, psi, omega, wr, wi,
     Returns:
         G [U, R*B, S*K] float32, rows r-major.
     """
-    h = fused_render_reference(gry, grz, gty, gtz, amp, psi, omega,
-                               rx_shape, tx_shape, n_k, packed=False)
-    u, sk = omega.shape[0], h.shape[-1]
-    r = rx_shape[0] * rx_shape[1]
-    t = tx_shape[0] * tx_shape[1]
-    g = codebook_gain(wr, wi, h[0].reshape(u, r, t, sk),
-                      h[1].reshape(u, r, t, sk))
-    # einsum may leave the beam axis strided; the kernel's layout is dense
-    return g.reshape(u, r * wr.shape[0], sk).contiguous()
+    rnd = operand_rounding(mm_dtype)
+    u, p = omega.shape
+    n_s = psi.shape[1] // p
+    atx_r, atx_i = response(gty, gtz, *tx_shape)             # [u, T, p]
+    arx_r, arx_i = response(gry, grz, *rx_shape)             # [u, R, p]
+
+    def fold(w, x):
+        return torch.einsum("bt,utp->ubp", w, x)
+
+    # conj(w) . a_tx: re = wr.ar + wi.ai, im = wr.ai - wi.ar
+    ebr = fold(wr, atx_r) + fold(wi, atx_i)
+    ebi = fold(wr, atx_i) - fold(wi, atx_r)
+    er = (arx_r[:, :, None] * ebr[:, None] -
+          arx_i[:, :, None] * ebi[:, None]).reshape(u, -1, p)
+    ei = (arx_r[:, :, None] * ebi[:, None] +
+          arx_i[:, :, None] * ebr[:, None]).reshape(u, -1, p)
+    gr, gi = ofdm_gains(amp, psi, omega, n_k)               # [u, s, p, k]
+    er, ei, gr, gi = rnd(er), rnd(ei), rnd(gr), rnd(gi)
+
+    def mm(a, b):
+        return torch.einsum("uqp,uspk->uqsk", a, b).reshape(
+            u, a.shape[1], n_s * n_k)
+
+    yr = mm(er, gr) - mm(ei, gi)
+    yi = mm(er, gi) + mm(ei, gr)
+    return yr * yr + yi * yi
 
 
 def _check_codebook(wr, wi, tx_shape, dev):
@@ -145,10 +178,12 @@ def _check_codebook(wr, wi, tx_shape, dev):
     return wr.shape[0]
 
 
-def _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out):
+def _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out,
+               mm_dtype="float32"):
     """The forward without autograd: kernel on CUDA, plain on the CPU."""
     global LAUNCHES
     u, p, n_s, n_sa = _check_inputs(args, rx_shape, tx_shape, n_k)
+    passes = mm_passes(mm_dtype)
     r1, r2 = (int(x) for x in rx_shape)
     t1, t2 = (int(x) for x in tx_shape)
     dev = args[-1].device
@@ -157,7 +192,8 @@ def _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out):
     if out is not None:
         _check_layout("out", out, shape, dev)
     if dev.type == "cpu":
-        g = beam_gain_reference(*args, wr, wi, (r1, r2), (t1, t2), n_k)
+        g = beam_gain_reference(*args, wr, wi, (r1, r2), (t1, t2), n_k,
+                                mm_dtype)
         return g if out is None else out.copy_(g)
     if dev.type != "cuda":
         raise ValueError(f"fused_beam_gain runs on CUDA or CPU tensors, not "
@@ -171,28 +207,32 @@ def _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out):
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=dev)
     cw = torch.stack((wr.t(), wi.t().neg()), -1)    # conj(W), [T, B, 2]
-    launch = _build.launcher("beamgain", 9, 10)
+    launch = _build.launcher("beamgain", 9, 11)
     with torch.cuda.device(dev):
         rc = launch(*(x.data_ptr() for x in args), cw.data_ptr(),
                     out.data_ptr(), u, p, r1, r2, t1, t2, n_b, n_k, n_s,
-                    n_sa, torch.cuda.current_stream(dev).cuda_stream)
+                    n_sa, int(passes == 1),
+                    torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"beamgain launch failed with CUDA error {rc}")
     LAUNCHES += 1
+    _count(MODE_LAUNCHES, mode_key(mm_dtype))
     return out
 
 
 class FusedBeamGain(torch.autograd.Function):
-    """The beam-gain kernel with the VJP of the plain version, recomputed,
-    as its backward (``beamgain.py:323-330``)."""
+    """The beam-gain kernel with the VJP of the plain version, recomputed
+    at f32 grade whatever the forward's ``mm_dtype``, as its backward
+    (``beamgain.py:323-330``)."""
 
     @staticmethod
     def forward(ctx, gry, grz, gty, gtz, amp, psi, omega, wr, wi, rx_shape,
-                tx_shape, n_k):
+                tx_shape, n_k, mm_dtype):
         args = (gry, grz, gty, gtz, amp, psi, omega)
         ctx.save_for_backward(*args, wr, wi)
         ctx.meta = (rx_shape, tx_shape, n_k)
-        return _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, None)
+        return _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, None,
+                          mm_dtype)
 
     @staticmethod
     def backward(ctx, ct):
@@ -205,13 +245,13 @@ class FusedBeamGain(torch.autograd.Function):
                 g, [x for x in leaves if x.requires_grad], ct,
                 allow_unused=True))
         return (*(next(grads) if need else None for need in needs),
-                None, None, None)
+                None, None, None, None)
 
 
 def fused_beam_gain(gry, grz, gty, gtz, amp, psi, omega, wr, wi,
                     rx_shape: Tuple[int, int], tx_shape: Tuple[int, int],
-                    n_k: int, out: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    n_k: int, out: Optional[torch.Tensor] = None,
+                    mm_dtype: str = "float32") -> torch.Tensor:
     """Beam-gain maps G [U, R*B, S*K] (float32) from per-path scalars and a
     codebook.
 
@@ -219,7 +259,9 @@ def fused_beam_gain(gry, grz, gty, gtz, amp, psi, omega, wr, wi,
     device, invalid paths zeroed; psi [U, S*P], amp [U, P] or [U, S*P]),
     plus the codebook planes ``wr``/``wi`` [B, T]. ``out``, when given, must
     be a contiguous float32 tensor of that shape on the same device; the
-    result is written into it.
+    result is written into it. ``mm_dtype`` "bfloat16"/"default" rounds
+    the path sum's operands to bf16; "float32"/"highest" keep f32 grade;
+    others raise ValueError.
 
     Differentiable through :class:`FusedBeamGain` (gradients reach the
     codebook and the 7 per-path inputs). ``out=`` writes in place outside
@@ -229,9 +271,10 @@ def fused_beam_gain(gry, grz, gty, gtz, amp, psi, omega, wr, wi,
     """
     args = (gry, grz, gty, gtz, amp, psi, omega)
     if out is None:
-        return FusedBeamGain.apply(*args, wr, wi, rx_shape, tx_shape, n_k)
+        return FusedBeamGain.apply(*args, wr, wi, rx_shape, tx_shape, n_k,
+                                   mm_dtype)
     if torch.is_grad_enabled() and any(
             getattr(x, "requires_grad", False) for x in (*args, wr, wi)):
         raise ValueError("fused_beam_gain(out=...) cannot record gradients: "
                          "an input requires grad; call it without out=")
-    return _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out)
+    return _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out, mm_dtype)

@@ -41,13 +41,23 @@ Source note.
   per path, no atomics.
   No TPU lane packing, bf16 hi/lo concat-dot or Chebyshev recurrence is
   carried over.
+- Modes, as the TPU kernels' ``mm_dtype`` and ``out_dtype``:
+  ``mm_dtype`` "float32" and "highest" run the 3xTF32 product (at least
+  f32 grade; the TPU's "highest" is 6 bf16 passes); "bfloat16" and
+  "default" run one pass on operands rounded to bf16 (RNE), accumulated
+  in f32, as the TPU kernel's one-pass dot (``_dot_mode``): one TF32
+  ``mma.sync`` pass over bf16-rounded values, whose products are exact in
+  FP32, so the numbers of a BF16 tensor-core pass. ``out_dtype``
+  "bfloat16" stores H in bf16 from the f32 accumulators (the backward
+  then takes the cotangent widened to f32).
 
 :func:`fused_render` is the ``apply`` of :class:`FusedRender`, a
 ``torch.autograd.Function``: CUDA tensors launch the forward kernel and,
 under autograd, the backward kernel; anything a kernel does not take
 raises. CPU tensors take the plain versions :func:`fused_render_reference`
 and :func:`fused_render_bwd_reference`. ``LAUNCHES`` and ``BWD_LAUNCHES``
-count kernel launches.
+count kernel launches, ``MODE_LAUNCHES`` and ``BWD_MODE_LAUNCHES`` the
+launches of each mode (:func:`mode_key`).
 """
 from __future__ import annotations
 
@@ -61,6 +71,15 @@ from . import _build
 LAUNCHES = 0
 #: Number of backward kernel launches (``csrc/render_bwd.cu``).
 BWD_LAUNCHES = 0
+#: Forward and backward launches of each mode, keyed by :func:`mode_key`.
+MODE_LAUNCHES: dict = {}
+BWD_MODE_LAUNCHES: dict = {}
+
+#: Product passes of each ``matmul_dtype``: 3xTF32, or one pass on bf16
+#: operands.
+MM_PASSES = {"float32": 3, "highest": 3, "bfloat16": 1, "default": 1}
+#: Output dtypes of the forward.
+OUT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 #: Largest dynamic shared memory a block may opt into on Hopper (bytes).
 SMEM_LIMIT = 232_448
@@ -128,10 +147,78 @@ def kernel_fits(rx_shape, tx_shape, n_paths: int, n_k: int,
             <= SMEM_LIMIT)
 
 
+def mm_passes(mm_dtype: str) -> int:
+    """Product passes of ``mm_dtype`` (:data:`MM_PASSES`); ValueError for
+    any other string, as the JAX kernels' ``_dot_mode``."""
+    if mm_dtype not in MM_PASSES:
+        raise ValueError(
+            f"matmul_dtype={mm_dtype!r}: expected one of 'float32' or "
+            f"'highest' (3xTF32, f32 grade), 'bfloat16' or 'default' (one "
+            f"pass on bf16 operands)")
+    return MM_PASSES[mm_dtype]
+
+
+def mode_key(mm_dtype: str = "float32", out_dtype: str = "float32") -> str:
+    """Name of a kernel mode: "f32", or "bf16_mm", "bf16_out" and
+    "bf16_mm+bf16_out" for the one-pass product and the bf16 output."""
+    parts = (["bf16_mm"] if mm_passes(mm_dtype) == 1 else []) + \
+        (["bf16_out"] if out_torch_dtype(out_dtype) == torch.bfloat16
+         else [])
+    return "+".join(parts) or "f32"
+
+
+def _count(counts: dict, key: str) -> None:
+    counts[key] = counts.get(key, 0) + 1
+
+
+def out_torch_dtype(out_dtype: str) -> torch.dtype:
+    """The torch dtype of ``out_dtype`` (:data:`OUT_DTYPES`); ValueError
+    for any other string."""
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f"out_dtype={out_dtype!r}: expected 'float32' or "
+                         f"'bfloat16'")
+    return OUT_DTYPES[out_dtype]
+
+
+def operand_rounding(mm_dtype: str):
+    """What a product of ``mm_dtype`` does to its float32 operands in the
+    plain versions: nothing (3 passes, f32 grade), or round to bf16 (RNE)
+    and back, so that the f32 product that follows is the one-pass
+    product's."""
+    if mm_passes(mm_dtype) == 3:
+        return lambda x: x
+    return lambda x: x.to(torch.bfloat16).to(x.dtype)
+
+
+def response(ky, kz, m1: int, m2: int):
+    """Panel response planes (cos, sin) [U, M1*M2, P] of phase steps ky,
+    kz [U, P], element n*M1 + m at phase m*ky + n*kz."""
+    u, p = ky.shape
+    m = torch.arange(m1, dtype=ky.dtype, device=ky.device)
+    n = torch.arange(m2, dtype=ky.dtype, device=ky.device)
+    ph = (m[None, :, None, None] * ky[:, None, None, :] +
+          n[None, None, :, None] * kz[:, None, None, :])
+    ph = ph.transpose(1, 2).reshape(u, m1 * m2, p)
+    return torch.cos(ph), torch.sin(ph)
+
+
+def ofdm_gains(amp, psi, omega, n_k: int):
+    """OFDM gain planes (gr, gi) [U, S, P, K]: amp e^{j(psi_s - omega k)}
+    with amp [U, P] or [U, S*P]."""
+    u, p = omega.shape
+    n_s, n_sa = psi.shape[1] // p, amp.shape[1] // p
+    ks = torch.arange(n_k, dtype=amp.dtype, device=amp.device)
+    base = (psi.reshape(u, n_s, p)[..., None] -
+            omega[:, None, :, None] * ks)                    # [u, s, p, k]
+    amp_b = amp.reshape(u, n_sa, p)[..., None]
+    return amp_b * torch.cos(base), amp_b * torch.sin(base)
+
+
 def fused_render_reference(gry, grz, gty, gtz, amp, psi, omega,
                            rx_shape: Tuple[int, int],
                            tx_shape: Tuple[int, int], n_k: int,
-                           packed: bool) -> torch.Tensor:
+                           packed: bool,
+                           mm_dtype: str = "float32") -> torch.Tensor:
     """Plain PyTorch version of the kernel (``_reference_impl``'s math).
 
     Args:
@@ -142,19 +229,14 @@ def fused_render_reference(gry, grz, gty, gtz, amp, psi, omega,
         rx_shape/tx_shape: panel shapes (M1, M2); n_k: subcarriers.
         packed: return [U, Q, 2*S*K] (hr | hi on the minor axis) instead
             of stacked [2, U, Q, S*K].
+        mm_dtype: the product's operands E and g are rounded to bf16 for
+            "bfloat16" and "default" (:func:`operand_rounding`); the
+            product itself is float32.
+    Returns float32 planes.
     """
+    rnd = operand_rounding(mm_dtype)
     u, p = omega.shape
     n_s = psi.shape[1] // p
-    n_sa = amp.shape[1] // p
-
-    def response(ky, kz, m1, m2):
-        m = torch.arange(m1, dtype=ky.dtype, device=ky.device)
-        n = torch.arange(m2, dtype=ky.dtype, device=ky.device)
-        ph = (m[None, :, None, None] * ky[:, None, None, :] +
-              n[None, None, :, None] * kz[:, None, None, :])
-        ph = ph.transpose(1, 2).reshape(u, m1 * m2, p)
-        return torch.cos(ph), torch.sin(ph)
-
     arx_r, arx_i = response(gry, grz, *rx_shape)
     atx_r, atx_i = response(gty, gtz, *tx_shape)
     q = arx_r.shape[1] * atx_r.shape[1]
@@ -162,13 +244,8 @@ def fused_render_reference(gry, grz, gty, gtz, amp, psi, omega,
           arx_i[:, :, None, :] * atx_i[:, None, :, :]).reshape(u, q, p)
     ei = (arx_r[:, :, None, :] * atx_i[:, None, :, :] +
           arx_i[:, :, None, :] * atx_r[:, None, :, :]).reshape(u, q, p)
-
-    ks = torch.arange(n_k, dtype=amp.dtype, device=amp.device)
-    base = (psi.reshape(u, n_s, p)[..., None] -
-            omega[:, None, :, None] * ks)                    # [u, s, p, k]
-    amp_b = amp.reshape(u, n_sa, p)[..., None]
-    gr = amp_b * torch.cos(base)
-    gi = amp_b * torch.sin(base)
+    gr, gi = ofdm_gains(amp, psi, omega, n_k)
+    er, ei, gr, gi = rnd(er), rnd(ei), rnd(gr), rnd(gi)
 
     def mm(a, b):
         return torch.einsum("uqp,uspk->uqsk", a, b).reshape(u, q, n_s * n_k)
@@ -219,10 +296,10 @@ def _out_shape(u, q, sk, packed):
     return (u, q, 2 * sk) if packed else (2, u, q, sk)
 
 
-def _check_layout(name, x, shape, dev):
-    if (tuple(x.shape) != shape or x.dtype != torch.float32 or
+def _check_layout(name, x, shape, dev, dtype=torch.float32):
+    if (tuple(x.shape) != tuple(shape) or x.dtype != dtype or
             x.device != dev or not x.is_contiguous()):
-        raise ValueError(f"{name} must be a contiguous float32 {shape} "
+        raise ValueError(f"{name} must be a contiguous {dtype} {shape} "
                          f"tensor on {dev}; got {tuple(x.shape)} {x.dtype} "
                          f"on {x.device}")
 
@@ -237,54 +314,113 @@ def _check_cuda(dev, rx_shape, tx_shape, p, n_k, n_s, what):
             f"P={p} (Q and S*K must each be <= {INDEX_LIMIT})")
 
 
-def _render(args, rx_shape, tx_shape, n_k, packed, out):
+def _render(args, rx_shape, tx_shape, n_k, packed, out, mm_dtype="float32",
+            out_dtype="float32"):
     """The forward without autograd: kernel on CUDA, plain on the CPU."""
     global LAUNCHES
     u, p, n_s, n_sa = _check_inputs(args, rx_shape, tx_shape, n_k)
+    passes = mm_passes(mm_dtype)
+    dtype = out_torch_dtype(out_dtype)
     r1, r2 = (int(x) for x in rx_shape)
     t1, t2 = (int(x) for x in tx_shape)
     q, sk = r1 * r2 * t1 * t2, n_s * n_k
     shape = _out_shape(u, q, sk, packed)
     dev = args[-1].device
     if out is not None:
-        _check_layout("out", out, shape, dev)
+        _check_layout("out", out, shape, dev, dtype)
     if dev.type == "cpu":
-        h = fused_render_reference(*args, (r1, r2), (t1, t2), n_k, packed)
+        h = fused_render_reference(*args, (r1, r2), (t1, t2), n_k, packed,
+                                   mm_dtype).to(dtype)
         return h if out is None else out.copy_(h)
     _check_cuda(dev, (r1, r2), (t1, t2), p, n_k, n_s, "fused_render")
     if out is None:
-        out = torch.empty(shape, dtype=torch.float32, device=dev)
-    launch = _build.launcher("render_fwd", 8, 10)
+        out = torch.empty(shape, dtype=dtype, device=dev)
+    launch = _build.launcher("render_fwd", 8, 12)
     with torch.cuda.device(dev):
         rc = launch(*(x.data_ptr() for x in args), out.data_ptr(), u, p,
                     r1, r2, t1, t2, n_k, n_s, n_sa, int(bool(packed)),
+                    passes, int(dtype == torch.bfloat16),
                     torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"render_fwd launch failed with CUDA error {rc}")
     LAUNCHES += 1
+    _count(MODE_LAUNCHES, mode_key(mm_dtype, out_dtype))
     return out
 
 
 def fused_render_bwd_reference(gry, grz, gty, gtz, amp, psi, omega, ct,
                                rx_shape: Tuple[int, int],
                                tx_shape: Tuple[int, int], n_k: int,
-                               packed: bool):
+                               packed: bool, mm_dtype: str = "float32"):
     """Plain PyTorch version of the backward kernel: the VJP of
     :func:`fused_render_reference` for cotangent ``ct`` (the forward's
-    layout), taken with ``torch.autograd.grad``. Returns the 7 gradients,
-    each shaped like its input."""
-    with torch.enable_grad():
-        leaves = [x.detach().requires_grad_(True)
-                  for x in (gry, grz, gty, gtz, amp, psi, omega)]
-        h = fused_render_reference(*leaves, rx_shape, tx_shape, n_k, packed)
-        return torch.autograd.grad(h, leaves, ct)
+    layout), written out as the kernel computes it. With c = cr + j ci,
+    E = e^{j phi} and g = a U, U = e^{j b}, per slot s:
+
+        dE = c . conj(U) (contract k),   dG = c^T . conj(E) (contract q),
+        dphi = sum_s a (E_r dE_i - E_i dE_r),
+        damp = sum_k dG_r U_r + dG_i U_i,  w = a (U_r dG_i - U_i dG_r),
+        dpsi = sum_k w,  domega = -sum_{s,k} k w,
+
+    and dphi folded over q by each phase step's element index. For
+    ``mm_dtype`` "bfloat16"/"default" the two products take c, U and E
+    rounded to bf16 (:func:`operand_rounding`); the chains stay f32.
+    Returns the 7 gradients, each shaped like its input.
+    """
+    rnd = operand_rounding(mm_dtype)
+    u, p = omega.shape
+    n_s, n_sa = psi.shape[1] // p, amp.shape[1] // p
+    (r1, r2), (t1, t2) = rx_shape, tx_shape
+    t, sk = t1 * t2, n_s * n_k
+    q = r1 * r2 * t
+    cr, ci = (ct[..., :sk], ct[..., sk:]) if packed else (ct[0], ct[1])
+    cr, ci = (rnd(x.reshape(u, q, n_s, n_k)) for x in (cr, ci))
+    iq = torch.arange(q, device=omega.device)
+    it, ir = iq % t, iq // t
+    idx = [(x % m1).to(omega.dtype) for x, m1 in ((it, t1), (ir, r1))]
+    idx += [(x // m1).to(omega.dtype) for x, m1 in ((it, t1), (ir, r1))]
+    m_t, m_r, n_t, n_r = idx                                 # [Q] each
+    phi = (m_t[None, :, None] * gty[:, None] + n_t[None, :, None] * gtz[:, None]
+           + m_r[None, :, None] * gry[:, None] +
+           n_r[None, :, None] * grz[:, None])                # [u, q, p]
+    er, ei = torch.cos(phi), torch.sin(phi)
+    ks = torch.arange(n_k, dtype=omega.dtype, device=omega.device)
+    b = (psi.reshape(u, n_s, p)[:, :, None, :] -
+         omega[:, None, None, :] * ks[:, None])              # [u, s, k, p]
+    ur, ui = torch.cos(b), torch.sin(b)
+    a = amp.reshape(u, n_sa, p)[:, :, None, :]               # [u, s|1, 1, p]
+
+    def de(x, y):                        # contract k -> [u, q, s, p]
+        return torch.einsum("uqsk,uskp->uqsp", x, y)
+
+    def dg(x, y):                        # contract q -> [u, s, k, p]
+        return torch.einsum("uqsk,uqp->uskp", x, y)
+
+    urr, uir, err, eir = rnd(ur), rnd(ui), rnd(er), rnd(ei)
+    de_r = de(cr, urr) + de(ci, uir)
+    de_i = de(ci, urr) - de(cr, uir)
+    dphi = (a[:, None, :, 0] * (er[:, :, None] * de_i -
+                                ei[:, :, None] * de_r)).sum(2)
+    dg_r = dg(cr, err) + dg(ci, eir)
+    dg_i = dg(ci, err) - dg(cr, eir)
+    damp = (dg_r * ur + dg_i * ui).sum(2)                    # [u, s, p]
+    w = a * (ur * dg_i - ui * dg_r)                          # [u, s, k, p]
+
+    def fold(x):
+        return torch.einsum("uqp,q->up", dphi, x)
+
+    return (fold(m_r), fold(n_r), fold(m_t), fold(n_t),
+            damp.reshape(u, n_s * p) if n_sa > 1 else damp.sum(1),
+            w.sum(2).reshape(u, n_s * p),
+            -torch.einsum("uskp,k->up", w, ks))
 
 
 def fused_render_bwd(gry, grz, gty, gtz, amp, psi, omega, ct,
                      rx_shape: Tuple[int, int], tx_shape: Tuple[int, int],
-                     n_k: int, packed: bool):
+                     n_k: int, packed: bool, mm_dtype: str = "float32"):
     """Gradients of the 7 inputs of :func:`fused_render` for cotangent
-    ``ct``, a contiguous float32 tensor in the forward's output layout.
+    ``ct``, a contiguous float32 tensor in the forward's output layout,
+    with the products of ``mm_dtype`` (:data:`MM_PASSES`).
 
     CUDA tensors launch the backward kernel on the current stream (no
     sync) or raise; CPU tensors take :func:`fused_render_bwd_reference`.
@@ -292,6 +428,7 @@ def fused_render_bwd(gry, grz, gty, gtz, amp, psi, omega, ct,
     global BWD_LAUNCHES
     args = (gry, grz, gty, gtz, amp, psi, omega)
     u, p, n_s, n_sa = _check_inputs(args, rx_shape, tx_shape, n_k)
+    passes = mm_passes(mm_dtype)
     r1, r2 = (int(x) for x in rx_shape)
     t1, t2 = (int(x) for x in tx_shape)
     q = r1 * r2 * t1 * t2
@@ -301,17 +438,18 @@ def fused_render_bwd(gry, grz, gty, gtz, amp, psi, omega, ct,
     _check_layout("ct", ct, _out_shape(u, q, n_s * n_k, packed), dev)
     if dev.type == "cpu":
         return fused_render_bwd_reference(*args, ct, (r1, r2), (t1, t2),
-                                          n_k, packed)
+                                          n_k, packed, mm_dtype)
     grads = [torch.empty_like(x) for x in args]
-    launch = _build.launcher("render_bwd", 15, 10)
+    launch = _build.launcher("render_bwd", 15, 11)
     with torch.cuda.device(dev):
         rc = launch(*(x.data_ptr() for x in args), ct.data_ptr(),
                     *(g.data_ptr() for g in grads), u, p, r1, r2, t1, t2,
-                    n_k, n_s, n_sa, int(bool(packed)),
+                    n_k, n_s, n_sa, int(bool(packed)), passes,
                     torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"render_bwd launch failed with CUDA error {rc}")
     BWD_LAUNCHES += 1
+    _count(BWD_MODE_LAUNCHES, mode_key(mm_dtype))
     return tuple(grads)
 
 
@@ -321,41 +459,52 @@ class FusedRender(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, gry, grz, gty, gtz, amp, psi, omega, rx_shape,
-                tx_shape, n_k, packed):
+                tx_shape, n_k, packed, mm_dtype, out_dtype):
         args = (gry, grz, gty, gtz, amp, psi, omega)
         ctx.save_for_backward(*args)
-        ctx.meta = (rx_shape, tx_shape, n_k, packed)
-        return _render(args, rx_shape, tx_shape, n_k, packed, None)
+        ctx.meta = (rx_shape, tx_shape, n_k, packed, mm_dtype)
+        return _render(args, rx_shape, tx_shape, n_k, packed, None,
+                       mm_dtype, out_dtype)
 
     @staticmethod
     def backward(ctx, ct):
-        # Cotangents of mean/expand arrive strided; the kernel reads dense.
+        # Cotangents of mean/expand arrive strided, and those of a bf16
+        # output in bf16; the kernel reads dense float32.
         ct = ct.to(torch.float32).contiguous()
         grads = fused_render_bwd(*ctx.saved_tensors, ct, *ctx.meta)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None, None)
 
 
 def fused_render(gry, grz, gty, gtz, amp, psi, omega,
                  rx_shape: Tuple[int, int], tx_shape: Tuple[int, int],
                  n_k: int, packed: bool,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused channel render from per-path scalars -> H planes (float32).
+                 out: Optional[torch.Tensor] = None,
+                 mm_dtype: str = "float32",
+                 out_dtype: str = "float32") -> torch.Tensor:
+    """Fused channel render from per-path scalars -> H planes.
 
     Inputs as in :func:`fused_render_reference`, float32, contiguous, all
     on one device; invalid paths carry zeros. Returns packed
-    [U, Q, 2*S*K] or stacked [2, U, Q, S*K], written into ``out`` when it
-    is given (it must have that shape, float32, contiguous, same device).
+    [U, Q, 2*S*K] or stacked [2, U, Q, S*K] in ``out_dtype`` ("float32"
+    or "bfloat16"), written into ``out`` when it is given (it must have
+    that shape and dtype, contiguous, same device). ``mm_dtype`` picks the
+    product (:data:`MM_PASSES`): "float32"/"highest" 3xTF32,
+    "bfloat16"/"default" one pass on bf16 operands; others raise
+    ValueError.
 
-    Differentiable through :class:`FusedRender`. ``out=`` writes in place
-    outside autograd, so it raises when an input requires grad.
-    CUDA tensors launch the kernels on the current stream (no sync) or
-    raise; CPU tensors take the plain versions.
+    Differentiable through :class:`FusedRender` (the backward runs the
+    same ``mm_dtype``). ``out=`` writes in place outside autograd, so it
+    raises when an input requires grad. CUDA tensors launch the kernels on
+    the current stream (no sync) or raise; CPU tensors take the plain
+    versions.
     """
     args = (gry, grz, gty, gtz, amp, psi, omega)
     if out is None:
-        return FusedRender.apply(*args, rx_shape, tx_shape, n_k, packed)
+        return FusedRender.apply(*args, rx_shape, tx_shape, n_k, packed,
+                                 mm_dtype, out_dtype)
     if torch.is_grad_enabled() and any(
             getattr(x, "requires_grad", False) for x in args):
         raise ValueError("fused_render(out=...) cannot record gradients: "
                          "an input requires grad; call it without out=")
-    return _render(args, rx_shape, tx_shape, n_k, packed, out)
+    return _render(args, rx_shape, tx_shape, n_k, packed, out, mm_dtype,
+                   out_dtype)

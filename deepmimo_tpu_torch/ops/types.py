@@ -153,7 +153,8 @@ class ChannelConfig:
     doppler_times: Tuple[float, ...] = (0.0,)
     # Precision of the complex output
     dtype: str = "complex64"
-    # Path-sum input precision ("float32": FP32 FMA)
+    # Product precision of the fused kernels (config.py "matmul_dtype"):
+    # "float32"/"highest" f32 grade, "bfloat16"/"default" one bf16 pass
     matmul_dtype: str = "float32"
     # Path-sum backend: "xla" (eager planes einsum) or "fused"/"pallas"
     # (the hand-written render kernel)
@@ -162,7 +163,7 @@ class ChannelConfig:
     # "packed" -> [U, R, T, 2K] with hr in the first minor half (used
     # when S*K % 64 == 0, else stacked).
     planes_layout: str = "stacked"
-    # Output precision of the planes renderers
+    # Output precision of the planes renderers: "float32" or "bfloat16"
     out_dtype: str = "float32"
 
     @property

@@ -107,29 +107,30 @@ FWD_CONSUMERS = consumer_patches(
     "    bar_sync(kFull + b, kHandoff);    // stage b holds this tile's "
     "operands\n",
     "    bar_arrive(kEmpty + b, kHandoff);  // stage b may be refilled\n",
-    "    it = nx;\n  }\n}\n\n}  // namespace")
+    "    it = nx;\n  }\n}\n\ntemplate <int kPasses, typename OutT>")
 BWD_CONSUMERS = consumer_patches(
     "  Item it{static_cast<int>(blockIdx.x), 0, 0, 0, 0};\n"
     "  for (int b = 0; it.u < s.U; b ^= 1) {",
     "    bar_sync(kFull + b, kHandoff);    // stage b holds this tile\n",
     "    bar_arrive(kEmpty + b, kHandoff);  // stage b may be refilled\n",
     "    it = next_item(s, it);\n  }\n}\n\n}  // namespace")
-FWD_NOMMA = [("        mma3(acc, a, b4, m1 ? 2 : 1, 4);",
+FWD_NOMMA = [("        mma3<kPasses>(acc, a, b4, m1 ? 2 : 1, 4);",
               "        acc[0][0][0] += __uint_as_float(a[0][0].hi ^ "
               "b4[3][1].lo);")]
 FWD_NOPROD = [("    build_tables(tm, s, tl, it.u, it.p0, scal + (n & 1) * "
                "kScal * kPC, psi,\n                 amp, tab, row_ix, "
                "col_ix);", ""),
-              ("    build_planes<kES>(tm, tl, imin(kPC, s.P - it.p0), tab, "
-               "row_ix, col_ix,\n                      e_pl, g_pl);", "")]
-BWD_NOMMA = [("        mma3(acc, a, bf, m1 ? 2 : 1, n_nt);",
+              ("    build_planes<kES, kPasses>(tm, tl, imin(kPC, s.P - it.p0), "
+               "tab, row_ix,\n                               col_ix, e_pl, "
+               "g_pl);", "")]
+BWD_NOMMA = [("        mma3<kPasses>(acc, a, bf, m1 ? 2 : 1, n_nt);",
               "        acc[0][0][0] += __uint_as_float(a[0][0].hi ^ "
               "bf[3][1].lo);")]
 BWD_NOPROD = [("    build_tables(tm, s, tl, u, it.p0, scal + (n & 1) * kScal "
                "* kPC, psi,\n                 nullptr, tab, row_ix, "
                "col_ix);\n", ""),
-              ("    build_planes<kES>(tm, tl, np, tab, row_ix, col_ix, st.e, "
-               "st.w);\n", "")]
+              ("    build_planes<kES, kPasses>(tm, tl, np, tab, row_ix, col_ix, "
+               "st.e, st.w);\n", "")]
 # Producer-side copies: full-range sincosf replaced by the fast intrinsic;
 # the coarse entries' psi and amp loads replaced by constants.
 FAST_TRIG = [("  sincosf(ph, &s, &c);                // full range reduction",
@@ -209,15 +210,17 @@ def main():
     for name, kernel, lib in built:
         dll = ctypes.CDLL(lib)
         fn = getattr(dll, kernel + "_launch")
-        n_ptr = 8 if kernel == "render_fwd" else 15
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 10 + \
-            [ctypes.c_void_p]
+        fwd = kernel == "render_fwd"
+        # the f32 modes: 3 passes (and float32 H in the forward)
+        modes = (3, 0) if fwd else (3,)
+        fn.argtypes = [ctypes.c_void_p] * (8 if fwd else 15) + \
+            [ctypes.c_int] * (10 + len(modes)) + [ctypes.c_void_p]
         ptrs = [a.data_ptr() for a in args] + (
-            [out.data_ptr()] if kernel == "render_fwd" else
+            [out.data_ptr()] if fwd else
             [ct.data_ptr()] + [g.data_ptr() for g in grads])
 
         def call():
-            fn(*ptrs, u, p, 1, 1, 8, 8, k, 1, 1, 1, stream)
+            fn(*ptrs, u, p, 1, 1, 8, 8, k, 1, 1, 1, *modes, stream)
         ms = cs.event_ms(torch, call, reps=10)
         dll.prof_zero()
         call()

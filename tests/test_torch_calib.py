@@ -217,8 +217,7 @@ def test_calib_params_from_numpy_round_trip():
 
 @pytest.mark.parametrize("change", [
     dict(freq_domain=False), dict(rx_filter=True), dict(dtype="complex128"),
-    dict(matmul_dtype="bfloat16"),
-], ids=["time_domain", "rx_filter", "complex128", "bf16_matmul"])
+], ids=["time_domain", "rx_filter", "complex128"])
 def test_render_channels_out_of_slice_raises(change):
     _, (pd, bs, ue, cfg) = _state()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -124,11 +124,7 @@ def test_out_is_written_in_place():
 
 @pytest.mark.parametrize("change", [
     dict(freq_domain=False), dict(rx_filter=True), dict(dtype="complex128"),
-    dict(enable_doppler=True, doppler_times=(0.0, 1e-3)),
-    dict(out_dtype="bfloat16"), dict(matmul_dtype="bfloat16"),
-    dict(bs_fov=(120.0, 90.0)), dict(ue_pattern="halfwave-dipole"),
-], ids=["time_domain", "rx_filter", "complex128", "doppler_s2", "bf16_out",
-        "bf16_matmul", "fused_fov", "fused_dipole"])
+], ids=["time_domain", "rx_filter", "complex128"])
 def test_out_of_slice_configs_raise(change):
     _, (pd, bs, ue, cfg), _, _ = _state("single_subcarrier")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

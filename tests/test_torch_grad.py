@@ -16,6 +16,9 @@ from deepmimo_tpu_torch.ops.kernels import render as kr
 
 torch.set_num_threads(1)
 GTOL = 3e-4      # relative to max|g|: the bound of tests/test_pallas.py
+# One-pass bf16 products, relative to max|g| (no JAX bound exists; bf16
+# rounds each operand by up to 2^-9, see tests/test_torch_render.py).
+BF16_GTOL = 1e-2
 
 U, P, K = 20, 13, 16
 # name: (rx_shape, tx_shape, S, per-slot amp, packed); the first five are
@@ -48,15 +51,15 @@ def _inputs(rx, tx, s, per_slot, packed, u=U, seed=11, p=P, k=K):
     return args, ct
 
 
-def _close(got, want):
+def _close(got, want, tol=GTOL):
     assert len(got) == len(want) == 7
     for g, w in zip(got, want):
         g, w = np.asarray(g), np.asarray(w)
         assert g.shape == w.shape
-        np.testing.assert_allclose(g, w, atol=GTOL * np.abs(w).max() + 1e-30)
+        np.testing.assert_allclose(g, w, atol=tol * np.abs(w).max() + 1e-30)
 
 
-def _jax_grads(name, args, ct):
+def _jax_grads(name, args, ct, mm_dtype="float32"):
     import jax.numpy as jnp
     from deepmimo_tpu.ops.pallas import render as R
 
@@ -64,7 +67,7 @@ def _jax_grads(name, args, ct):
     k = _pk(name)[1]
     jargs = [jnp.asarray(a) for a in args]
     kernel = R._bwd_impl(*jargs, jnp.asarray(ct), rx, tx, k, 8, True,
-                         "float32", packed)
+                         mm_dtype, packed)
     xla = R._bwd_xla(rx, tx, k, packed, jargs, jnp.asarray(ct))
     return kernel, xla
 
@@ -94,6 +97,53 @@ def test_function_backward_matches_jax_kernel(name):
     _close([x.grad for x in leaves], kernel)
     if per_slot:
         assert leaves[4].grad.shape == (U, s * p)      # damp per slot
+
+
+@pytest.mark.parametrize("mm", ["bfloat16", "default", "highest"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_bwd_modes_match_jax(name, mm):
+    """The plain backward in each matmul_dtype against the TPU backward
+    kernel in the same mode (interpret mode: "default" and "highest" are
+    f32 there) and against the f32 XLA VJP."""
+    rx, tx, s, per_slot, packed = CASES[name]
+    p, k = _pk(name)
+    args, ct = _inputs(rx, tx, s, per_slot, packed, seed=13, p=p, k=k)
+    got = kr.fused_render_bwd(
+        *[torch.from_numpy(a) for a in args], torch.from_numpy(ct), rx, tx,
+        k, packed, mm)
+    kernel, xla = _jax_grads(name, args, ct, mm)
+    tol = GTOL if kr.MM_PASSES[mm] == 3 else BF16_GTOL
+    _close(got, kernel, tol)
+    _close(got, xla, tol)
+
+
+@pytest.mark.parametrize("mode", ["bf16_mm", "bf16_out"])
+def test_function_modes_match_jax_grad(mode):
+    """torch.autograd through the port's fused render against jax.grad
+    through the JAX one, in the one-pass and the bf16-output modes, on one
+    loss: the gradient flows through a bf16 output (its cotangent is
+    widened to f32, tests/test_pallas.py:548-560)."""
+    import jax
+    import jax.numpy as jnp
+    from deepmimo_tpu.ops.pallas import render as R
+
+    mm = "bfloat16" if mode == "bf16_mm" else "float32"
+    out_dtype = "bfloat16" if mode == "bf16_out" else "float32"
+    rx, tx, s, per_slot, packed = CASES["per_slot_amp"]
+    args, _ = _inputs(rx, tx, s, per_slot, packed, seed=14)
+
+    def jloss(a):
+        h = R.fused_render(*a, rx, tx, K, 8, True, mm, packed, out_dtype)
+        return jnp.sum(h.astype(jnp.float32) ** 2)
+
+    want = jax.grad(jloss)(tuple(jnp.asarray(a) for a in args))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in args]
+    h = kr.fused_render(*leaves, rx, tx, K, packed, mm_dtype=mm,
+                        out_dtype=out_dtype)
+    assert h.dtype == kr.OUT_DTYPES[out_dtype]
+    h.float().square().sum().backward()
+    assert all(bool(torch.isfinite(x.grad).all()) for x in leaves)
+    _close([x.grad for x in leaves], want, BF16_GTOL)
 
 
 def test_output_carries_the_ports_function():
@@ -255,3 +305,36 @@ def test_cuda_bwd_walks_many_path_chunks(cuda):
     got = kr.fused_render_bwd(*ts, ct, rx, tx, 64, True)
     want = kr.fused_render_bwd_reference(*ts, ct, rx, tx, 64, True)
     _close([g.cpu() for g in got], [w.cpu() for w in want])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_cuda_bwd_kernel_one_pass_matches_plain_version(cuda, name):
+    """The backward kernel's one-pass bf16 mode against its plain version
+    in the same mode."""
+    rx, tx, s, per_slot, packed = CASES[name]
+    p, k = _pk(name)
+    args, ct = _inputs(rx, tx, s, per_slot, packed, u=U * 257, seed=4, p=p,
+                       k=k)
+    ts = [torch.from_numpy(a).to(cuda) for a in args]
+    ct = torch.from_numpy(ct).to(cuda)
+    before = kr.BWD_LAUNCHES
+    got = kr.fused_render_bwd(*ts, ct, rx, tx, k, packed, "bfloat16")
+    want = kr.fused_render_bwd_reference(*ts, ct, rx, tx, k, packed,
+                                         "bfloat16")
+    torch.cuda.synchronize()
+    assert kr.BWD_LAUNCHES == before + 1
+    _close([g.cpu() for g in got], [w.cpu() for w in want], BF16_GTOL)
+
+
+@pytest.mark.gpu
+def test_cuda_bwd_one_pass_walks_many_path_chunks(cuda):
+    """P = 227 (8 chunks of 32 paths) in the one-pass mode."""
+    rx, tx = (1, 1), (8, 8)
+    args, ct = _inputs(rx, tx, 1, False, True, u=4 * U, seed=8, p=227, k=64)
+    ts = [torch.from_numpy(a).to(cuda) for a in args]
+    ct = torch.from_numpy(ct).to(cuda)
+    got = kr.fused_render_bwd(*ts, ct, rx, tx, 64, True, "bfloat16")
+    want = kr.fused_render_bwd_reference(*ts, ct, rx, tx, 64, True,
+                                         "bfloat16")
+    _close([g.cpu() for g in got], [w.cpu() for w in want], BF16_GTOL)

@@ -155,17 +155,6 @@ def test_render_beam_gains_polar_matches_jax():
     _close(got.numpy(), want, BG_RTOL)
 
 
-@pytest.mark.parametrize("change", [
-    dict(enable_doppler=True, doppler_times=(0.0, 1e-3)),
-    dict(out_dtype="bfloat16"), dict(matmul_dtype="bfloat16"),
-], ids=["doppler_s2", "bf16_out", "bf16_matmul"])
-def test_polar_variants_not_ported(change):
-    _, tstate = _state({})
-    cfg = tstate[3].replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tch.render_channels_planes_polar(*tstate[:3], cfg, *tstate[4:])
-
-
 def test_polar_needs_a_fused_eligible_config():
     _, tstate = _state({})
     cfg = tstate[3].replace(selected_subcarriers=(0, 1, 3))

@@ -17,6 +17,21 @@ from deepmimo_tpu_torch.ops.kernels import render as kr
 
 torch.set_num_threads(1)
 RTOL = 3e-5      # relative to max|H|: the kernel's bound in test_pallas.py
+# bf16 output against f32 planes: JAX's own bound (test_pallas.py:536-537).
+BF16_OUT_RTOL = 2 ** -7
+# One-pass bf16 products, relative to max|H|. The JAX package has no bound
+# for them: bf16 rounds each operand by up to 2^-9 (unit roundoff), so a
+# term of the path sum by ~2^-8, and the TPU's one-pass render measured
+# 2.9e-3 against float64 (deepmimo_tpu/ops/pallas/render.py:213-215);
+# 1e-2 leaves room for the sum over paths.
+BF16_MM_RTOL = 1e-2
+# mode: (mm_dtype, out_dtype, tolerance against the f32 JAX kernel)
+MODES = {
+    "bf16_mm": ("bfloat16", "float32", BF16_MM_RTOL),
+    "default_mm": ("default", "float32", BF16_MM_RTOL),
+    "highest_mm": ("highest", "float32", RTOL),
+    "bf16_out": ("float32", "bfloat16", BF16_OUT_RTOL),
+}
 
 # name: (rx_shape, tx_shape, U, K, S, per-slot amp, packed)
 CASES = {
@@ -87,6 +102,69 @@ def test_reference_matches_jax_kernel_interpret(name):
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want,
                                atol=RTOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("name", ["headline", "two_slots_stacked",
+                                  "odd_panel"])
+def test_modes_match_jax_kernel_interpret(name, mode):
+    """Each mode of the port's plain version against the TPU kernel in the
+    same mode, run in interpret mode on the CPU (where JAX's "default" and
+    "highest" are f32), and against the f32 kernel."""
+    import jax.numpy as jnp
+    from deepmimo_tpu.ops.pallas.render import fused_render
+
+    mm, out_dtype, tol = MODES[mode]
+    rx, tx, u, k, s, per_slot, packed = CASES[name]
+    arrs = _inputs(u, s, per_slot, seed=8, p=PATHS.get(name, P))
+    jargs = [jnp.asarray(a) for a in arrs]
+    want32 = np.asarray(fused_render(*jargs, rx, tx, k, user_tile=8,
+                                     interpret=True, packed=packed))
+    want = np.asarray(fused_render(
+        *jargs, rx, tx, k, user_tile=8, interpret=True, mm_dtype=mm,
+        packed=packed, out_dtype=out_dtype)).astype(np.float32)
+    got = kr.fused_render(*[torch.from_numpy(a) for a in arrs], rx, tx, k,
+                          packed, mm_dtype=mm, out_dtype=out_dtype)
+    assert got.dtype == kr.OUT_DTYPES[out_dtype]
+    assert tuple(got.shape) == want.shape
+    scale = np.abs(want32).max()
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, want32, atol=tol * scale)
+    np.testing.assert_allclose(got, want, atol=tol * scale)
+    if mode == "bf16_out":          # both round the same f32 sums
+        np.testing.assert_allclose(got, want, atol=2 ** -8 * scale)
+
+
+def test_one_pass_rounds_the_operands_not_the_result():
+    """The plain one-pass product rounds E and g to bf16 and multiplies in
+    f32 (JAX's preferred_element_type=f32): it is off the f32 product by
+    more than f32 noise, within the bf16 bound, and its output stays f32."""
+    rx, tx, u, k, s, per_slot, packed = CASES["headline"]
+    args = [torch.from_numpy(a) for a in _inputs(u, s, per_slot, seed=9)]
+    h32 = kr.fused_render_reference(*args, rx, tx, k, packed)
+    h16 = kr.fused_render_reference(*args, rx, tx, k, packed, "bfloat16")
+    assert h16.dtype == torch.float32
+    err = float((h16 - h32).abs().max())
+    scale = float(h32.abs().max())
+    assert RTOL * scale < err <= BF16_MM_RTOL * scale
+    assert torch.equal(
+        h16, kr.fused_render_reference(*args, rx, tx, k, packed, "default"))
+    assert torch.equal(
+        h32, kr.fused_render_reference(*args, rx, tx, k, packed, "highest"))
+
+
+@pytest.mark.parametrize("call", ["fused_render", "reference",
+                                  "out_dtype"])
+def test_unknown_modes_raise(call):
+    rx, tx, u, k, s, per_slot, packed = CASES["headline"]
+    args = [torch.from_numpy(a) for a in _inputs(u, s, per_slot, seed=2)]
+    with pytest.raises(ValueError, match="matmul_dtype|out_dtype"):
+        if call == "fused_render":
+            kr.fused_render(*args, rx, tx, k, packed, mm_dtype="tf32")
+        elif call == "reference":
+            kr.fused_render_reference(*args, rx, tx, k, packed, "float16")
+        else:
+            kr.fused_render(*args, rx, tx, k, packed, out_dtype="float16")
 
 
 def test_cpu_wrapper_uses_plain_version_and_writes_out():
@@ -243,3 +321,93 @@ def test_cuda_kernel_walks_many_path_chunks(cuda):
     ref = kr.fused_render_reference(*args, rx, tx, k, packed)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= RTOL * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16_mm", "bf16_out", "bf16_both"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_cuda_kernel_modes_match_plain_version(cuda, name, mode):
+    """The one-pass and bf16-output modes of the kernel against its plain
+    version in the same mode. The kernel's operands come from trig tables,
+    so they can round across a bf16 boundary that the plain version's do
+    not: the bound is the modes' own, not the f32 kernel's."""
+    mm = "float32" if mode == "bf16_out" else "bfloat16"
+    out_dtype = "float32" if mode == "bf16_mm" else "bfloat16"
+    rx, tx, u, k, s, per_slot, packed = CASES[name]
+    u *= 257
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _inputs(u, s, per_slot, seed=4, p=PATHS.get(name, P))]
+    before = kr.LAUNCHES
+    got = kr.fused_render(*args, rx, tx, k, packed, mm_dtype=mm,
+                          out_dtype=out_dtype)
+    ref = kr.fused_render_reference(*args, rx, tx, k, packed, mm)
+    torch.cuda.synchronize()
+    assert kr.LAUNCHES == before + 1
+    assert got.dtype == kr.OUT_DTYPES[out_dtype]
+    tol = BF16_MM_RTOL if mm == "bfloat16" else BF16_OUT_RTOL
+    scale = float(ref.abs().max())
+    assert float((got.float() - ref).abs().max()) <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["bf16_mm", "bf16_out"])
+def test_cuda_kernel_modes_walk_many_path_chunks(cuda, mode):
+    """P = 227 (8 chunks of 32 paths) in each bf16 mode."""
+    mm = "bfloat16" if mode == "bf16_mm" else "float32"
+    out_dtype = "bfloat16" if mode == "bf16_out" else "float32"
+    rx, tx, u, k, s, per_slot, packed = CASES["headline"]
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _inputs(4 * u, s, per_slot, seed=7, p=227)]
+    got = kr.fused_render(*args, rx, tx, k, packed, mm_dtype=mm,
+                          out_dtype=out_dtype)
+    ref = kr.fused_render_reference(*args, rx, tx, k, packed, mm)
+    torch.cuda.synchronize()
+    tol = BF16_MM_RTOL if mm == "bfloat16" else BF16_OUT_RTOL
+    assert float((got.float() - ref).abs().max()) <= \
+        tol * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_planes_reach_the_host(cuda):
+    """planes_out_dtype "bfloat16" through Dataset.compute_channels on the
+    card: one launch into a reused bf16 out=, the host channel from it,
+    and the streamed blocks (bf16 pinned buffers, half the bytes of f32)
+    equal to it, within 2^-7 of the f32 channel."""
+    import deepmimo_tpu_torch as dmt
+    from deepmimo_tpu_torch.ops.channel import unpack_planes_np
+    from oracle import make_synthetic_paths
+
+    old = dict(dmt.config.items())
+    try:
+        dmt.config.set("device", "cuda")
+        d = make_synthetic_paths(n_ue=300, max_paths=12, seed=5)
+        d.pop("n_valid")
+        d["rx_pos"] = np.zeros((300, 3), np.float32)
+        d["tx_pos"] = np.zeros((1, 3), np.float32)
+        ds = dmt.Dataset(d)
+        params = dmt.ChannelGenParameters()
+        c = dmt.consts
+        params[c.PARAMSET_ANT_BS][c.PARAMSET_ANT_SHAPE] = np.array([8, 8])
+        params[c.PARAMSET_OFDM][c.PARAMSET_OFDM_SC_SAMP] = np.arange(64)
+        params[c.PARAMSET_NUM_PATHS] = 12
+        f32 = ds.compute_channels(params)
+        dmt.config.set("planes_out_dtype", "bfloat16")
+        h = ds.compute_channels(params, to_device=True)
+        assert h.dtype == torch.bfloat16 and h.is_cuda
+        again = ds.compute_channels(params, to_device=True, out=h)
+        assert again.data_ptr() == h.data_ptr()
+        cfg, _, _ = params.to_config(300)
+        single = ds.compute_channels(params)
+        assert single.dtype == np.complex64
+        np.testing.assert_array_equal(single, unpack_planes_np(h, cfg))
+        dmt.config.set("max_device_output_bytes", h.numel() * 2 - 1)
+        dmt.config.set("user_block", 100)
+        before = kr.LAUNCHES
+        streamed = ds.compute_channels(params)
+        assert kr.LAUNCHES == before + 3
+        np.testing.assert_array_equal(streamed, single)
+        np.testing.assert_allclose(single, f32,
+                                   atol=BF16_OUT_RTOL * np.abs(f32).max())
+    finally:
+        for k, v in old.items():
+            dmt.config.set(k, v)
