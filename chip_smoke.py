@@ -25,7 +25,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    against its plain version in the same mode at every case, and timed
    at the headline: the forward with bf16 output (2^-7 * max|H|), one-pass
    bf16 products (1e-2 * max|H|) and both; the backward and the beam gain
-   with one-pass bf16 products (1e-2 * max|g|, max|G|).
+   with one-pass bf16 products (1e-2 * max|g|, max|G|); the beam gain's
+   float64 instantiation (complex128 configs) within 1e-9 * max|G| at
+   every case whose codebook fits its shared memory.
 4. Serving path: four 131,072-user x 25-path datasets (synthetic, seed 7)
    through ``Dataset.compute_channels(params, to_device=True, out=prev)``
    — one kernel launch per call — checked for shape and finiteness and on
@@ -58,6 +60,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    beam-gain launch, equal to the per-polarization fold of those channels
    (3e-5 * max|G|); the streamed dual-polar render of a 16,384-user slice
    over 3 blocks equal to its single launch bit for bit.
+5g. Non-fused paths: the headline data (seed 7) through
+   ``Dataset.compute_channels(params, to_device=True)`` in the settings
+   the JAX package renders with plain XLA ops, which stay eager here:
+   the time domain (f32 planes [2, U, 1, 64, 25]), the time domain after
+   ``ds.apply_fov(bs_fov=[120, 180])`` ("auto" compaction, valid paths
+   front-packed), the sinc receive filter at 64 of 512 subcarriers (DFT
+   matrix) and at the full band (FFT, 16,384 users), and complex128
+   (float64 planes). Each is held against the float64 oracle on 64 users
+   (5e-5 * max|H|; complex128 1e-9), timed with CUDA events over 3 calls
+   after a warm call, with its peak device memory after a reset, a
+   ``torch.profiler`` breakdown, and no fused-kernel launch; the time
+   domain streamed over 3 blocks of a 16,384-user slice equals its single
+   launch bit for bit. Then complex128 ``compute_beam_gains`` (131,072
+   users, a 16-beam codebook, float64 [U, 16, 64]): one launch per call
+   of the beam-gain kernel's float64 instantiation, as the JAX package
+   sends complex128 to its beam-gain kernel, and no other kernel; the
+   oracle at 1e-9 * max|G|, timed and profiled the same way.
 6. Training path: the calibration step ``training_step_planes`` with the
    fused backend at the headline width (BS rotated 10 degrees in the
    target, calibration from 0): the first step's gradients of every
@@ -79,9 +98,10 @@ of its modes (``fused_render[bf16_out]``, ...; each launched on a main
 path, counted by mode), with ``bound_ms``: the larger of its bytes (each
 input read once, each output written once) over 3.35 TB/s and its flops
 at f32 grade on the tensor cores (3 TF32 passes at 495 TFLOP/s), or for
-one-pass bf16 products at 989 TFLOP/s, at the headline shapes of this
-run; a ``[bounds]`` line beside it gives the FP32-FMA figure (67 TFLOP/s)
-too.
+one-pass bf16 products at 989 TFLOP/s, or the float64 beam gain's
+flops at the FP64 tensor-core rate of 67 TFLOP/s, at the headline shapes
+of this run; a ``[bounds]`` line beside it gives the SIMT figure (FP32 at
+67 TFLOP/s, FP64 at 34) too.
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
 the script exits non-zero before printing any result.
 """
@@ -121,9 +141,13 @@ BG_BEAMS = 16            # codebook beams of the beam-gain paths
 BG_RTOL = 3e-5           # beam-gain kernel vs plain, relative to max|G|
 BG_ORACLE_RTOL = 1e-4    # beam gains vs the float64 oracle, rel. max|G|
 POLAR_STREAM_USERS = 16_384
+C128_RTOL = 1e-9             # complex128 vs the float64 oracle, rel. max
+FULL_BAND_USERS = 16_384     # the full-band filter's H is 34 GB at CHUNK
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, HBM3 peak
 FP32_FLOPS_PER_S = 67e12     # H100 SXM, FP32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12    # H100 SXM, dense TF32 on the tensor cores
+FP64_TC_FLOPS_PER_S = 67e12  # H100 SXM, FP64 on the tensor cores
+FP64_FLOPS_PER_S = 34e12     # H100 SXM, FP64 outside the tensor cores
 TF32_PASSES = 3              # f32 grade: hi*hi + hi*lo + lo*hi
 BF16_FLOPS_PER_S = 989e12    # H100 SXM, dense bf16 on the tensor cores
 # Modes with bf16 in them (tests/test_torch_render.py states the reasons):
@@ -139,6 +163,12 @@ FWD_MODES = [("float32", "float32", KERNEL_RTOL),
              ("bfloat16", "bfloat16", BF16_MM_RTOL)]
 # Backward and beam-gain modes (their outputs are float32).
 MM_MODES = ("float32", "bfloat16")
+# Beam-gain modes: mm_dtype and the inputs' dtype (float64: complex128
+# configs), and each mode's tolerance against its plain version, relative
+# to max|G|.
+BG_MODES = (("float32", "float32"), ("bfloat16", "float32"),
+            ("float32", "float64"))
+BG_TOL = {"f32": BG_RTOL, "bf16_mm": BF16_MM_RTOL, "f64": C128_RTOL}
 
 
 def log(msg):
@@ -517,12 +547,20 @@ def phase_bg_kernels(torch):
     from deepmimo_tpu_torch.ops.kernels import render as kr
     headline = {}
     for name, u, rx, tx, b, k, p, s, n_sa in BG_CASES:
-        args = _render_inputs(torch, u, p, s, n_sa, seed=len(name) + 200)
+        args32 = _render_inputs(torch, u, p, s, n_sa, seed=len(name) + 200)
         t = tx[0] * tx[1]
-        wr, wi = _planes_on_card(torch, codebook(b, t, seed=len(name)))
-        for mm in MM_MODES:
-            key = kr.mode_key(mm)
-            tol = BG_RTOL if key == "f32" else BF16_MM_RTOL
+        w32 = _planes_on_card(torch, codebook(b, t, seed=len(name)))
+        for mm, dtype_name in BG_MODES:
+            dtype = getattr(torch, dtype_name)
+            key = kb.beam_gain_mode(mm, dtype)
+            if not kb.beam_gain_fits(rx, tx, b, p, k, key == "f64"):
+                log(f"[kernel] {entry('fused_beam_gain', key)} {name}: "
+                    f"T*B = {t * b} past the float64 shared memory; the "
+                    f"card refuses it")
+                continue
+            tol = BG_TOL[key]
+            args = [x.to(dtype) for x in args32]
+            wr, wi = (x.to(dtype) for x in w32)
             got = kb.fused_beam_gain(*args, wr, wi, rx, tx, k, mm_dtype=mm)
             want = kb.beam_gain_reference(*args, wr, wi, rx, tx, k, mm)
             torch.cuda.synchronize()
@@ -554,8 +592,8 @@ def phase_bg_kernels(torch):
                     log(f"[kernel] for context, forward render kernel + "
                         f"einsum fold {pair_ms:.4f} ms")
                     del h
-            del got
-        del args
+            del got, args
+        del args32
         torch.cuda.empty_cache()
     return headline
 
@@ -654,12 +692,13 @@ def _oracle(ds, n, power, phase, **kw):
     for key in ("doppler_vel", "doppler_acc"):
         if key in kw:
             kw[key] = kw[key][:n]
+    args = dict(bs_shape=BS_SHAPE, ue_shape=UE_SHAPE, n_fft=N_FFT,
+                selected_subcarriers=tuple(range(N_SC)), bandwidth=BANDWIDTH,
+                num_paths=MAX_PATHS)
+    args.update(kw)
     return oracle_channels(
         power[:n], phase[:n], *(ds[key][:n] for key in (
-            "delay", "aoa_az", "aoa_el", "aod_az", "aod_el")),
-        bs_shape=BS_SHAPE, ue_shape=UE_SHAPE, n_fft=N_FFT,
-        selected_subcarriers=tuple(range(N_SC)), bandwidth=BANDWIDTH,
-        num_paths=MAX_PATHS, **kw)
+            "delay", "aoa_az", "aoa_el", "aod_az", "aod_el")), **args)
 
 
 def _check_oracle(tag, what, got, want, tol):
@@ -1157,14 +1196,206 @@ def phase_angle_space(torch, dmt, datasets):
     return launches
 
 
+def _kernel_launches():
+    """Launch counters of every fused kernel (render, its backward, path
+    sum, beam gain)."""
+    from deepmimo_tpu_torch.ops.kernels import beamgain as kb
+    from deepmimo_tpu_torch.ops.kernels import pathsum as kp
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+    return (kr.LAUNCHES, kr.BWD_LAUNCHES, kp.LAUNCHES, kb.LAUNCHES)
+
+
+def _nonfused_call(torch, tag, call, shape, dtype):
+    """One counted non-fused phase-5g call: shape, dtype, finiteness, the
+    peak device memory from a reset, and no fused-kernel launch. Returns
+    the result."""
+    before = _kernel_launches()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    h = call(None)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if tuple(h.shape) != tuple(shape) or h.dtype != dtype:
+        raise AssertionError(f"{tag}: {tuple(h.shape)} {h.dtype}, expected "
+                             f"{tuple(shape)} {dtype}")
+    if not bool(torch.isfinite(h).all()):
+        raise AssertionError(f"{tag}: non-finite values")
+    if _kernel_launches() != before:
+        raise AssertionError(f"{tag}: a fused kernel was launched "
+                             f"({before} -> {_kernel_launches()})")
+    log(f"[nonfused] {tag}: {tuple(h.shape)} {str(h.dtype)[6:]} "
+        f"({h.numel() * h.element_size() / 1e9:.2f} GB); peak device "
+        f"memory {peak:.3f} GiB ({base / 2 ** 30:.3f} GiB held before)")
+    return h
+
+
+def phase_nonfused(torch, dmt):
+    """The settings the JAX package renders with plain XLA ops, eager here
+    (phase 5g): time domain (with and without FoV compaction), the sinc
+    filter (DFT matrix at 64 of 512 subcarriers, FFT at the full band) and
+    complex128 channels, each through the Dataset entry point, against the
+    oracle, timed, with its peak memory and no fused-kernel launch; then
+    complex128 beam gains, the beam-gain kernel's float64 instantiation.
+    Returns the main-path launches of that kernel mode."""
+    from deepmimo_tpu_torch.ops.channel import (_packed_layout,
+                                                unpack_planes_np)
+    from deepmimo_tpu_torch.ops.kernels import beamgain as kb
+    c = dmt.consts
+    d = make_data(CHUNK, MAX_PATHS, seed=7)
+    d["rx_pos"] = np.zeros((CHUNK, 3), np.float32)
+    d["tx_pos"] = np.zeros((1, 3), np.float32)
+    t = BS_SHAPE[0] * BS_SHAPE[1]
+    old = {k: dmt.config.get(k) for k in ("compute_dtype",
+                                          "max_device_output_bytes",
+                                          "user_block")}
+
+    def users(n):
+        return {k: v[:n] for k, v in d.items() if k != "tx_pos"} | \
+            {"tx_pos": d["tx_pos"]}
+
+    def run(tag, n, dtype, rtol, fov=None, **setting):
+        dmt.config.set("compute_dtype", dtype)
+        ds = dmt.Dataset(users(n))
+        params = make_params(dmt)
+        for k, v in setting.items():
+            if k == "freq_domain":
+                params[c.PARAMSET_FD_CH] = v
+            else:
+                params[c.PARAMSET_OFDM][k] = v
+        kw = {}
+        if fov is not None:
+            ds.apply_fov(bs_fov=np.array(fov))
+            kw["bs_fov"] = tuple(float(x) for x in fov)
+        cfg, _, _ = params.to_config(n)
+        k = N_SC if cfg.freq_domain else MAX_PATHS
+        shape = ((n, 1, t, 2 * len(cfg.selected_subcarriers))
+                 if _packed_layout(cfg) else (2, n, 1, t, k))
+        pdt = torch.float64 if dtype == "complex128" else torch.float32
+        h = _nonfused_call(
+            torch, tag, lambda prev: ds.compute_channels(
+                params, to_device=True, out=prev), shape, pdt)
+        first = h[:N_ORACLE] if _packed_layout(cfg) else h[:, :N_ORACLE]
+        got = unpack_planes_np(first, cfg)
+        want = _oracle(ds, N_ORACLE, d["power"], d["phase"],
+                       freq_domain=cfg.freq_domain, rx_filter=cfg.rx_filter,
+                       selected_subcarriers=cfg.selected_subcarriers, **kw)
+        _check_oracle("nonfused", tag, got, want, rtol)
+        before = _kernel_launches()
+        calls = [lambda: ds.compute_channels(params, to_device=True, out=h)]
+        ms, wall = timed_sweep(torch, calls, reps=3)
+        profile_cell(torch, f"nonfused {tag}", calls)
+        if _kernel_launches() != before:
+            raise AssertionError(f"{tag}: a fused kernel was launched")
+        log(f"[nonfused] {tag}: {ms:.4f} ms per {n}-user call (CUDA "
+            f"events), {n / ms * 1e3:.1f} users/s; host wall {wall:.4f} ms")
+        return ds, params, cfg, got
+
+    try:
+        ds, params, _, _ = run("time domain", CHUNK, "complex64",
+                               ORACLE_RTOL, freq_domain=0)
+        # streamed over 3 blocks of a 16,384-user slice == one launch
+        part = dmt.Dataset(users(POLAR_STREAM_USERS))
+        single = part.compute_channels(params)
+        dmt.config.set("max_device_output_bytes", 1)
+        dmt.config.set("user_block", -(-POLAR_STREAM_USERS // 3))
+        before = _kernel_launches()
+        streamed = part.compute_channels(params)
+        dmt.config.set("max_device_output_bytes",
+                       old["max_device_output_bytes"])
+        dmt.config.set("user_block", old["user_block"])
+        if _kernel_launches() != before or not np.array_equal(single,
+                                                              streamed):
+            raise AssertionError("time domain: streamed result differs "
+                                 "from the single launch")
+        log(f"[nonfused] time domain streamed over 3 blocks of "
+            f"{POLAR_STREAM_USERS} users: {streamed.shape} equals the "
+            f"single launch exactly")
+        del ds, part, single, streamed
+        torch.cuda.empty_cache()
+
+        ds, _, cfg, got = run("time domain + bs_fov (compaction)", CHUNK,
+                              "complex64", ORACLE_RTOL, fov=(120, 180),
+                              freq_domain=0)
+        mask = ds["_fov_mask"][:N_ORACLE]
+        n_valid = mask.sum(1)
+        holes = int(sum(not mask[u, :n_valid[u]].all()
+                        for u in range(N_ORACLE)))
+        packed = all(np.all(got[u, ..., n_valid[u]:] == 0)
+                     for u in range(N_ORACLE))
+        if not holes or not packed:
+            raise AssertionError(f"compaction: {holes} of {N_ORACLE} users "
+                                 f"with FoV holes, front-packed {packed}")
+        log(f"[nonfused] compaction: {holes} of {N_ORACLE} users had FoV "
+            f"holes; each user's {int(n_valid.min())}-{int(n_valid.max())} "
+            f"surviving paths front-packed, zeros after")
+        del ds
+        torch.cuda.empty_cache()
+
+        run("sinc filter 64/512 (DFT)", CHUNK, "complex64", ORACLE_RTOL,
+            rx_filter=1)
+        torch.cuda.empty_cache()
+        run("sinc filter 512/512 (FFT)", FULL_BAND_USERS, "complex64",
+            ORACLE_RTOL, rx_filter=1,
+            **{c.PARAMSET_OFDM_SC_SAMP: np.arange(N_FFT)})
+        torch.cuda.empty_cache()
+        run("complex128", CHUNK, "complex128", C128_RTOL)
+        torch.cuda.empty_cache()
+
+        # complex128 beam gains: the beam-gain kernel's float64
+        # instantiation, one launch per call and no other kernel
+        dmt.config.set("compute_dtype", "complex128")
+        ds = dmt.Dataset(users(CHUNK))
+        params = make_params(dmt)
+        w = codebook(BG_BEAMS, t, seed=75)
+        kb.MODE_LAUNCHES.clear()
+        before = _kernel_launches()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        g = _counted_calls(
+            torch, "complex128 beam gains",
+            lambda i, prev: ds.compute_beam_gains(
+                params, codebook=w, to_device=True, out=prev), 2,
+            (CHUNK, BG_BEAMS, N_SC), torch.float64)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = _modes(kb.MODE_LAUNCHES, "fused_beam_gain", {"f64": 2})
+        if _kernel_launches()[:3] != before[:3]:
+            raise AssertionError("complex128 beam gains launched another "
+                                 "kernel")
+        log(f"[nonfused] complex128 beam gains: {tuple(g.shape)} float64 "
+            f"({g.numel() * 8 / 1e9:.2f} GB), 1 beam-gain launch (float64) "
+            f"per call; peak device memory {peak:.3f} GiB "
+            f"({base / 2 ** 30:.3f} GiB held before)")
+        want = _beam_oracle(w, _oracle(ds, N_ORACLE, d["power"],
+                                       d["phase"]))
+        _check_oracle("nonfused", "complex128 beam gains",
+                      g[:N_ORACLE].cpu().numpy(), want, C128_RTOL)
+        calls = [lambda: ds.compute_beam_gains(params, codebook=w,
+                                               to_device=True, out=g)]
+        ms, wall = timed_sweep(torch, calls, reps=3)
+        profile_cell(torch, "nonfused complex128 beam gains", calls)
+        log(f"[nonfused] complex128 beam gains: {ms:.4f} ms per "
+            f"{CHUNK}-user call (CUDA events), {CHUNK / ms * 1e3:.1f} "
+            f"users/s; host wall {wall:.4f} ms")
+        del ds, g
+    finally:
+        for k, v in old.items():
+            dmt.config.set(k, v)
+        torch.cuda.empty_cache()
+    return launches
+
+
 def kernel_bounds(fma=False):
     """Least card time (ms) of each kernel's work, in each mode, at its
     headline shapes, and what bounds it: bytes (each input read once, each
     output written once; bf16 output half of H's) over HBM_BYTES_PER_S, or
     flops (FMA = 2): at f32 grade on the tensor cores, TF32_PASSES * flops
     over TF32_FLOPS_PER_S, the fastest f32-grade route the card offers;
-    one-pass bf16 products at BF16_FLOPS_PER_S (``fma``: all flops over
-    FP32_FLOPS_PER_S instead, the SIMT FP32 rate). sincosf is not
+    one-pass bf16 products at BF16_FLOPS_PER_S; float64 flops at
+    FP64_TC_FLOPS_PER_S (``fma``: all flops over FP32_FLOPS_PER_S, or
+    FP64_FLOPS_PER_S in float64, instead, the SIMT rates). sincosf is not
     counted."""
     u, p, k = CHUNK, MAX_PATHS, N_SC
     r, t = UE_SHAPE[0] * UE_SHAPE[1], BS_SHAPE[0] * BS_SHAPE[1]
@@ -1192,13 +1423,18 @@ def kernel_bounds(fma=False):
         # the fold stays f32 grade in every mode
         "fused_beam_gain": (bg_bytes, fold + bg_sum + bg_pow, 0),
         "fused_beam_gain[bf16_mm]": (bg_bytes, fold + bg_pow, bg_sum),
+        # every value and product in float64 (its flops counted apart)
+        "fused_beam_gain[f64]": (2 * bg_bytes, 0, 0),
     }
+    f64_flops = {"fused_beam_gain[f64]": fold + bg_sum + bg_pow}
     out = {}
     for name, (n_bytes, flops, bf16_flops) in work.items():
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = ((flops + bf16_flops) / FP32_FLOPS_PER_S if fma else
                  TF32_PASSES * flops / TF32_FLOPS_PER_S +
                  bf16_flops / BF16_FLOPS_PER_S) * 1e3
+        t_ops += f64_flops.get(name, 0) / (
+            FP64_FLOPS_PER_S if fma else FP64_TC_FLOPS_PER_S) * 1e3
         out[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
                      else (t_ops, "operations"))
     return out
@@ -1429,6 +1665,7 @@ def main():
     angle_space = phase_angle_space(torch, dmt, datasets)
     del datasets
     torch.cuda.empty_cache()
+    nonfused = phase_nonfused(torch, dmt)
     doppler = phase_doppler(torch, dmt)
     polar_render, polar_bg = phase_polar(torch, dmt)
     torch.cuda.empty_cache()
@@ -1440,7 +1677,7 @@ def main():
                      train_fwd, "fused_render_bwd": train_bwd,
                      "fused_path_sum": pallas_launches,
                      "fused_beam_gain": bg_launches + polar_bg})
-    for phase in (bf16_serving, angle_space, doppler, train_bf16):
+    for phase in (bf16_serving, angle_space, doppler, nonfused, train_bf16):
         launches.update(phase)
     log(f"[launches] fused_render: serving {serve_launches} + dual-polar "
         f"{polar_render} + training {train_fwd} + angle space "
@@ -1448,13 +1685,14 @@ def main():
         f" fused_render_bwd: training {train_bwd}; fused_path_sum: pallas "
         f"training {pallas_launches}; fused_beam_gain: serving "
         f"{bg_launches} + dual-polar {polar_bg} + Doppler "
-        f"{doppler['fused_beam_gain']}; modes: bf16 serving {bf16_serving}, "
+        f"{doppler['fused_beam_gain']}; modes: complex128 beam gains "
+        f"{nonfused}, bf16 serving {bf16_serving}, "
         f"bf16 training {train_bf16}")
     src = "deepmimo_tpu_torch/csrc/"
     tpu = "deepmimo_tpu/ops/pallas/"
     bounds = kernel_bounds()
     log("[bounds] ms, tensor-core rule (3xTF32 for f32 grade, one bf16 "
-        "pass for bf16_mm) (FP32-FMA rule): " + "; ".join(
+        "pass for bf16_mm, FP64 for f64) (SIMT FMA rule): " + "; ".join(
             f"{name} {t:.4f} {by} ({f:.4f} {fby})"
             for (name, (t, by)), (f, fby)
             in zip(bounds.items(), kernel_bounds(fma=True).values())))

@@ -48,6 +48,10 @@ class DeepMIMOConfig:
         # this budget (bytes); larger outputs stream over user_block blocks
         # with the device->host copy overlapped against compute.
         "max_device_output_bytes": 6_000_000_000,
+        # Host bytes Dataset.array_response_product may take (it is
+        # O(users x antennas^2 x paths); above this it raises MemoryError
+        # with guidance).
+        "max_array_product_bytes": 4 << 30,
     }
 
     def __new__(cls):

@@ -68,47 +68,83 @@
 // "float32", and at DEFAULT, one pass on the TPU, for the bf16 modes; on
 // the CPU (the interpret mode the port is held against) DEFAULT is f32.
 // Invalid paths arrive with zero amp and zero phases from the wrapper.
+// Scalar type (template argument F, float or double): complex128 configs
+// run the same kernel in float64 (FP64 FMA, sincos), as the JAX package
+// sends them to the same TPU kernel. Every buffer holds complex values of
+// F, so conj(W) and the warps' buffers take twice the shared memory, and
+// with twice the registers per accumulator the float64 instantiations run
+// one block of 8 warps per SM. No bf16 mode in float64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
 constexpr int kMaxWarps = 8;
 constexpr int kRows = 16;        // output rows (beams of one RX element)
 constexpr int kCols = 64;        // output columns (subcarriers) per tile
-constexpr int kPitch = 18;       // float2 per row of a warp's two buffers
+constexpr int kPitch = 18;       // complex entries per row of a warp's buffers
 constexpr int kL = 8;            // k = k2*kL + k1; TX m in blocks of kL
 constexpr size_t kSmemLimit = 232448;   // dynamic shared memory of a block
 
+// The complex type of scalar F: float2 or double2.
+template <typename F>
+using C2 = std::conditional_t<std::is_same_v<F, float>, float2, double2>;
+
+// Entries of C2<F> that conj(W) [T][B] takes in shared memory, rounded up so
+// that the buffers after it are 16-byte aligned.
+template <typename F>
+__host__ __device__ size_t cw_entries(size_t tb) {
+  return sizeof(C2<F>) == 8 ? 2 * ((tb + 1) / 2) : tb;
+}
+
 // The block's shape: paths per chunk, warps, and shared-memory bytes
-// (conj(W) rounded up to 16 bytes, then two [chunk][kPitch] float2 buffers
-// per warp). The widest chunk that leaves room for one warp, then as many
-// warps as fit, at most kMaxWarps; warps == 0 when nothing fits.
-// ops/kernels/beamgain.py's smem_bytes mirrors it.
+// (conj(W), then two [chunk][kPitch] complex buffers per warp). The widest
+// chunk that leaves room for one warp, then as many warps as fit, at most
+// kMaxWarps; warps == 0 when nothing fits. ops/kernels/beamgain.py's
+// smem_bytes mirrors it.
 struct Plan {
   int chunk, warps;
   size_t smem;
 };
 
+template <typename F>
 Plan plan(int n_tx, int n_beams) {
-  const size_t cw = 16 * ((static_cast<size_t>(n_tx) * n_beams + 1) / 2);
+  const size_t cw =
+      sizeof(C2<F>) * cw_entries<F>(static_cast<size_t>(n_tx) * n_beams);
   for (int chunk : {32, 8}) {
-    const size_t per_warp = 2 * sizeof(float2) * chunk * kPitch;
+    const size_t per_warp = 2 * sizeof(C2<F>) * chunk * kPitch;
     if (cw + per_warp <= kSmemLimit) {
       size_t warps = (kSmemLimit - cw) / per_warp;
       if (warps > static_cast<size_t>(kMaxWarps)) warps = kMaxWarps;
       return {chunk, static_cast<int>(warps), cw + warps * per_warp};
     }
   }
-  return {8, 0, cw + 2 * sizeof(float2) * 8 * kPitch};
+  return {8, 0, cw + 2 * sizeof(C2<F>) * 8 * kPitch};
 }
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+template <typename F>
+__device__ __forceinline__ C2<F> cx(F re, F im) {
+  C2<F> z;
+  z.x = re;
+  z.y = im;
+  return z;
+}
+
+__device__ __forceinline__ float fmadd(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fmadd(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+template <typename F>
+__device__ __forceinline__ C2<F> cmul(C2<F> a, C2<F> b) {
+  return cx<F>(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
 __device__ __forceinline__ float2 phasor(float ph) {
@@ -116,160 +152,197 @@ __device__ __forceinline__ float2 phasor(float ph) {
   sincosf(ph, &s, &c);                // full range reduction
   return make_float2(c, s);
 }
+__device__ __forceinline__ double2 phasor(double ph) {
+  double s, c;
+  sincos(ph, &s, &c);
+  return make_double2(c, s);
+}
 
 // acc += a * b
-__device__ __forceinline__ void cmac(float2& acc, float2 a, float2 b) {
-  acc.x = fmaf(a.x, b.x, fmaf(-a.y, b.y, acc.x));
-  acc.y = fmaf(a.x, b.y, fmaf(a.y, b.x, acc.y));
+template <typename F>
+__device__ __forceinline__ void cmac(C2<F>& acc, C2<F> a, C2<F> b) {
+  acc.x = fmadd(a.x, b.x, fmadd(-a.y, b.y, acc.x));
+  acc.y = fmadd(a.x, b.y, fmadd(a.y, b.x, acc.y));
 }
 
-__device__ __forceinline__ float4 pack(float2 a, float2 b) {
-  return make_float4(a.x, a.y, b.x, b.y);
+// Two adjacent complex entries of shared or global memory, at a 16-byte
+// aligned address: one 16-byte access in float, two in double.
+__device__ __forceinline__ void load2(const float2* p, float2& a, float2& b) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  a = make_float2(x.x, x.y);
+  b = make_float2(x.z, x.w);
+}
+__device__ __forceinline__ void load2(const double2* p, double2& a,
+                                      double2& b) {
+  a = p[0];
+  b = p[1];
+}
+__device__ __forceinline__ void store2(float2* p, float2 a, float2 b) {
+  *reinterpret_cast<float4*>(p) = make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store2(double2* p, double2 a, double2 b) {
+  p[0] = a;
+  p[1] = b;
 }
 
-// x rounded to bf16 (RNE) when kBf16, as it is otherwise.
-template <bool kBf16>
-__device__ __forceinline__ float2 operand(float2 x) {
-  if (!kBf16) return x;
-  return make_float2(__bfloat162float(__float2bfloat16_rn(x.x)),
-                     __bfloat162float(__float2bfloat16_rn(x.y)));
+// Two adjacent outputs, streaming, at an aligned address.
+__device__ __forceinline__ void store_pair(float* o, float a, float b) {
+  __stcs(reinterpret_cast<float2*>(o), make_float2(a, b));
+}
+__device__ __forceinline__ void store_pair(double* o, double a, double b) {
+  __stcs(reinterpret_cast<double2*>(o), make_double2(a, b));
+}
+
+// x rounded to bf16 (RNE) when kBf16 (float only), as it is otherwise.
+template <typename F, bool kBf16>
+__device__ __forceinline__ C2<F> operand(C2<F> x) {
+  if constexpr (!kBf16) {
+    return x;
+  } else {
+    static_assert(std::is_same_v<F, float>, "bf16 mode is float only");
+    return make_float2(__bfloat162float(__float2bfloat16_rn(x.x)),
+                       __bfloat162float(__float2bfloat16_rn(x.y)));
+  }
 }
 
 // eb[j] = sum_t cw[t][b0 + j] a_tx[t] for j < kRows, for this lane's path.
-// kVec: B is even and the tile's kRows beams all exist, so 16-byte loads of
-// two beams are aligned; otherwise 8-byte loads, clamped at beam B - 1.
-template <bool kVec>
-__device__ __forceinline__ void fold(const float2* __restrict__ cw, int B,
-                                     int b0, int t1, int t2, float gty,
-                                     float gtz, float2 (&eb)[kRows]) {
-  float2 ey[kL];
+// kVec: B is even and the tile's kRows beams all exist, so paired loads of
+// two beams are aligned; otherwise single loads, clamped at beam B - 1.
+template <typename F, bool kVec>
+__device__ __forceinline__ void fold(const C2<F>* __restrict__ cw, int B,
+                                     int b0, int t1, int t2, F gty, F gtz,
+                                     C2<F> (&eb)[kRows]) {
+  C2<F> ey[kL];
 #pragma unroll
-  for (int i = 0; i < kL; ++i) ey[i] = phasor(static_cast<float>(i) * gty);
+  for (int i = 0; i < kL; ++i) ey[i] = phasor(static_cast<F>(i) * gty);
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) eb[j] = make_float2(0.f, 0.f);
+  for (int j = 0; j < kRows; ++j) eb[j] = cx<F>(0, 0);
   for (int n = 0; n < t2; ++n) {
-    const float2 ez = phasor(static_cast<float>(n) * gtz);
+    const C2<F> ez = phasor(static_cast<F>(n) * gtz);
     for (int m0 = 0; m0 < t1; m0 += kL) {
-      const float2 base =
-          m0 == 0 ? ez : cmul(ez, phasor(static_cast<float>(m0) * gty));
-      const float2* w = cw + static_cast<size_t>(n * t1 + m0) * B;
+      const C2<F> base =
+          m0 == 0 ? ez : cmul<F>(ez, phasor(static_cast<F>(m0) * gty));
+      const C2<F>* w = cw + static_cast<size_t>(n * t1 + m0) * B;
       const int n_m = min(kL, t1 - m0);
 #pragma unroll
       for (int i = 0; i < kL; ++i, w += B) {
         if (i >= n_m) break;
-        const float2 a = cmul(base, ey[i]);
+        const C2<F> a = cmul<F>(base, ey[i]);
         if (kVec) {
-          const float4* w4 = reinterpret_cast<const float4*>(w + b0);
 #pragma unroll
           for (int j = 0; j < kRows / 2; ++j) {
-            const float4 x = w4[j];
-            cmac(eb[2 * j], make_float2(x.x, x.y), a);
-            cmac(eb[2 * j + 1], make_float2(x.z, x.w), a);
+            C2<F> x0, x1;
+            load2(w + b0 + 2 * j, x0, x1);
+            cmac<F>(eb[2 * j], x0, a);
+            cmac<F>(eb[2 * j + 1], x1, a);
           }
         } else {
 #pragma unroll
           for (int j = 0; j < kRows; ++j)
-            cmac(eb[j], w[min(b0 + j, B - 1)], a);
+            cmac<F>(eb[j], w[min(b0 + j, B - 1)], a);
         }
       }
     }
   }
 }
 
+template <typename F>
 struct Args {
-  const float *gry, *grz, *gty, *gtz, *amp, *psi, *omega;
-  float* out;
+  const F *gry, *grz, *gty, *gtz, *amp, *psi, *omega;
+  F* out;
   int U, P, r1, r2, t1, t2, B, K, S, n_sa, chunk;
 };
 
 // E[lane][j] = a_rx[r] eb[j] of path p (zero for paths past P), written by
 // the lanes of the chunk (rounded to bf16 when kBf16).
-template <bool kBf16>
-__device__ __forceinline__ void build_e(const Args& a, const float2* cw,
-                                        float2* e, int lane, size_t row,
+template <typename F, bool kBf16>
+__device__ __forceinline__ void build_e(const Args<F>& a, const C2<F>* cw,
+                                        C2<F>* e, int lane, size_t row,
                                         int p, int r, int b0) {
   if (lane >= a.chunk) return;
-  float2 eb[kRows];
+  C2<F> eb[kRows];
   if (p < a.P) {
-    const float gty = a.gty[row + p], gtz = a.gtz[row + p];
+    const F gty = a.gty[row + p], gtz = a.gtz[row + p];
     if (a.B % 2 == 0 && b0 + kRows <= a.B) {
-      fold<true>(cw, a.B, b0, a.t1, a.t2, gty, gtz, eb);
+      fold<F, true>(cw, a.B, b0, a.t1, a.t2, gty, gtz, eb);
     } else {
-      fold<false>(cw, a.B, b0, a.t1, a.t2, gty, gtz, eb);
+      fold<F, false>(cw, a.B, b0, a.t1, a.t2, gty, gtz, eb);
     }
     if (a.r1 * a.r2 > 1) {
       const int nr = r / a.r1;
-      const float2 rx = phasor(static_cast<float>(r - nr * a.r1) *
-                                   a.gry[row + p] +
-                               static_cast<float>(nr) * a.grz[row + p]);
+      const C2<F> rx = phasor(static_cast<F>(r - nr * a.r1) *
+                                  a.gry[row + p] +
+                              static_cast<F>(nr) * a.grz[row + p]);
 #pragma unroll
-      for (int j = 0; j < kRows; ++j) eb[j] = cmul(rx, eb[j]);
+      for (int j = 0; j < kRows; ++j) eb[j] = cmul<F>(rx, eb[j]);
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) eb[j] = make_float2(0.f, 0.f);
+    for (int j = 0; j < kRows; ++j) eb[j] = cx<F>(0, 0);
   }
-  float4* dst = reinterpret_cast<float4*>(e + lane * kPitch);
+  C2<F>* dst = e + lane * kPitch;
 #pragma unroll
   for (int j = 0; j < kRows / 2; ++j)
-    dst[j] = pack(operand<kBf16>(eb[2 * j]), operand<kBf16>(eb[2 * j + 1]));
+    store2(dst + 2 * j, operand<F, kBf16>(eb[2 * j]),
+           operand<F, kBf16>(eb[2 * j + 1]));
 }
 
 // The OFDM tables of path p for slot s and columns k0 .. k0 + kCols - 1:
 // fine[k1] = exp(-j omega k1) at [0, kL) and
 // coarse[j] = amp exp(j (psi - omega (k0 + kL j))) at [kL, 2 kL).
-__device__ __forceinline__ void build_tables(const Args& a, float2* tab,
+template <typename F>
+__device__ __forceinline__ void build_tables(const Args<F>& a, C2<F>* tab,
                                              int lane, size_t u, size_t row,
                                              int p, int s, int k0) {
   if (lane >= a.chunk) return;
-  float2 v[2 * kL];
+  C2<F> v[2 * kL];
   if (p < a.P) {
-    const float om = a.omega[row + p];
-    const float am = a.amp[(u * a.n_sa + (a.n_sa > 1 ? s : 0)) * a.P + p];
-    const float ps = a.psi[(u * a.S + s) * a.P + p];
+    const F om = a.omega[row + p];
+    const F am = a.amp[(u * a.n_sa + (a.n_sa > 1 ? s : 0)) * a.P + p];
+    const F ps = a.psi[(u * a.S + s) * a.P + p];
 #pragma unroll
     for (int i = 0; i < kL; ++i) {
-      v[i] = phasor(-om * static_cast<float>(i));
-      const float2 c = phasor(ps - om * static_cast<float>(k0 + kL * i));
-      v[kL + i] = make_float2(am * c.x, am * c.y);
+      v[i] = phasor(-om * static_cast<F>(i));
+      const C2<F> c = phasor(ps - om * static_cast<F>(k0 + kL * i));
+      v[kL + i] = cx<F>(am * c.x, am * c.y);
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 2 * kL; ++i) v[i] = make_float2(0.f, 0.f);
+    for (int i = 0; i < 2 * kL; ++i) v[i] = cx<F>(0, 0);
   }
-  float4* dst = reinterpret_cast<float4*>(tab + lane * kPitch);
+  C2<F>* dst = tab + lane * kPitch;
 #pragma unroll
-  for (int i = 0; i < kL; ++i) dst[i] = pack(v[2 * i], v[2 * i + 1]);
+  for (int i = 0; i < kL; ++i) store2(dst + 2 * i, v[2 * i], v[2 * i + 1]);
 }
 
 // y[i][c] += sum over the chunk's n_p paths of E[p][qg*8 + i] g[p][col c],
 // columns k0 + 2 kg + (0, 1, 32, 33) of the tile (g rounded to bf16 when
 // kBf16).
-template <bool kBf16>
-__device__ __forceinline__ void path_sum(const float2* __restrict__ e,
-                                         const float2* __restrict__ tab,
+template <typename F, bool kBf16>
+__device__ __forceinline__ void path_sum(const C2<F>* __restrict__ e,
+                                         const C2<F>* __restrict__ tab,
                                          int n_p, int qg, int kg,
-                                         float2 (&y)[8][4]) {
+                                         C2<F> (&y)[8][4]) {
   const int f = 2 * (kg & 3);
   const int ca = kL + (kg >> 2), cb = ca + 4;
   for (int pp = 0; pp < n_p; ++pp) {
-    const float4* e4 =
-        reinterpret_cast<const float4*>(e + pp * kPitch + 8 * qg);
-    const float2* t = tab + pp * kPitch;
-    const float4 fn = *reinterpret_cast<const float4*>(t + f);
-    const float2 c_a = t[ca], c_b = t[cb];
-    const float2 f0 = make_float2(fn.x, fn.y), f1 = make_float2(fn.z, fn.w);
-    const float2 g[4] = {
-        operand<kBf16>(cmul(f0, c_a)), operand<kBf16>(cmul(f1, c_a)),
-        operand<kBf16>(cmul(f0, c_b)), operand<kBf16>(cmul(f1, c_b))};
+    const C2<F>* er = e + pp * kPitch + 8 * qg;
+    const C2<F>* t = tab + pp * kPitch;
+    C2<F> f0, f1;
+    load2(t + f, f0, f1);
+    const C2<F> c_a = t[ca], c_b = t[cb];
+    const C2<F> g[4] = {operand<F, kBf16>(cmul<F>(f0, c_a)),
+                        operand<F, kBf16>(cmul<F>(f1, c_a)),
+                        operand<F, kBf16>(cmul<F>(f0, c_b)),
+                        operand<F, kBf16>(cmul<F>(f1, c_b))};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float4 x = e4[i];
-      const float2 e0 = make_float2(x.x, x.y), e1 = make_float2(x.z, x.w);
+      C2<F> e0, e1;
+      load2(er + 2 * i, e0, e1);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        cmac(y[2 * i][c], e0, g[c]);
-        cmac(y[2 * i + 1][c], e1, g[c]);
+        cmac<F>(y[2 * i][c], e0, g[c]);
+        cmac<F>(y[2 * i + 1][c], e1, g[c]);
       }
     }
   }
@@ -277,26 +350,26 @@ __device__ __forceinline__ void path_sum(const float2* __restrict__ e,
 
 // G = |y|^2 of the lane's 8 rows and 4 columns, rows past B and columns past
 // K skipped.
-__device__ __forceinline__ void store_power(const Args& a, float* out_u,
+template <typename F>
+__device__ __forceinline__ void store_power(const Args<F>& a, F* out_u,
                                             int r, int b0, int s, int k0,
                                             int qg, int kg,
-                                            const float2 (&y)[8][4]) {
+                                            const C2<F> (&y)[8][4]) {
   const size_t sk = static_cast<size_t>(a.S) * a.K;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int b = b0 + 8 * qg + i;
     if (b >= a.B) break;
-    float* o = out_u + static_cast<size_t>(r * a.B + b) * sk +
-               static_cast<size_t>(s) * a.K;
+    F* o = out_u + static_cast<size_t>(r * a.B + b) * sk +
+           static_cast<size_t>(s) * a.K;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int k = k0 + 32 * h + 2 * kg;
-      const float2 v0 = y[i][2 * h], v1 = y[i][2 * h + 1];
-      const float p0 = v0.x * v0.x + v0.y * v0.y;
-      const float p1 = v1.x * v1.x + v1.y * v1.y;
-      if (a.K % 2 == 0) {           // o + k is 8-byte aligned
-        if (k < a.K)
-          __stcs(reinterpret_cast<float2*>(o + k), make_float2(p0, p1));
+      const C2<F> v0 = y[i][2 * h], v1 = y[i][2 * h + 1];
+      const F p0 = v0.x * v0.x + v0.y * v0.y;
+      const F p1 = v1.x * v1.x + v1.y * v1.y;
+      if (a.K % 2 == 0) {           // o + k is aligned for the pair
+        if (k < a.K) store_pair(o + k, p0, p1);
       } else {
         if (k < a.K) o[k] = p0;
         if (k + 1 < a.K) o[k + 1] = p1;
@@ -305,20 +378,22 @@ __device__ __forceinline__ void store_power(const Args& a, float* out_u,
   }
 }
 
-__device__ __forceinline__ void zero(float2 (&y)[8][4]) {
+template <typename F>
+__device__ __forceinline__ void zero(C2<F> (&y)[8][4]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) y[i][c] = make_float2(0.f, 0.f);
+    for (int c = 0; c < 4; ++c) y[i][c] = cx<F>(0, 0);
   }
 }
 
 // kOneChunk: P <= chunk. A separate instantiation, so that the registers
 // the chunked path keeps live across its fold (y beside the fold's
-// accumulators) do not cost the one-chunk path spills.
-template <bool kOneChunk, bool kBf16>
-__global__ void __launch_bounds__(kMaxWarps * 32, 2)
-beamgain_kernel(Args a, const float2* __restrict__ cw_g) {
+// accumulators) do not cost the one-chunk path spills. Two blocks per SM
+// in float; in double the accumulators take twice the registers, so one.
+template <typename F, bool kOneChunk, bool kBf16>
+__global__ void __launch_bounds__(kMaxWarps * 32, sizeof(F) == 4 ? 2 : 1)
+beamgain_kernel(Args<F> a, const C2<F>* __restrict__ cw_g) {
   extern __shared__ float4 smem[];
   const int T = a.t1 * a.t2;
   const int R = a.r1 * a.r2;
@@ -326,49 +401,50 @@ beamgain_kernel(Args a, const float2* __restrict__ cw_g) {
   const int n_warps = blockDim.x >> 5;
 
   // conj(W) [T][B], staged once for the block's life.
-  float2* cw = reinterpret_cast<float2*>(smem);
+  C2<F>* cw = reinterpret_cast<C2<F>*>(smem);
   for (int i = threadIdx.x; i < T * a.B; i += blockDim.x) cw[i] = cw_g[i];
   __syncthreads();
 
-  const size_t cw_f2 = 2 * ((static_cast<size_t>(T) * a.B + 1) / 2);
-  float2* e = cw + cw_f2 + (threadIdx.x >> 5) * 2 * a.chunk * kPitch;
-  float2* tab = e + a.chunk * kPitch;
+  C2<F>* e = cw + cw_entries<F>(static_cast<size_t>(T) * a.B) +
+             (threadIdx.x >> 5) * 2 * a.chunk * kPitch;
+  C2<F>* tab = e + a.chunk * kPitch;
   const int n_ch = (a.P + a.chunk - 1) / a.chunk;
   const int qg = lane >> 4, kg = lane & 15;
-  float2 y[8][4];
+  C2<F> y[8][4];
 
   for (int u = blockIdx.x * n_warps + (threadIdx.x >> 5); u < a.U;
        u += gridDim.x * n_warps) {
     const size_t row = static_cast<size_t>(u) * a.P;
-    float* out_u = a.out + static_cast<size_t>(u) * R * a.B * a.S * a.K;
+    F* out_u = a.out + static_cast<size_t>(u) * R * a.B * a.S * a.K;
     for (int r = 0; r < R; ++r) {
       for (int b0 = 0; b0 < a.B; b0 += kRows) {
         if (kOneChunk) {
           // One chunk: fold E once, reuse it for every slot and column tile.
-          build_e<kBf16>(a, cw, e, lane, row, lane, r, b0);
+          build_e<F, kBf16>(a, cw, e, lane, row, lane, r, b0);
           for (int s = 0; s < a.S; ++s) {
             for (int k0 = 0; k0 < a.K; k0 += kCols) {
-              build_tables(a, tab, lane, u, row, lane, s, k0);
+              build_tables<F>(a, tab, lane, u, row, lane, s, k0);
               __syncwarp();
-              zero(y);
-              path_sum<kBf16>(e, tab, a.P, qg, kg, y);
+              zero<F>(y);
+              path_sum<F, kBf16>(e, tab, a.P, qg, kg, y);
               __syncwarp();         // E and the tables are read
-              store_power(a, out_u, r, b0, s, k0, qg, kg, y);
+              store_power<F>(a, out_u, r, b0, s, k0, qg, kg, y);
             }
           }
         } else {
           for (int s = 0; s < a.S; ++s) {
             for (int k0 = 0; k0 < a.K; k0 += kCols) {
-              zero(y);
+              zero<F>(y);
               for (int c = 0; c < n_ch; ++c) {
                 const int p0 = c * a.chunk;
-                build_e<kBf16>(a, cw, e, lane, row, p0 + lane, r, b0);
-                build_tables(a, tab, lane, u, row, p0 + lane, s, k0);
+                build_e<F, kBf16>(a, cw, e, lane, row, p0 + lane, r, b0);
+                build_tables<F>(a, tab, lane, u, row, p0 + lane, s, k0);
                 __syncwarp();
-                path_sum<kBf16>(e, tab, min(a.chunk, a.P - p0), qg, kg, y);
+                path_sum<F, kBf16>(e, tab, min(a.chunk, a.P - p0), qg, kg,
+                                   y);
                 __syncwarp();
               }
-              store_power(a, out_u, r, b0, s, k0, qg, kg, y);
+              store_power<F>(a, out_u, r, b0, s, k0, qg, kg, y);
             }
           }
         }
@@ -377,39 +453,15 @@ beamgain_kernel(Args a, const float2* __restrict__ cw_g) {
   }
 }
 
-}  // namespace
-
-// Dynamic shared memory of the kernel's block at T TX elements and B beams
-// (0 when no block fits); ops/kernels/beamgain.py's smem_bytes mirrors it.
-extern "C" long long beamgain_smem_bytes(int n_tx, int n_beams) {
-  const Plan lp = plan(n_tx, n_beams);
-  return lp.warps > 0 ? static_cast<long long>(lp.smem) : 0;
-}
-
-// Launches the beam-gain kernel on `stream`. Pointers are device pointers to
-// contiguous float32 arrays: gry..gtz and omega [U, P], amp [U, n_sa*P],
-// psi [U, n_s*P], cw [T, B, 2] (conj(W) transposed, real and imaginary parts
-// interleaved), out [U, R*B, n_s*n_k]; bf16 != 0 rounds the path sum's
-// operands to bf16. Returns the cudaError_t of the setup and the launch (0
-// on success); the kernel is not waited for.
-extern "C" int beamgain_launch(const float* gry, const float* grz,
-                               const float* gty, const float* gtz,
-                               const float* amp, const float* psi,
-                               const float* omega, const float* cw,
-                               float* out, int n_users,
-                               int n_paths, int r1, int r2, int t1, int t2,
-                               int n_beams, int n_k, int n_s, int n_sa,
-                               int bf16, void* stream) {
-  if (n_users == 0) return cudaSuccess;
-  const Plan lp = plan(t1 * t2, n_beams);
+template <typename F, bool kBf16>
+cudaError_t launch(const Args<F>& a0, const void* cw, int n_users,
+                   cudaStream_t stream) {
+  const Plan lp = plan<F>(a0.t1 * a0.t2, a0.B);
   if (lp.warps < 1) return cudaErrorInvalidValue;
   const int threads = 32 * lp.warps;
   const int smem = static_cast<int>(lp.smem);
-  const bool one = n_paths <= lp.chunk;
-  const auto kernel = bf16 ? (one ? beamgain_kernel<true, true>
-                                  : beamgain_kernel<false, true>)
-                           : (one ? beamgain_kernel<true, false>
-                                  : beamgain_kernel<false, false>);
+  const auto kernel = a0.P <= lp.chunk ? beamgain_kernel<F, true, kBf16>
+                                       : beamgain_kernel<F, false, kBf16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -429,9 +481,63 @@ extern "C" int beamgain_launch(const float* gry, const float* grz,
                          lp.warps;
   const long long full = static_cast<long long>(per_sm) * n_sm;
   const int grid = static_cast<int>(need < full ? need : full);
-  const Args a{gry, grz, gty, gtz, amp, psi, omega, out, n_users, n_paths,
-               r1, r2, t1, t2, n_beams, n_k, n_s, n_sa, lp.chunk};
-  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, reinterpret_cast<const float2*>(cw));
+  Args<F> a = a0;
+  a.chunk = lp.chunk;
+  kernel<<<grid, threads, smem, stream>>>(
+      a, static_cast<const C2<F>*>(cw));
   return cudaGetLastError();
+}
+
+template <typename F>
+Args<F> make_args(const void* gry, const void* grz, const void* gty,
+                  const void* gtz, const void* amp, const void* psi,
+                  const void* omega, void* out, int n_users, int n_paths,
+                  int r1, int r2, int t1, int t2, int n_beams, int n_k,
+                  int n_s, int n_sa) {
+  return Args<F>{static_cast<const F*>(gry), static_cast<const F*>(grz),
+                 static_cast<const F*>(gty), static_cast<const F*>(gtz),
+                 static_cast<const F*>(amp), static_cast<const F*>(psi),
+                 static_cast<const F*>(omega), static_cast<F*>(out),
+                 n_users, n_paths, r1, r2, t1, t2, n_beams, n_k, n_s, n_sa,
+                 0};
+}
+
+}  // namespace
+
+// Dynamic shared memory of the kernel's block at T TX elements and B beams,
+// in float (f64 == 0) or double (0 when no block fits);
+// ops/kernels/beamgain.py's smem_bytes mirrors it.
+extern "C" long long beamgain_smem_bytes(int n_tx, int n_beams, int f64) {
+  const Plan lp = f64 ? plan<double>(n_tx, n_beams)
+                      : plan<float>(n_tx, n_beams);
+  return lp.warps > 0 ? static_cast<long long>(lp.smem) : 0;
+}
+
+// Launches the beam-gain kernel on `stream`. Pointers are device pointers to
+// contiguous arrays, all float32 (mode 0 or 1) or all float64 (mode 2):
+// gry..gtz and omega [U, P], amp [U, n_sa*P], psi [U, n_s*P], cw [T, B, 2]
+// (conj(W) transposed, real and imaginary parts interleaved),
+// out [U, R*B, n_s*n_k]. Mode 1 rounds the path sum's operands to bf16.
+// Returns the cudaError_t of the setup and the launch (0 on success); the
+// kernel is not waited for.
+extern "C" int beamgain_launch(const void* gry, const void* grz,
+                               const void* gty, const void* gtz,
+                               const void* amp, const void* psi,
+                               const void* omega, const void* cw, void* out,
+                               int n_users, int n_paths, int r1, int r2,
+                               int t1, int t2, int n_beams, int n_k, int n_s,
+                               int n_sa, int mode, void* stream) {
+  if (n_users == 0) return cudaSuccess;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (mode == 2) {
+    return launch<double, false>(
+        make_args<double>(gry, grz, gty, gtz, amp, psi, omega, out, n_users,
+                          n_paths, r1, r2, t1, t2, n_beams, n_k, n_s, n_sa),
+        cw, n_users, st);
+  }
+  const Args<float> a =
+      make_args<float>(gry, grz, gty, gtz, amp, psi, omega, out, n_users,
+                       n_paths, r1, r2, t1, t2, n_beams, n_k, n_s, n_sa);
+  return mode == 1 ? launch<float, true>(a, cw, n_users, st)
+                   : launch<float, false>(a, cw, n_users, st);
 }

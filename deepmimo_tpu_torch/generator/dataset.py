@@ -7,31 +7,46 @@ card) on masked ``PathData`` — in one launch, or streamed over user
 blocks when the output exceeds ``config['max_device_output_bytes']``.
 Dual-polar scenarios render all four polarizations in one launch.
 
-Derived attributes (rotated angles, FoV, pathloss, LoS, grid, subsets)
-are ROADMAP port item 2.
+The derived attributes (rotated and FoV-filtered angles, ``apply_fov``,
+pathloss, LoS, path and interaction counts, pattern-gain powers, the
+array-response product, grid info, ``subset``) resolve through the same
+registry, NaN-padded on the host; their angle, FoV and pattern math runs
+in the port's own torch geometry in float64 on ``config['device']``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .. import consts as c
 from ..config import config
-from ..ops.channel import (_fused_n_snap, polar_fused_eligible,
-                           polar_out_shape, render_beam_gains,
-                           render_beam_gains_polar, render_channels_planes,
+from ..ops import geometry as _geo
+from ..ops.channel import (_fused_n_snap, planes_dtype,
+                           polar_fused_eligible, polar_out_shape,
+                           render_beam_gains, render_beam_gains_polar,
+                           render_channels_planes,
                            render_channels_planes_polar, render_out_shape,
                            unpack_planes_np, unpack_polar_planes_np)
 from ..ops.kernels.render import out_torch_dtype
+from ..ops.patterns import pattern_gain
 from ..ops.types import AntennaPanel, PathData, _small_tensor
 from ..utils import DotDict
 from .params import ChannelGenParameters
+from .sampling import dbw2watt, get_uniform_idxs
 
 #: Polarizations of a dual-polar scenario, in slot order.
 POLS = ("VV", "VH", "HH", "HV")
+
+#: Parameters shared across the datasets of one scenario (kept by subset).
+SHARED_PARAMS = [
+    c.SCENE_PARAM_NAME,
+    c.MATERIALS_PARAM_NAME,
+    c.LOAD_PARAMS_PARAM_NAME,
+    c.RT_PARAMS_PARAM_NAME,
+]
 
 
 class Dataset(DotDict):
@@ -71,6 +86,11 @@ class Dataset(DotDict):
                 pass
         if key in self._computed_attributes:
             value = getattr(self, self._computed_attributes[key])()
+            if isinstance(value, dict):
+                # Each key of a dict result is stored; a key that names
+                # the whole dict ("fov") gets the dict.
+                self.update(value)
+                return value[key] if key in value else value
             self[key] = value
             return value
         raise KeyError(key)
@@ -86,11 +106,19 @@ class Dataset(DotDict):
 
     def set_channel_params(self, params: Optional[ChannelGenParameters]
                            = None) -> ChannelGenParameters:
-        """Validate and store (a copy of) the channel parameters."""
+        """Validate and store (a copy of) the channel parameters; a change
+        of either panel's rotation drops the cached rotated angles."""
         if params is None:
             params = ChannelGenParameters()
         params.validate(self.n_ue)
+        old = self.get(c.CH_PARAMS_PARAM_NAME)
         self[c.CH_PARAMS_PARAM_NAME] = params.deepcopy()
+        rot = c.PARAMSET_ANT_ROTATION
+        if old is not None and any(
+                not np.array_equal(np.asarray(old[side][rot]),
+                                   np.asarray(params[side][rot]))
+                for side in (c.PARAMSET_ANT_BS, c.PARAMSET_ANT_UE)):
+            self._clear_cache_rotated_angles()
         return params
 
     def compute_channels(self, params: Optional[ChannelGenParameters] = None,
@@ -101,11 +129,15 @@ class Dataset(DotDict):
         output fits ``config['max_device_output_bytes']``, otherwise over
         ``config['user_block']`` blocks with each block's device->host copy
         overlapping the next block's render — and returns a numpy complex
-        array [n_ue, n_rx_ant, n_tx_ant, K], cached under
+        array [n_ue, n_rx_ant, n_tx_ant, K], or [..., n_paths] in the time
+        domain (``params['freq_domain'] = 0``; after :meth:`apply_fov`
+        each user's surviving paths come first), cached under
         ``dataset.channel`` (with several Doppler snapshots a trailing
-        time axis [..., K, S]). With ``config['planes_out_dtype']``
-        "bfloat16" the planes are rendered and copied to the host in bf16
-        (half the bytes) and widened to complex64 there.
+        time axis [..., S]). complex64, or complex128 from float64 planes
+        with ``config['compute_dtype']`` "complex128". With
+        ``config['planes_out_dtype']`` "bfloat16" the planes are rendered
+        and copied to the host in bf16 (half the bytes) and widened
+        there.
 
         Args:
             params: channel-generation parameters (defaults applied).
@@ -114,7 +146,8 @@ class Dataset(DotDict):
                 (see ``ops.channel.render_channels_planes``); convert
                 with ``ops.channel.unpack_planes_np``.
             out: a planes tensor from a previous identical call (float32,
-                or bfloat16 in the bf16 output mode). When its shape,
+                float64 for complex128, or bfloat16 in the bf16 output
+                mode). When its shape,
                 dtype and device match, the new result is written into it
                 in place — the previous result is overwritten — so serving
                 loops run in constant device memory. Ignored otherwise.
@@ -188,7 +221,8 @@ class Dataset(DotDict):
         ``phase_vv``, ...); angles and delays are shared across
         polarizations. Fused-eligible configs render all four in ONE kernel
         launch (the polarizations ride the kernel's slot axis); others
-        render each polarization on its own.
+        render each polarization on its own, to the host only (the time
+        domain, the receive filter and complex128 among them).
         """
         self._check_pols()
         if polar_fused_eligible(cfg, len(POLS)):
@@ -246,8 +280,10 @@ class Dataset(DotDict):
                 in place (the previous result is overwritten); ignored
                 otherwise.
 
-        Returns [n_ue, n_rx_ant, n_beams, K] float32, with a trailing time
-        axis [..., K, S] for several Doppler snapshots. Dual-polar scenarios
+        Returns [n_ue, n_rx_ant, n_beams, K] float32 (float64, from a
+        float64 codebook, with ``config['compute_dtype']`` "complex128"),
+        with a trailing time axis [..., K, S] for several Doppler
+        snapshots. Dual-polar scenarios
         (``params['enable_dual_polar']``) return a dict {'VV', 'VH', 'HH',
         'HV'} of such maps, all four from ONE kernel launch (with
         ``to_device``, the raw [U, R*B, 4*S*K], slot axis pol-major); ``out``
@@ -258,12 +294,13 @@ class Dataset(DotDict):
                              "([n_beams, n_tx_ant] complex, or an "
                              "(wr, wi) tuple)")
         params, cfg, bs_panel, ue_panel = self._channel_config(params)
+        wdt = np.float64 if cfg.dtype == "complex128" else np.float32
         if isinstance(codebook, tuple):
-            wr, wi = (np.asarray(x, np.float32) for x in codebook)
+            wr, wi = (np.asarray(x, wdt) for x in codebook)
         else:
             cb = np.asarray(codebook)
-            wr = np.real(cb).astype(np.float32)
-            wi = np.imag(cb).astype(np.float32)
+            wr = np.real(cb).astype(wdt)
+            wi = np.imag(cb).astype(wdt)
         if wr.ndim != 2 or wr.shape != wi.shape or \
                 wr.shape[1] != cfg.n_tx_ant:
             raise ValueError(
@@ -272,13 +309,13 @@ class Dataset(DotDict):
 
         pd = self._path_data()
         dev = pd.valid.device
-        w = [_small_tensor(x, torch.float32, dev) for x in (wr, wi)]
+        w = [_small_tensor(x, cfg.rdtype, dev) for x in (wr, wi)]
         polar = bool(params.get(c.PARAMSET_POLAR_EN, 0))
         n_pol = len(POLS) if polar else 1
         n_b, n_k = wr.shape[0], cfg.n_sel_subcarriers
         n_s = _fused_n_snap(cfg)
         shape = (self.n_ue, cfg.n_rx_ant * n_b, n_pol * n_s * n_k)
-        out = _reusable(out, shape, dev, torch.float32)
+        out = _reusable(out, shape, dev, cfg.rdtype)
         if polar:
             self._check_pols()
             g = render_beam_gains_polar(pd, bs_panel, ue_panel, cfg,
@@ -324,14 +361,388 @@ class Dataset(DotDict):
             self["_path_data_cache"] = ((dev, dtype), pd)
         return pd
 
+    # ------------------------------------------------------------------
+    # Geometric computations
+    # ------------------------------------------------------------------
+
+    @property
+    def tx_ori(self) -> np.ndarray:
+        return np.asarray(
+            self.ch_params[c.PARAMSET_ANT_BS][c.PARAMSET_ANT_ROTATION]) \
+            * np.pi / 180
+
+    @property
+    def bs_ori(self) -> np.ndarray:
+        return self.tx_ori
+
+    @property
+    def rx_ori(self) -> np.ndarray:
+        return np.asarray(
+            self.ch_params[c.PARAMSET_ANT_UE][c.PARAMSET_ANT_ROTATION]) \
+            * np.pi / 180
+
+    @property
+    def ue_ori(self) -> np.ndarray:
+        return self.rx_ori
+
+    def _ensure_ch_params(self) -> ChannelGenParameters:
+        stored = self.get(c.CH_PARAMS_PARAM_NAME)
+        if stored is None:
+            stored = self.set_channel_params(None)
+            self[c.CH_PARAMS_PARAM_NAME] = stored
+        return stored
+
+    def _compute_rotated_angles(self) -> Dict[str, np.ndarray]:
+        """Rotated AoD/AoA (radians, NaN-padded), with the per-user UE
+        rotations drawn after ``np.random.seed(1001)`` as for a render."""
+        params = self._ensure_ch_params()
+        np.random.seed(1001)
+        ue_rotation = params.resolve_ue_rotation(self.n_ue)
+        bs_rotation = params[c.PARAMSET_ANT_BS][c.PARAMSET_ANT_ROTATION]
+        aod_t, aod_p = _rotate_np(bs_rotation, self[c.AOD_EL_PARAM_NAME],
+                                  self[c.AOD_AZ_PARAM_NAME])
+        aoa_t, aoa_p = _rotate_np(ue_rotation, self[c.AOA_EL_PARAM_NAME],
+                                  self[c.AOA_AZ_PARAM_NAME])
+        return {
+            c.AOD_EL_ROT_PARAM_NAME: aod_t,
+            c.AOD_AZ_ROT_PARAM_NAME: aod_p,
+            c.AOA_EL_ROT_PARAM_NAME: aoa_t,
+            c.AOA_AZ_ROT_PARAM_NAME: aoa_p,
+        }
+
+    def _compute_array_response_product(self) -> np.ndarray:
+        """[n_ue, M_rx, M_tx, n_paths] complex64 RX x TX array-response
+        product at the FoV-filtered rotated angles (invalid paths -> 0).
+
+        A host presentation attribute of O(users x R x T x P) that the
+        channel path never forms: sized against
+        ``config['max_array_product_bytes']`` (MemoryError with guidance
+        above it) and built in ``config['user_block']`` user blocks with
+        :func:`ops.geometry.array_response` in float64 on
+        ``config['device']``.
+        """
+        params = self._ensure_ch_params()
+        bs_p = params[c.PARAMSET_ANT_BS]
+        ue_p = params[c.PARAMSET_ANT_UE]
+        bs_shape, ue_shape = (tuple(int(x) for x in np.asarray(
+            p[c.PARAMSET_ANT_SHAPE])) for p in (bs_p, ue_p))
+
+        el_fov = np.asarray(self[c.AOD_EL_FOV_PARAM_NAME])
+        valid = ~np.isnan(el_fov)
+        angles = [np.nan_to_num(np.asarray(self[k])) for k in (
+            c.AOD_EL_FOV_PARAM_NAME, c.AOD_AZ_FOV_PARAM_NAME,
+            c.AOA_EL_FOV_PARAM_NAME, c.AOA_AZ_FOV_PARAM_NAME)]
+
+        n_ue, n_p = el_fov.shape
+        r = ue_shape[0] * ue_shape[1]
+        t = bs_shape[0] * bs_shape[1]
+        out_bytes = n_ue * r * t * n_p * 8
+        limit = int(config.get("max_array_product_bytes"))
+        if out_bytes > limit:
+            raise MemoryError(
+                f"array_response_product would be [{n_ue}, {r}, {t}, "
+                f"{n_p}] complex64 = {out_bytes / 2**30:.1f} GiB on the "
+                f"host (limit {limit / 2**30:.1f} GiB, config "
+                "'max_array_product_bytes'). Use dataset.subset(idxs) to "
+                "restrict users, or compute channels directly — "
+                "compute_channels never materializes this product.")
+
+        def response(shape, spacing, theta, phi, v):
+            resp = _geo.array_response(shape, float(spacing), _dev(theta),
+                                       _dev(phi), _dev(v, torch.bool),
+                                       torch.complex128)
+            return resp.to(torch.complex64)
+
+        out = np.empty((n_ue, r, t, n_p), dtype=np.complex64)
+        block = max(1, int(config.get("user_block") or 16384))
+        for s in range(0, n_ue, block):
+            e = min(s + block, n_ue)
+            aod_t, aod_p, aoa_t, aoa_p = (a[s:e] for a in angles)
+            a_tx = response(bs_shape, bs_p[c.PARAMSET_ANT_SPACING], aod_t,
+                            aod_p, valid[s:e])
+            a_rx = response(ue_shape, ue_p[c.PARAMSET_ANT_SPACING], aoa_t,
+                            aoa_p, valid[s:e])
+            out[s:e] = (a_rx[:, :, None, :] *
+                        a_tx[:, None, :, :]).cpu().numpy()
+        return out
+
+    def _clear_cache_rotated_angles(self) -> None:
+        for k in {c.AOD_EL_ROT_PARAM_NAME, c.AOD_AZ_ROT_PARAM_NAME,
+                  c.AOA_EL_ROT_PARAM_NAME, c.AOA_AZ_ROT_PARAM_NAME} & \
+                set(super().keys()):
+            super().__delitem__(k)
+        self._clear_cache_fov()
+
+    # ------------------------------------------------------------------
+    # Field of view
+    # ------------------------------------------------------------------
+
+    def apply_fov(self, bs_fov: np.ndarray = np.array([360, 180]),
+                  ue_fov: np.ndarray = np.array([360, 180])) -> None:
+        """Set the BS and UE fields of view [horizontal, vertical] in
+        degrees; the derived quantities and the channels recompute lazily
+        (a time-domain render then packs the surviving paths to the
+        front)."""
+        self._clear_cache_fov()
+        self["bs_fov"] = np.asarray(bs_fov)
+        self["ue_fov"] = np.asarray(ue_fov)
+
+    def _compute_fov(self) -> Dict[str, np.ndarray]:
+        aod_t = self[c.AOD_EL_ROT_PARAM_NAME]
+        aod_p = self[c.AOD_AZ_ROT_PARAM_NAME]
+        aoa_t = self[c.AOA_EL_ROT_PARAM_NAME]
+        aoa_p = self[c.AOA_AZ_ROT_PARAM_NAME]
+
+        bs_fov, ue_fov = self.get("bs_fov"), self.get("ue_fov")
+        bs_full = bs_fov is not None and _geo.is_full_fov(bs_fov)
+        ue_full = ue_fov is not None and _geo.is_full_fov(ue_fov)
+
+        if (bs_fov is None and ue_fov is None) or (bs_full and ue_full):
+            return {
+                c.FOV_MASK_PARAM_NAME: None,
+                c.AOD_EL_FOV_PARAM_NAME: aod_t,
+                c.AOD_AZ_FOV_PARAM_NAME: aod_p,
+                c.AOA_EL_FOV_PARAM_NAME: aoa_t,
+                c.AOA_AZ_FOV_PARAM_NAME: aoa_p,
+            }
+
+        mask = np.ones(aod_t.shape, dtype=bool)
+        if bs_fov is not None and not bs_full:
+            mask &= _fov_np(bs_fov, aod_t, aod_p)
+        if ue_fov is not None and not ue_full:
+            mask &= _fov_np(ue_fov, aoa_t, aoa_p)
+
+        def nanw(a):
+            return np.where(mask, a, np.nan)
+        return {
+            c.FOV_MASK_PARAM_NAME: mask,
+            c.AOD_EL_FOV_PARAM_NAME: nanw(aod_t),
+            c.AOD_AZ_FOV_PARAM_NAME: nanw(aod_p),
+            c.AOA_EL_FOV_PARAM_NAME: nanw(aoa_t),
+            c.AOA_AZ_FOV_PARAM_NAME: nanw(aoa_p),
+        }
+
+    def _clear_cache_fov(self) -> None:
+        keys = {c.FOV_MASK_PARAM_NAME, c.NUM_PATHS_PARAM_NAME,
+                c.LOS_PARAM_NAME, c.CHANNEL_PARAM_NAME,
+                c.PWR_LINEAR_ANT_GAIN_PARAM_NAME,
+                c.AOD_EL_FOV_PARAM_NAME, c.AOD_AZ_FOV_PARAM_NAME,
+                c.AOA_EL_FOV_PARAM_NAME, c.AOA_AZ_FOV_PARAM_NAME}
+        for k in keys & set(super().keys()):
+            super().__delitem__(k)
+
+    # ------------------------------------------------------------------
+    # Path and power computations
+    # ------------------------------------------------------------------
+
+    def compute_pathloss(self, coherent: bool = True) -> np.ndarray:
+        """Pathloss in dB from a coherent (or incoherent) path-gain sum."""
+        powers_linear = 10 ** (np.asarray(self[c.POWER_PARAM_NAME]) / 10)
+        phases_rad = np.deg2rad(np.asarray(self[c.PHASE_PARAM_NAME]))
+        gains = np.sqrt(powers_linear).astype(np.complex64)
+        if coherent:
+            gains = gains * np.exp(1j * phases_rad)
+        total_power = np.abs(np.nansum(gains, axis=1)) ** 2
+        mask = total_power > 0
+        pathloss = np.full_like(total_power, np.nan, dtype=np.float64)
+        pathloss[mask] = -10 * np.log10(total_power[mask])
+        self[c.PATHLOSS_PARAM_NAME] = pathloss
+        return pathloss
+
+    def _compute_los(self) -> np.ndarray:
+        """LoS status per user: 1 LoS, 0 NLoS, -1 no paths (in the FoV)."""
+        inter = np.asarray(self[c.INTERACTIONS_PARAM_NAME])
+        los_status = np.full(inter.shape[0], -1)
+        fov_mask = self[c.FOV_MASK_PARAM_NAME]
+        if fov_mask is not None:
+            has_paths = np.any(fov_mask, axis=1)
+            first_idx = np.argmax(fov_mask, axis=1)      # first in-FoV path
+            first_valid = np.where(
+                has_paths, inter[np.arange(inter.shape[0]), first_idx], -1)
+        else:
+            has_paths = np.asarray(self[c.NUM_PATHS_PARAM_NAME]) > 0
+            first_valid = inter[:, 0] if inter.shape[1] else \
+                np.full(inter.shape[0], np.nan)
+        los_status[has_paths] = 0
+        los_status[(first_valid == c.INTERACTION_LOS) & has_paths] = 1
+        return los_status
+
+    def _compute_num_paths(self) -> np.ndarray:
+        return (~np.isnan(np.asarray(self[c.AOA_AZ_FOV_PARAM_NAME]))).sum(
+            axis=1)
+
+    def _compute_num_interactions(self) -> np.ndarray:
+        inter = np.asarray(self[c.INTERACTIONS_PARAM_NAME]).astype(np.float64)
+        result = np.zeros_like(inter)
+        result[np.isnan(inter)] = np.nan
+        nz = inter > 0
+        result[nz] = np.floor(np.log10(inter[nz])) + 1
+        return result
+
+    def _compute_inter_int(self) -> np.ndarray:
+        inter = np.asarray(self[c.INTERACTIONS_PARAM_NAME]).astype(
+            np.float64).copy()
+        inter[np.isnan(inter)] = -1
+        return inter.astype(int)
+
+    def _compute_inter_str(self) -> np.ndarray:
+        inter = np.asarray(self[c.INTERACTIONS_PARAM_NAME]).astype(np.float64)
+        table = str.maketrans({"0": "", "1": "R", "2": "D", "3": "S",
+                               "4": "T"})
+
+        def translate(x):
+            if np.isnan(x):
+                return "n"
+            if x == 0:
+                return ""            # LoS: a single '0' digit, no bounce
+            return str(int(x)).translate(table)
+
+        return np.vectorize(translate, otypes=[object])(inter)
+
     def _compute_n_ue(self) -> int:
         return np.asarray(self[c.RX_POS_PARAM_NAME]).shape[0]
 
+    def _compute_distances(self) -> np.ndarray:
+        return np.linalg.norm(np.asarray(self[c.RX_POS_PARAM_NAME]) -
+                              np.asarray(self[c.TX_POS_PARAM_NAME]), axis=1)
+
+    def _compute_power_linear_ant_gain(self) -> np.ndarray:
+        """Linear powers with the TX/RX pattern gains at the FoV-filtered
+        angles (NaN where no path)."""
+        params = self._ensure_ch_params()
+        tx_pat = params[c.PARAMSET_ANT_BS][c.PARAMSET_ANT_RAD_PAT]
+        rx_pat = params[c.PARAMSET_ANT_UE][c.PARAMSET_ANT_RAD_PAT]
+        aoa_t = np.asarray(self[c.AOA_EL_FOV_PARAM_NAME])
+        gain = (_pattern_np(tx_pat, self[c.AOD_EL_FOV_PARAM_NAME],
+                            self[c.AOD_AZ_FOV_PARAM_NAME]) *
+                _pattern_np(rx_pat, aoa_t, self[c.AOA_AZ_FOV_PARAM_NAME]))
+        out = np.asarray(self[c.PWR_LINEAR_PARAM_NAME]) * gain
+        out[np.isnan(aoa_t)] = np.nan
+        return out
+
+    def _compute_power_linear(self) -> np.ndarray:
+        return dbw2watt(np.asarray(self[c.POWER_PARAM_NAME]))
+
+    # ------------------------------------------------------------------
+    # Grid and sampling
+    # ------------------------------------------------------------------
+
+    def _compute_grid_info(self) -> Dict[str, np.ndarray]:
+        rx_pos = np.asarray(self[c.RX_POS_PARAM_NAME])
+        xs, ys = np.unique(rx_pos[:, 0]), np.unique(rx_pos[:, 1])
+        return {
+            "grid_size": np.array([len(xs), len(ys)]),
+            "grid_spacing": np.array([np.mean(np.diff(xs)),
+                                      np.mean(np.diff(ys))]),
+        }
+
+    def _is_valid_grid(self) -> bool:
+        return np.prod(self["grid_size"]) == self.n_ue
+
+    def subset(self, idxs: np.ndarray) -> "Dataset":
+        """New Dataset restricted to the selected user indices: per-user
+        arrays are indexed, the shared scenario parameters shared, nested
+        parameter sets copied with their type (``ch_params`` stays a
+        ChannelGenParameters) and everything else carried over; caches
+        (keys starting with "_") are not."""
+        idxs = np.asarray(idxs)
+        initial = {p: super(Dataset, self).__getitem__(p)
+                   for p in SHARED_PARAMS if p in self.keys()}
+        initial["n_ue"] = len(idxs)
+        new = Dataset(initial)
+        n_ue = self.n_ue
+        for attr, value in self.items():
+            if attr.startswith("_") or attr in SHARED_PARAMS + ["n_ue"]:
+                continue
+            if isinstance(value, np.ndarray) and value.ndim >= 1 and \
+                    value.shape[0] == n_ue:
+                new[attr] = value[idxs]
+            elif isinstance(value, DotDict):
+                new[attr] = value.deepcopy()
+            else:
+                new[attr] = value
+        return new
+
+    def get_active_idxs(self) -> np.ndarray:
+        """Indices of the users with at least one path (in the FoV)."""
+        return np.where(np.asarray(self[c.NUM_PATHS_PARAM_NAME]) > 0)[0]
+
+    def get_uniform_idxs(self, steps: List[int]) -> np.ndarray:
+        """Indices of the users on a uniform [x_step, y_step] subgrid."""
+        return get_uniform_idxs(self.n_ue, self["grid_size"], steps)
+
     _computed_attributes = {
         c.N_UE_PARAM_NAME: "_compute_n_ue",
+        c.NUM_PATHS_PARAM_NAME: "_compute_num_paths",
+        c.NUM_INTERACTIONS_PARAM_NAME: "_compute_num_interactions",
+        c.DIST_PARAM_NAME: "_compute_distances",
+        c.PATHLOSS_PARAM_NAME: "compute_pathloss",
         c.CHANNEL_PARAM_NAME: "compute_channels",
+        c.LOS_PARAM_NAME: "_compute_los",
         c.CH_PARAMS_PARAM_NAME: "set_channel_params",
+        c.PWR_LINEAR_PARAM_NAME: "_compute_power_linear",
+        c.AOA_AZ_ROT_PARAM_NAME: "_compute_rotated_angles",
+        c.AOA_EL_ROT_PARAM_NAME: "_compute_rotated_angles",
+        c.AOD_AZ_ROT_PARAM_NAME: "_compute_rotated_angles",
+        c.AOD_EL_ROT_PARAM_NAME: "_compute_rotated_angles",
+        "array_response_product": "_compute_array_response_product",
+        "fov": "_compute_fov",
+        c.FOV_MASK_PARAM_NAME: "_compute_fov",
+        c.AOA_AZ_FOV_PARAM_NAME: "_compute_fov",
+        c.AOA_EL_FOV_PARAM_NAME: "_compute_fov",
+        c.AOD_AZ_FOV_PARAM_NAME: "_compute_fov",
+        c.AOD_EL_FOV_PARAM_NAME: "_compute_fov",
+        c.PWR_LINEAR_ANT_GAIN_PARAM_NAME: "_compute_power_linear_ant_gain",
+        "grid_size": "_compute_grid_info",
+        "grid_spacing": "_compute_grid_info",
+        c.INTER_STR_PARAM_NAME: "_compute_inter_str",
+        c.INTER_INT_PARAM_NAME: "_compute_inter_int",
     }
+
+
+# ============================================================================
+# The port's torch geometry on host arrays (NaN-padded presentation)
+# ============================================================================
+
+def _dev(x, dtype=torch.float64) -> torch.Tensor:
+    """A host array as a tensor on ``config['device']``."""
+    return torch.as_tensor(np.asarray(x), dtype=dtype,
+                           device=torch.device(config.get("device")))
+
+
+def _rotate_np(rotation_deg, el_deg, az_deg):
+    """:func:`ops.geometry.rotate_angles` in float64 on host arrays (NaN
+    slots stay NaN)."""
+    el = np.asarray(el_deg, dtype=np.float64)
+    az = np.asarray(az_deg, dtype=np.float64)
+    nan = np.isnan(el)
+    t, p = (x.cpu().numpy() for x in _geo.rotate_angles(
+        _dev(rotation_deg), _dev(np.nan_to_num(el)), _dev(np.nan_to_num(az))))
+    t[nan] = np.nan
+    p[nan] = np.nan
+    return t, p
+
+
+def _fov_np(fov_deg, theta_rad, phi_rad):
+    """:func:`ops.geometry.apply_fov` on host arrays (NaN slots are out)."""
+    theta = np.asarray(theta_rad, dtype=np.float64)
+    mask = _geo.apply_fov(np.asarray(fov_deg, dtype=np.float64),
+                          _dev(np.nan_to_num(theta)),
+                          _dev(np.nan_to_num(np.asarray(
+                              phi_rad, dtype=np.float64)))).cpu().numpy()
+    mask[np.isnan(theta)] = False
+    return mask
+
+
+def _pattern_np(name, theta_rad, phi_rad):
+    """:func:`ops.patterns.pattern_gain` on host arrays (NaN slots stay
+    NaN)."""
+    theta = np.asarray(theta_rad, dtype=np.float64)
+    out = pattern_gain(name, _dev(np.nan_to_num(theta)),
+                       _dev(np.nan_to_num(np.asarray(
+                           phi_rad, dtype=np.float64)))).cpu().numpy()
+    out[np.isnan(theta)] = np.nan
+    return out
 
 
 # ============================================================================
@@ -424,8 +835,8 @@ def _render_streamed(path_data: PathData, bs_panel, ue_panel, cfg,
     contents are overwritten), else it is ignored. Otherwise streamed over
     user blocks (:func:`_stream_blocks`).
     """
-    shape = render_out_shape(path_data.n_ue, cfg)
-    dtype = out_torch_dtype(cfg.out_dtype)
+    shape = render_out_shape(path_data.n_ue, cfg, path_data.max_paths)
+    dtype = planes_dtype(cfg)
     if _fits_one_launch(shape, dtype, to_device):
         h = render_channels_planes(
             path_data, bs_panel, ue_panel, cfg,

@@ -1,13 +1,12 @@
-"""Path -> channel renderer (PyTorch): the frequency-domain paths.
+"""Path -> channel renderer (PyTorch).
 
 Synthesizes MIMO channel matrices from per-path ray data,
 
     H[u, r, t, k] = sum_p  a_rx[u, r, p] * a_tx[u, t, p] * g[u, p, k],
 
-as real/imag float32 planes (:func:`render_channels_planes`) or complex64
+as real/imag planes (:func:`render_channels_planes`) or complex
 (:func:`render_channels`, with :func:`render_channels_and_grads`).
-Counterpart of the complex64, OFDM branches of
-``deepmimo_tpu/ops/channel.py``. ``render_channels_planes``:
+Counterpart of ``deepmimo_tpu/ops/channel.py``. ``render_channels_planes``:
 
 - the fused backend (``backend`` "fused"/"pallas", the product default)
   rotates the path directions to unit-vector phase steps and hands seven
@@ -23,9 +22,10 @@ fused path's angle-space prologue), ``out_dtype`` "bfloat16" (the kernel
 stores bf16; the eager path casts at the end) and the ``matmul_dtype``
 modes of :data:`kernels.render.MM_PASSES`.
 
-``render_channels`` always goes through angle space and the array-response
-planes; its path sum is the eager planes product, or with ``backend``
-"pallas" the hand-written CUDA path-sum kernel (``ops/kernels/pathsum.py``).
+``render_channels`` always goes through angle space and, without the
+receive filter, the array-response planes; its path sum is the eager
+planes product, or with ``backend`` "pallas" the hand-written CUDA
+path-sum kernel (``ops/kernels/pathsum.py``).
 Both renderers are differentiable; on CUDA the fused render's gradient is
 its backward kernel.
 
@@ -35,9 +35,16 @@ beam gains |conj(W) H|^2 come without H. Dual-polar scenarios render their
 four polarizations in one launch, riding the kernels' slot axis
 (``render_channels_planes_polar``, ``render_beam_gains_polar``).
 
-Configurations not ported yet (time domain, the receive filter,
-complex128) raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+The configurations the JAX package sends to plain XLA ops stay eager
+PyTorch here, by the same gates (:func:`_kernel_config`), never because a
+kernel failed: the time domain (H[u, r, t, p] per path, valid paths
+packed to the front when an FoV punches holes, :func:`_compact_paths`),
+the sinc receive filter (per-tap gains projected onto the subcarriers by
+an FFT for the full band or a DFT matrix otherwise; the one render
+through complex stages) and complex128 channels (the planes path in
+float64, planes out in float64). Complex128 beam gains take the beam-gain
+kernel's float64 instantiation, as the JAX package's gate does not look
+at the dtype there.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ import numpy as np
 import torch
 
 from .. import consts as c
-from .geometry import (apply_fov, array_response_phase,
+from .geometry import (apply_fov, array_response, array_response_phase,
                        array_response_planes, is_full_fov, rotate_angles,
                        rotate_unit_vec)
 from .kernels import beamgain as _beamgain
@@ -66,25 +73,16 @@ def not_ported(what: str, item: str):
         f"(ROADMAP.md, port queue item {item})")
 
 
-def _check_complex_path(cfg: ChannelConfig) -> None:
-    """The configurations :func:`render_channels` does not take yet
-    (NotImplementedError), and an unknown ``matmul_dtype`` (ValueError)."""
-    if not cfg.freq_domain:
-        raise not_ported("Time-domain rendering", "9 (non-fused paths)")
-    if cfg.rx_filter:
-        raise not_ported("The sinc receive filter (rx_filter)",
-                          "9 (non-fused paths)")
-    if cfg.dtype != "complex64":
-        raise not_ported(f"compute_dtype={cfg.dtype!r}",
-                          "9 (non-fused paths)")
+def planes_dtype(cfg: ChannelConfig) -> torch.dtype:
+    """dtype of :func:`render_channels_planes`' output: ``cfg.out_dtype``,
+    float64 for a complex128 render in "float32" (as the JAX package, which
+    casts only to another ``out_dtype``). ValueError for an unknown
+    ``out_dtype`` or ``matmul_dtype``."""
     _render.mm_passes(cfg.matmul_dtype)
-
-
-def check_in_slice(cfg: ChannelConfig) -> None:
-    """Raise NotImplementedError for planes configurations not yet
-    ported, ValueError for an unknown ``matmul_dtype`` or ``out_dtype``."""
-    _check_complex_path(cfg)
-    _render.out_torch_dtype(cfg.out_dtype)
+    dtype = _render.out_torch_dtype(cfg.out_dtype)
+    if cfg.dtype == "complex128" and dtype == torch.float32:
+        return torch.float64
+    return dtype
 
 
 # ============================================================================
@@ -144,6 +142,121 @@ def _ofdm_gain_planes(cfg: ChannelConfig, powers_lin, delays, phase_deg,
                                      paths.doppler_acc,
                                      delays + t_snap)[..., None]
     return amp[..., None] * torch.cos(base), amp[..., None] * torch.sin(base)
+
+
+def _ofdm_path_gains(cfg: ChannelConfig, powers_lin, delays, phase_deg,
+                     valid, t_snap, paths: PathData):
+    """Per-path complex gains g [U, P, K] in ``cfg.cdtype`` with the sinc
+    receive filter: the OFDM path constant sqrt(P/N) e^{j psi} (over-FFT
+    paths zeroed) spread over the N delay taps d by sinc(d - d_n), Doppler
+    per tap at the tap delay d * Ts, and the taps projected onto the
+    selected subcarriers by an FFT (full band) or a DFT matrix."""
+    n_fft = cfg.subcarriers
+    ts = 1.0 / cfg.bandwidth
+    rd, cd = cfg.rdtype, cfg.cdtype
+    dev = delays.device
+    k_sel = torch.as_tensor(np.asarray(cfg.selected_subcarriers,
+                                       dtype=np.float64), dtype=rd,
+                            device=dev)
+    delay_n = delays / ts
+    pvalid = valid & (delay_n < n_fft)
+    amp = torch.where(pvalid, torch.sqrt(powers_lin / n_fft),
+                      torch.zeros_like(powers_lin))
+    psi = torch.deg2rad(phase_deg)
+    d = torch.arange(n_fft, dtype=rd, device=dev)
+    taps = torch.sinc(d - delay_n[..., None])                # [U, P, D]
+    path_const = (amp * torch.exp(1j * psi.to(rd)))[..., None] * taps
+    del taps                  # [U, P, N] real: free it before the next one
+    if cfg.enable_doppler and paths.doppler_vel is not None:
+        path_const = path_const * torch.exp(1j * _doppler_phase(
+            cfg, paths.doppler_vel[..., None], paths.doppler_acc[..., None],
+            d * ts + t_snap).to(rd))
+    path_const = path_const.to(cd)
+    if tuple(cfg.selected_subcarriers) == tuple(range(n_fft)):
+        return torch.fft.fft(path_const, dim=-1)
+    dft = torch.exp(-1j * ((2 * math.pi / n_fft) *
+                           (d[:, None] * k_sel[None, :])).to(rd)).to(cd)
+    return torch.einsum("upd,dk->upk", path_const, dft)
+
+
+def _path_sum(a_rx, a_tx, g):
+    """H [U, R, T, K] = sum_p a_rx a_tx g, complex: E = a_rx (x) a_tx
+    [U, R*T, P] then one batched product with g [U, P, K]."""
+    u, r, p = a_rx.shape
+    t = a_tx.shape[1]
+    e = (a_rx[:, :, None, :] * a_tx[:, None, :, :]).reshape(u, r * t, p)
+    return torch.einsum("uqp,upk->uqk", e, g).reshape(u, r, t, g.shape[-1])
+
+
+def _td_gain_planes(cfg: ChannelConfig, powers_lin, phase_deg, valid,
+                    t_snap, paths: PathData):
+    """Time-domain per-path gains as (gr, gi) planes [U, P]."""
+    amp = torch.where(valid, torch.sqrt(powers_lin),
+                      torch.zeros_like(powers_lin))
+    psi = torch.deg2rad(phase_deg)
+    if cfg.enable_doppler and paths.doppler_vel is not None:
+        psi = psi + _doppler_phase(cfg, paths.doppler_vel, paths.doppler_acc,
+                                   paths.delay_s + t_snap)
+    return amp * torch.cos(psi), amp * torch.sin(psi)
+
+
+def _td_channel_planes_ri(arx, atx, gr, gi):
+    """Time-domain H [U, R, T, P] planes (hr, hi) = (a_rx a_tx) g, all
+    elementwise (no path sum)."""
+    (arx_r, arx_i), (atx_r, atx_i) = arx, atx
+    er = (arx_r[:, :, None, :] * atx_r[:, None, :, :] -
+          arx_i[:, :, None, :] * atx_i[:, None, :, :])
+    ei = (arx_r[:, :, None, :] * atx_i[:, None, :, :] +
+          arx_i[:, :, None, :] * atx_r[:, None, :, :])
+    g_r = gr[:, None, None, :]
+    g_i = gi[:, None, None, :]
+    return er * g_r - ei * g_i, er * g_i + ei * g_r
+
+
+def _td_compact_active(cfg: ChannelConfig) -> bool:
+    """Does the time-domain render pack the valid paths to the front?
+    ``compact_td_paths`` True always, False never, "auto" when an FoV
+    filter is active (loaded path data is tail-padded, so only the FoV
+    punches interior holes)."""
+    if not cfg.compact_td_paths:
+        return False
+    if cfg.compact_td_paths == "auto":
+        return ((cfg.bs_fov is not None and not is_full_fov(cfg.bs_fov)) or
+                (cfg.ue_fov is not None and not is_full_fov(cfg.ue_fov)))
+    return True
+
+
+def _compact_paths(paths: PathData, valid, powers_lin, *angles):
+    """Valid path slots packed to the front in their order, then the
+    invalid ones (the reference's time-domain ordering): a stable sort of
+    each user's slots by invalidity and one gather per per-path array
+    (Doppler too), so each output slot is one input value, exactly.
+
+    Returns (paths, valid, powers_lin, *angles) in the new slot order.
+    """
+    order = torch.argsort((~valid).to(torch.uint8), dim=1, stable=True)
+
+    def take(x):
+        return torch.take_along_dim(x, order, dim=1)
+
+    new_valid = take(valid)
+    new_paths = dataclasses.replace(paths._map(take), valid=new_valid)
+    return (new_paths, new_valid, take(powers_lin),
+            *(take(a) for a in angles))
+
+
+def _angle_stage(cfg: ChannelConfig, paths: PathData, bs: AntennaPanel,
+                 ue: AntennaPanel):
+    """(paths, valid, powers_lin, aod_theta, aod_phi, aoa_theta, aoa_phi)
+    of the eager paths: rotated angles, the FoV mask, the pattern-weighted
+    linear powers and, in the time domain when :func:`_td_compact_active`,
+    every per-path array with its valid slots packed to the front."""
+    angles = _rotated_angles(paths, bs, ue)
+    valid = _fov_valid(cfg, paths.valid, *angles)
+    powers_lin = _powers_linear(cfg, paths, valid, *angles)
+    if not cfg.freq_domain and _td_compact_active(cfg):
+        return _compact_paths(paths, valid, powers_lin, *angles)
+    return (paths, valid, powers_lin, *angles)
 
 
 def _path_sum_planes_ri(arx, atx, gr, gi, mm_dtype: str = "float32"):
@@ -374,15 +487,36 @@ def _render_fused_planes(cfg: ChannelConfig, paths: PathData, valid,
     return h.view(2, u, r, t, n_s, n_k)
 
 
-def render_out_shape(n_ue: int, cfg: ChannelConfig):
+def render_out_shape(n_ue: int, cfg: ChannelConfig,
+                     max_paths: Optional[int] = None):
     """Shape of :func:`render_channels_planes`' output for ``n_ue`` users:
     packed [U, R, T, 2*S*K], stacked [2, U, R, T, K] and, with several
-    Doppler snapshots, [2, U, R, T, K, S]."""
+    Doppler snapshots, [2, U, R, T, K, S]. The time domain has a path axis
+    for the subcarriers, [2, U, R, T, P(, S)] with P = min(num_paths,
+    ``max_paths``), the paths' slot count, which it needs."""
     r, t, k = cfg.n_rx_ant, cfg.n_tx_ant, cfg.n_sel_subcarriers
     n_s = _fused_n_snap(cfg)
+    snaps = (n_s,) if n_s > 1 else ()
+    if not cfg.freq_domain:
+        if max_paths is None:
+            raise ValueError("render_out_shape needs the paths' max_paths "
+                             "in the time domain")
+        return (2, n_ue, r, t, min(cfg.num_paths, max_paths)) + snaps
     if _packed_layout(cfg):
         return (n_ue, r, t, 2 * n_s * k)
-    return (2, n_ue, r, t, k) + ((n_s,) if n_s > 1 else ())
+    return (2, n_ue, r, t, k) + snaps
+
+
+def _planes_out(cfg: ChannelConfig, outs, dtype, out):
+    """Planes of the per-snapshot (hr, hi) pairs ``outs`` in the layout of
+    :func:`render_out_shape`, in ``dtype`` or written into ``out``."""
+    if _packed_layout(cfg):              # hr of all (s, k), then hi
+        h = torch.cat([o[0] for o in outs] + [o[1] for o in outs], dim=-1)
+    elif len(outs) > 1:
+        h = torch.stack([torch.stack(o) for o in outs], dim=-1)
+    else:
+        h = torch.stack(outs[0])
+    return h.to(dtype) if out is None else out.copy_(h)
 
 
 # ============================================================================
@@ -393,26 +527,37 @@ def render_channels_planes(paths: PathData, bs: AntennaPanel,
                            ue: AntennaPanel, cfg: ChannelConfig,
                            out: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """Render OFDM channels as real/imag planes in ``cfg.out_dtype``
-    (float32, or bfloat16: half the bytes, ~2^-9 relative).
+    """Render channels as real/imag planes in :func:`planes_dtype`
+    (``cfg.out_dtype``: float32, or bfloat16, half the bytes at ~2^-9
+    relative; float64 for complex128).
 
     Layout (:func:`_packed_layout`, :func:`render_out_shape`), with S the
     Doppler snapshots:
     - stacked: [2, U, R, T, K], or [2, U, R, T, K, S] when S > 1 (time
-      axis last);
-    - packed (cfg.planes_layout == "packed", S*K % 64 == 0):
-      [U, R, T, 2*S*K], hr of every (s, k) snapshot-major in the first
-      minor half and hi in the second.
+      axis last); in the time domain P path slots replace the K
+      subcarriers;
+    - packed (cfg.planes_layout == "packed", frequency domain,
+      S*K % 64 == 0): [U, R, T, 2*S*K], hr of every (s, k) snapshot-major
+      in the first minor half and hi in the second.
+
+    The receive filter renders through :func:`render_channels` and is
+    split into planes; complex64 takes the fused kernel when
+    :func:`_fused_render_eligible`, else the eager planes path (the time
+    domain and complex128, in float64, among them).
 
     ``out``, when given, must have exactly that shape and dtype (on the
     paths' device); the result is written into it, overwriting what it
     held, and returned. Tensors are on the device of ``paths``.
     """
-    check_in_slice(cfg)
-    shape = render_out_shape(paths.n_ue, cfg)
-    dtype = _render.out_torch_dtype(cfg.out_dtype)
+    shape = render_out_shape(paths.n_ue, cfg, paths.max_paths)
+    dtype = planes_dtype(cfg)
     if out is not None:
         _render._check_layout("out", out, shape, paths.valid.device, dtype)
+    if _filtered(cfg):
+        h = render_channels(paths, bs, ue, cfg)
+        snaps = h.unbind(-1) if _fused_n_snap(cfg) > 1 else (h,)
+        return _planes_out(cfg, [(x.real, x.imag) for x in snaps], dtype,
+                           out)
     paths = paths.trim_paths(cfg.num_paths)
     packed = _packed_layout(cfg)
     if cfg.backend in ("pallas", "fused") and _fused_render_eligible(cfg):
@@ -429,63 +574,91 @@ def render_channels_planes(paths: PathData, bs: AntennaPanel,
         h = h.movedim(4, 5)              # [2, U, R, T, K, S]: time last
         return h.contiguous() if out is None else out.copy_(h)
 
-    aod_theta, aod_phi, aoa_theta, aoa_phi = _rotated_angles(paths, bs, ue)
-    valid = _fov_valid(cfg, paths.valid, aod_theta, aod_phi, aoa_theta,
-                       aoa_phi)
-    powers_lin = _powers_linear(cfg, paths, valid, aod_theta, aod_phi,
-                                aoa_theta, aoa_phi)
+    (paths, valid, powers_lin, aod_theta, aod_phi, aoa_theta,
+     aoa_phi) = _angle_stage(cfg, paths, bs, ue)
     arx = array_response_planes(cfg.ue_shape, ue.spacing, aoa_theta,
                                 aoa_phi, valid)
     atx = array_response_planes(cfg.bs_shape, bs.spacing, aod_theta,
                                 aod_phi, valid)
     snapshots = cfg.doppler_times if cfg.enable_doppler else (0.0,)
-    outs = [_path_sum_planes_ri(
-        arx, atx, *_ofdm_gain_planes(cfg, powers_lin, paths.delay_s,
-                                     paths.phase_deg, valid, t_snap, paths),
-        cfg.matmul_dtype) for t_snap in snapshots]
-    if packed:                           # hr of all (s, k), then hi
-        h = torch.cat([o[0] for o in outs] + [o[1] for o in outs], dim=-1)
-    elif len(outs) > 1:
-        h = torch.stack([torch.stack(o) for o in outs], dim=-1)
+    if cfg.freq_domain:
+        outs = [_path_sum_planes_ri(
+            arx, atx, *_ofdm_gain_planes(cfg, powers_lin, paths.delay_s,
+                                         paths.phase_deg, valid, t_snap,
+                                         paths),
+            _mm_dtype(cfg)) for t_snap in snapshots]
     else:
-        h = torch.stack(outs[0])
-    return h.to(dtype) if out is None else out.copy_(h)
+        outs = [_td_channel_planes_ri(arx, atx, *_td_gain_planes(
+            cfg, powers_lin, paths.phase_deg, valid, t_snap, paths))
+            for t_snap in snapshots]
+    return _planes_out(cfg, outs, dtype, out)
+
+
+def _filtered(cfg: ChannelConfig) -> bool:
+    """Does the sinc receive filter apply? It acts on the OFDM gains only,
+    so the time domain renders the same with and without it."""
+    return bool(cfg.rx_filter and cfg.freq_domain)
+
+
+def _mm_dtype(cfg: ChannelConfig) -> str:
+    """The ``matmul_dtype`` of the eager path sum and the beam gains: the
+    config's in complex64; complex128 runs in float64 at full grade, as
+    the JAX package's complex products."""
+    return cfg.matmul_dtype if cfg.dtype == "complex64" else "float32"
 
 
 def render_channels(paths: PathData, bs: AntennaPanel, ue: AntennaPanel,
                     cfg: ChannelConfig) -> torch.Tensor:
-    """Render complex64 MIMO channels [U, R, T, K] (frequency domain).
+    """Render MIMO channels in ``cfg.cdtype``: [U, R, T, K] in the
+    frequency domain, [U, R, T, P] (P = min(num_paths, the paths' slots))
+    in the time domain.
 
     With Doppler over several snapshots a trailing time axis is added:
-    [U, R, T, K, len(cfg.doppler_times)]. ``backend`` "pallas" takes the
-    path-sum kernel; any other backend the eager planes product. Both stay
-    f32 grade whatever ``matmul_dtype`` (which must be one of
-    :data:`kernels.render.MM_PASSES`): the JAX path-sum kernel takes no
-    ``mm_dtype``.
+    [..., len(cfg.doppler_times)]. Without the receive filter the render
+    goes through the array-response planes, in the real dtype of the
+    paths (float64 for complex128): in the frequency domain with
+    ``backend`` "pallas" and complex64 the path-sum kernel, else the eager
+    planes product. Both stay f32 grade whatever ``matmul_dtype`` (which
+    must be one of :data:`kernels.render.MM_PASSES`): the JAX path-sum
+    kernel takes no ``mm_dtype``. The filter goes through the complex
+    stages (:func:`_ofdm_path_gains`, :func:`_path_sum`), as in the JAX
+    package.
     """
-    _check_complex_path(cfg)
+    _render.mm_passes(cfg.matmul_dtype)
     paths = paths.trim_paths(cfg.num_paths)
-    aod_theta, aod_phi, aoa_theta, aoa_phi = _rotated_angles(paths, bs, ue)
-    valid = _fov_valid(cfg, paths.valid, aod_theta, aod_phi, aoa_theta,
-                       aoa_phi)
-    powers_lin = _powers_linear(cfg, paths, valid, aod_theta, aod_phi,
-                                aoa_theta, aoa_phi)
-    arx = array_response_planes(cfg.ue_shape, ue.spacing, aoa_theta,
-                                aoa_phi, valid)
-    atx = array_response_planes(cfg.bs_shape, bs.spacing, aod_theta,
-                                aod_phi, valid)
+    (paths, valid, powers_lin, aod_theta, aod_phi, aoa_theta,
+     aoa_phi) = _angle_stage(cfg, paths, bs, ue)
+    if _filtered(cfg):
+        a_rx = array_response(cfg.ue_shape, ue.spacing, aoa_theta, aoa_phi,
+                              valid, cfg.cdtype)
+        a_tx = array_response(cfg.bs_shape, bs.spacing, aod_theta, aod_phi,
+                              valid, cfg.cdtype)
+    else:
+        arx = array_response_planes(cfg.ue_shape, ue.spacing, aoa_theta,
+                                    aoa_phi, valid)
+        atx = array_response_planes(cfg.bs_shape, bs.spacing, aod_theta,
+                                    aod_phi, valid)
     snapshots = cfg.doppler_times if cfg.enable_doppler else (0.0,)
     outs = []
     for t_snap in snapshots:
-        if cfg.backend == "pallas":
+        if _filtered(cfg):
+            h = _path_sum(a_rx, a_tx, _ofdm_path_gains(
+                cfg, powers_lin, paths.delay_s, paths.phase_deg, valid,
+                t_snap, paths))
+        elif (cfg.freq_domain and cfg.backend == "pallas"
+              and cfg.dtype == "complex64"):
             h = _path_sum_pallas(cfg, arx, atx, powers_lin, paths, valid,
                                  t_snap)
-        else:
+        elif cfg.freq_domain:
             gr, gi = _ofdm_gain_planes(cfg, powers_lin, paths.delay_s,
                                        paths.phase_deg, valid, t_snap,
                                        paths)
             h = torch.complex(*_path_sum_planes_ri(arx, atx, gr, gi))
-        outs.append(h)
+        else:
+            h = torch.complex(*_td_channel_planes_ri(arx, atx,
+                                                     *_td_gain_planes(
+                cfg, powers_lin, paths.phase_deg, valid, t_snap, paths)))
+        outs.append(h.to(cfg.cdtype))
     return torch.stack(outs, dim=-1) if len(outs) > 1 else outs[0]
 
 
@@ -541,9 +714,9 @@ def unpack_planes_np(arr, cfg: ChannelConfig) -> np.ndarray:
     """Host-side inverse of :func:`render_channels_planes`' layouts.
 
     Takes the planes (a numpy array or a tensor, :func:`planes_to_numpy`)
-    and returns the complex channel [U, R, T, K] (complex64 for float32 or
-    bfloat16 planes), with a trailing time axis for multi-snapshot
-    Doppler.
+    and returns the complex channel [U, R, T, K], or [U, R, T, P] in the
+    time domain (complex64 for float32 or bfloat16 planes, complex128 for
+    float64), with a trailing time axis for multi-snapshot Doppler.
     """
     arr = planes_to_numpy(arr)
     cdt = np.complex128 if arr.dtype == np.float64 else np.complex64
@@ -582,20 +755,21 @@ def _check_beam_gain_cfg(cfg: ChannelConfig, what: str) -> None:
             f"{what} does not take the receive filter (rx_filter): the "
             f"beam-gain fold renders the unfiltered channel; render "
             f"channels with the filter and fold the codebook downstream.")
-    if cfg.dtype != "complex64":
-        raise not_ported(f"Beam gains with compute_dtype={cfg.dtype!r}",
-                         "9 (non-fused paths)")
     _render.mm_passes(cfg.matmul_dtype)
 
 
 def beam_gain_eligible(cfg: ChannelConfig, n_beams: int) -> bool:
     """Can beam gains render through the CUDA kernel? Same answer on every
-    device: :func:`_kernel_config` plus the kernel's shared-memory bound
-    (which does not grow with the slots, so it holds for dual-polar too).
+    device: the JAX package's gate of its beam-gain kernel (frequency
+    domain, arithmetic subcarriers, whatever the dtype; the filter is
+    refused before) plus the kernel's shared-memory bound in the config's
+    real dtype (which does not grow with the slots, so it holds for
+    dual-polar too).
     """
-    return _kernel_config(cfg) and _beamgain.beam_gain_fits(
+    return bool(cfg.freq_domain and not cfg.rx_filter
+                and _k_progression(cfg)) and _beamgain.beam_gain_fits(
         cfg.ue_shape, cfg.bs_shape, n_beams, cfg.num_paths,
-        len(cfg.selected_subcarriers))
+        len(cfg.selected_subcarriers), cfg.dtype == "complex128")
 
 
 def _on_card(dev: torch.device) -> bool:
@@ -607,10 +781,11 @@ def _beam_gain_route(cfg: ChannelConfig, n_beams: int,
     """Kernel (True) or plain version (False) for the beam-gain maps.
 
     ``backend`` "xla" takes the plain version. The fused backends take the
-    kernel wrapper, whose CPU route is the plain version; past the kernel's
-    shared memory they take the plain version on the CPU (as the JAX
-    package does) and raise on the card, where the plain version would
-    form the whole channel in device memory.
+    kernel wrapper (its float64 instantiation for complex128), whose CPU
+    route is the plain version; past the kernel's shared memory they take
+    the plain version on the CPU (as the JAX package does) and raise on
+    the card, where the plain version would form the whole channel in
+    device memory.
     """
     if cfg.backend not in ("pallas", "fused"):
         return False
@@ -620,42 +795,47 @@ def _beam_gain_route(cfg: ChannelConfig, n_beams: int,
         return False
     n_k = len(cfg.selected_subcarriers)
     need = _beamgain.smem_bytes(cfg.ue_shape, cfg.bs_shape, n_beams,
-                                cfg.num_paths, n_k)
+                                cfg.num_paths, n_k,
+                                cfg.dtype == "complex128")
     raise ValueError(
         f"Beam gains at R={cfg.n_rx_ant}, T={cfg.n_tx_ant}, B={n_beams}, "
-        f"K={n_k}, P={cfg.num_paths} need {need} bytes of the beam-gain "
-        f"kernel's shared memory, over its {_render.SMEM_LIMIT}-byte bound; "
-        f"use fewer beams or TX elements, or backend='xla' for the plain "
-        f"version.")
+        f"K={n_k}, P={cfg.num_paths} in {cfg.dtype} need {need} bytes of "
+        f"the beam-gain kernel's shared memory, over its "
+        f"{_render.SMEM_LIMIT}-byte bound; use fewer beams or TX elements, "
+        f"or backend='xla' for the plain version.")
 
 
 def _beam_gains(cfg: ChannelConfig, args, wr, wi,
                 out: Optional[torch.Tensor]):
-    """G [U, R*B, S*K] from the 7 masked per-path inputs, through the
-    route of :func:`_beam_gain_route`; ``out`` (that shape) is written in
-    place."""
+    """G [U, R*B, S*K] in ``cfg.rdtype`` from the 7 masked per-path
+    inputs, through the route of :func:`_beam_gain_route`; ``out`` (that
+    shape) is written in place. complex128 folds in float64 at full grade
+    whatever ``matmul_dtype`` (:func:`_mm_dtype`)."""
     dev = args[-1].device
-    wr = torch.as_tensor(wr, dtype=torch.float32, device=dev).contiguous()
-    wi = torch.as_tensor(wi, dtype=torch.float32, device=dev).contiguous()
+    rd = cfg.rdtype
+    args = [x.to(rd) for x in args]
+    wr = torch.as_tensor(wr, dtype=rd, device=dev).contiguous()
+    wi = torch.as_tensor(wi, dtype=rd, device=dev).contiguous()
     n_k = len(cfg.selected_subcarriers)
     u, p = args[-1].shape
     shape = (u, cfg.n_rx_ant * wr.shape[0], args[5].shape[1] // p * n_k)
     if out is not None:
-        _render._check_layout("out", out, shape, dev)
+        _render._check_layout("out", out, shape, dev, rd)
+    mm = _mm_dtype(cfg)
     if _beam_gain_route(cfg, wr.shape[0], dev):
         return _beamgain.fused_beam_gain(*args, wr, wi, cfg.ue_shape,
                                          cfg.bs_shape, n_k, out=out,
-                                         mm_dtype=cfg.matmul_dtype)
+                                         mm_dtype=mm)
     g = _beamgain.beam_gain_reference(*args, wr, wi, cfg.ue_shape,
-                                      cfg.bs_shape, n_k, cfg.matmul_dtype)
+                                      cfg.bs_shape, n_k, mm)
     return g if out is None else out.copy_(g)
 
 
 def render_beam_gains(paths: PathData, bs: AntennaPanel, ue: AntennaPanel,
                       cfg: ChannelConfig, wr, wi,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Codebook beam-gain maps G [U, R*B, S*K] (float32, snapshot-major
-    columns) without materializing H.
+    """Codebook beam-gain maps G [U, R*B, S*K] (float32, float64 for
+    complex128; snapshot-major columns) without materializing H.
 
     G[u, r*B + b, k] = |sum_t conj(w[b, t]) H[u, r, t, k]|^2, with the
     codebook folded into the path sum (``ops/kernels/beamgain.py``): H is
@@ -664,13 +844,14 @@ def render_beam_gains(paths: PathData, bs: AntennaPanel, ue: AntennaPanel,
     Args:
         wr/wi: codebook real/imag planes [B, T] (conj applied inside,
             matching ``abs(h @ codebook.conj().T)**2``).
-        out: a contiguous float32 [U, R*B, S*K] tensor on the paths'
+        out: a contiguous [U, R*B, S*K] tensor of G's dtype on the paths'
             device, overwritten with the result.
 
     The "xla" backend runs the plain version; so do shapes beyond the
     kernel's shared memory on the CPU, while on the card they raise
-    (ValueError). Frequency domain and arithmetic subcarrier selections
-    only; the receive filter is refused (ValueError).
+    (ValueError). complex128 takes the kernel's float64 instantiation.
+    Frequency domain and arithmetic subcarrier selections only; the
+    receive filter is refused (ValueError).
     """
     _check_beam_gain_cfg(cfg, "render_beam_gains")
     paths = paths.trim_paths(cfg.num_paths)

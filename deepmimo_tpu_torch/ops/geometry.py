@@ -151,6 +151,35 @@ def array_response_phase(theta_rad: torch.Tensor, phi_rad: torch.Tensor,
             kd * torch.cos(theta_rad))
 
 
+def _panel_phase(panel_shape: Tuple[int, int], spacing,
+                 theta_rad: torch.Tensor, phi_rad: torch.Tensor):
+    """Element phases y_n ky + z_n kz of a panel, [U, N, P]."""
+    kd = 2 * math.pi * spacing
+    _, ky, kz = array_response_phase(theta_rad, phi_rad, kd)
+    pos = ant_indices(panel_shape)
+    y = torch.as_tensor(pos[:, 1], dtype=theta_rad.dtype,
+                        device=theta_rad.device)
+    z = torch.as_tensor(pos[:, 2], dtype=theta_rad.dtype,
+                        device=theta_rad.device)
+    return y[None, :, None] * ky[:, None, :] + \
+        z[None, :, None] * kz[:, None, :]
+
+
+def array_response(panel_shape: Tuple[int, int], spacing,
+                   theta_rad: torch.Tensor, phi_rad: torch.Tensor,
+                   valid: Optional[torch.Tensor] = None,
+                   dtype: torch.dtype = torch.complex64) -> torch.Tensor:
+    """Complex array response [U, N, P] in ``dtype``: exp(j (y_n ky +
+    z_n kz)) with the phase in ``dtype``'s real precision; invalid paths
+    give zeros."""
+    phase = _panel_phase(panel_shape, spacing, theta_rad, phi_rad)
+    rd = torch.float64 if dtype == torch.complex128 else torch.float32
+    resp = torch.exp(1j * phase.to(rd))
+    if valid is not None:
+        resp = torch.where(valid[:, None, :], resp, torch.zeros_like(resp))
+    return resp
+
+
 def array_response_planes(panel_shape: Tuple[int, int], spacing,
                           theta_rad: torch.Tensor, phi_rad: torch.Tensor,
                           valid: Optional[torch.Tensor] = None
@@ -159,15 +188,7 @@ def array_response_planes(panel_shape: Tuple[int, int], spacing,
 
     response[n] = exp(j (y_n ky + z_n kz)); invalid paths give zeros.
     """
-    kd = 2 * math.pi * spacing
-    _, ky, kz = array_response_phase(theta_rad, phi_rad, kd)
-    pos = ant_indices(panel_shape)
-    y = torch.as_tensor(pos[:, 1], dtype=theta_rad.dtype,
-                        device=theta_rad.device)
-    z = torch.as_tensor(pos[:, 2], dtype=theta_rad.dtype,
-                        device=theta_rad.device)
-    phase = y[None, :, None] * ky[:, None, :] + \
-        z[None, :, None] * kz[:, None, :]
+    phase = _panel_phase(panel_shape, spacing, theta_rad, phi_rad)
     re, im = torch.cos(phase), torch.sin(phase)
     if valid is not None:
         v = valid[:, None, :]

@@ -37,13 +37,18 @@ Source note.
   runs it at HIGHEST for "float32", and at DEFAULT for the others, which
   is one pass on the TPU but f32 in the interpret mode the port is held
   against on the CPU.
+- Scalar type: float64 inputs (complex128 configs, which the JAX package
+  sends to the same TPU kernel) run the kernel's float64 instantiation,
+  every product and sincos in FP64, at "float32" and "highest" only. Its
+  complex buffers are twice the bytes, so :func:`smem_bytes` halves the
+  codebook it takes (T*B <= 14,240).
 
 :func:`fused_beam_gain` is the ``apply`` of :class:`FusedBeamGain`: CUDA
 tensors launch the kernel or raise, CPU tensors take the plain version
 :func:`beam_gain_reference`. Its backward is the VJP of the plain version,
 recomputed, as in the JAX package (which has no backward kernel here).
 ``LAUNCHES`` counts kernel launches, ``MODE_LAUNCHES`` those of each mode
-(``render.mode_key``: "f32" or "bf16_mm").
+(:func:`beam_gain_mode`: "f32", "bf16_mm" or "f64").
 """
 
 from __future__ import annotations
@@ -67,39 +72,54 @@ _PITCH = 18             # complex entries per row of a warp's two buffers
 
 
 def smem_bytes(rx_shape, tx_shape, n_beams: int, n_paths: int,
-               n_k: int) -> int:
+               n_k: int, f64: bool = False) -> int:
     """Shared memory of one block (mirrors ``plan`` in
     ``csrc/beamgain.cu``): conj(W) [T, B] complex, rounded up to 16 bytes,
     then per warp two [chunk, 18] complex buffers (E of one 16-row tile and
-    the OFDM tables of one 64-column tile). The chunk is 32 paths, or 8
-    when a codebook leaves no room for one warp of 32; then as many warps
-    as fit, at most 8. Neither the paths, the RX elements, the subcarriers
-    nor the slots count; past the bound it returns the bytes of one warp
-    of 8 paths, which do not fit."""
+    the OFDM tables of one 64-column tile); a complex entry is 8 bytes, 16
+    with ``f64``. The chunk is 32 paths, or 8 when a codebook leaves no
+    room for one warp of 32; then as many warps as fit, at most 8. Neither
+    the paths, the RX elements, the subcarriers nor the slots count; past
+    the bound it returns the bytes of one warp of 8 paths, which do not
+    fit."""
     del rx_shape, n_paths, n_k
     t = tx_shape[0] * tx_shape[1]
-    cw = 16 * ((t * n_beams + 1) // 2)
+    ce = 16 if f64 else 8
+    cw = 16 * -(-t * n_beams * ce // 16)
     for chunk in (32, 8):
-        per_warp = 2 * 8 * chunk * _PITCH
+        per_warp = 2 * ce * chunk * _PITCH
         if cw + per_warp <= SMEM_LIMIT:
             return cw + min(_MAX_WARPS, (SMEM_LIMIT - cw) // per_warp) * \
                 per_warp
-    return cw + 2 * 8 * 8 * _PITCH
+    return cw + 2 * ce * 8 * _PITCH
 
 
 def beam_gain_fits(rx_shape, tx_shape, n_beams: int, n_paths: int,
-                   n_k: int) -> bool:
+                   n_k: int, f64: bool = False) -> bool:
     """Does the CUDA kernel take this shape? (Device-independent.)
 
     The only bound is the block's shared memory (:func:`smem_bytes` <=
     227 KB), which holds conj(W) and one warp: T*B <= 28,768 (up to 449
-    beams of an 8 x 8 panel), with any number of paths, RX elements,
-    subcarriers and slots.
+    beams of an 8 x 8 panel), 14,240 in float64 (``f64``), with any
+    number of paths, RX elements, subcarriers and slots.
     """
     if min(*rx_shape, *tx_shape, n_beams, n_paths, n_k) < 1:
         return False
-    return smem_bytes(rx_shape, tx_shape, n_beams, n_paths,
-                      n_k) <= SMEM_LIMIT
+    return smem_bytes(rx_shape, tx_shape, n_beams, n_paths, n_k,
+                      f64) <= SMEM_LIMIT
+
+
+def beam_gain_mode(mm_dtype: str = "float32",
+                   dtype: torch.dtype = torch.float32) -> str:
+    """Key of ``MODE_LAUNCHES``: ``render.mode_key`` in float32, "f64" for
+    the float64 instantiation (which runs "float32"/"highest" only;
+    ValueError for a one-pass ``mm_dtype``)."""
+    if dtype != torch.float64:
+        return mode_key(mm_dtype)
+    if mm_passes(mm_dtype) != 3:
+        raise ValueError(f"matmul_dtype={mm_dtype!r}: the float64 beam-gain "
+                         f"kernel has no bf16 mode; use 'float32'")
+    return "f64"
 
 
 def codebook_gain(wr, wi, hr, hi) -> torch.Tensor:
@@ -130,7 +150,7 @@ def beam_gain_reference(gry, grz, gty, gtz, amp, psi, omega, wr, wi,
             ``np.abs(H @ W.conj().T)**2``.
 
     Returns:
-        G [U, R*B, S*K] float32, rows r-major.
+        G [U, R*B, S*K] in the inputs' dtype, rows r-major.
     """
     rnd = operand_rounding(mm_dtype)
     u, p = omega.shape
@@ -160,13 +180,14 @@ def beam_gain_reference(gry, grz, gty, gtz, amp, psi, omega, wr, wi,
     return yr * yr + yi * yi
 
 
-def _check_codebook(wr, wi, tx_shape, dev):
+def _check_codebook(wr, wi, tx_shape, dev, dtype):
     t = tx_shape[0] * tx_shape[1]
     for name, w in (("wr", wr), ("wi", wi)):
         if not isinstance(w, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
-        if w.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32; got {w.dtype}")
+        if w.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype} like omega; got "
+                            f"{w.dtype}")
         if w.device != dev:
             raise ValueError(f"{name} is on {w.device}, omega on {dev}")
         if not w.is_contiguous():
@@ -182,15 +203,18 @@ def _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out,
                mm_dtype="float32"):
     """The forward without autograd: kernel on CUDA, plain on the CPU."""
     global LAUNCHES
-    u, p, n_s, n_sa = _check_inputs(args, rx_shape, tx_shape, n_k)
-    passes = mm_passes(mm_dtype)
+    u, p, n_s, n_sa = _check_inputs(args, rx_shape, tx_shape, n_k,
+                                    (torch.float32, torch.float64))
+    dtype = args[-1].dtype
+    f64 = dtype == torch.float64
+    mode = beam_gain_mode(mm_dtype, dtype)
     r1, r2 = (int(x) for x in rx_shape)
     t1, t2 = (int(x) for x in tx_shape)
     dev = args[-1].device
-    n_b = _check_codebook(wr, wi, (t1, t2), dev)
+    n_b = _check_codebook(wr, wi, (t1, t2), dev, dtype)
     shape = (u, r1 * r2 * n_b, n_s * n_k)
     if out is not None:
-        _check_layout("out", out, shape, dev)
+        _check_layout("out", out, shape, dev, dtype)
     if dev.type == "cpu":
         g = beam_gain_reference(*args, wr, wi, (r1, r2), (t1, t2), n_k,
                                 mm_dtype)
@@ -198,25 +222,25 @@ def _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out,
     if dev.type != "cuda":
         raise ValueError(f"fused_beam_gain runs on CUDA or CPU tensors, not "
                          f"{dev}")
-    if not beam_gain_fits((r1, r2), (t1, t2), n_b, p, n_k):
+    if not beam_gain_fits((r1, r2), (t1, t2), n_b, p, n_k, f64):
         raise ValueError(
             f"shape exceeds the kernel's shared memory: R={r1 * r2}, "
-            f"T={t1 * t2}, B={n_b}, K={n_k}, P={p} needs "
-            f"{smem_bytes((r1, r2), (t1, t2), n_b, p, n_k)} > "
+            f"T={t1 * t2}, B={n_b}, K={n_k}, P={p}, {dtype} needs "
+            f"{smem_bytes((r1, r2), (t1, t2), n_b, p, n_k, f64)} > "
             f"{SMEM_LIMIT} bytes")
     if out is None:
-        out = torch.empty(shape, dtype=torch.float32, device=dev)
+        out = torch.empty(shape, dtype=dtype, device=dev)
     cw = torch.stack((wr.t(), wi.t().neg()), -1)    # conj(W), [T, B, 2]
     launch = _build.launcher("beamgain", 9, 11)
     with torch.cuda.device(dev):
         rc = launch(*(x.data_ptr() for x in args), cw.data_ptr(),
                     out.data_ptr(), u, p, r1, r2, t1, t2, n_b, n_k, n_s,
-                    n_sa, int(passes == 1),
+                    n_sa, {"f32": 0, "bf16_mm": 1, "f64": 2}[mode],
                     torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"beamgain launch failed with CUDA error {rc}")
     LAUNCHES += 1
-    _count(MODE_LAUNCHES, mode_key(mm_dtype))
+    _count(MODE_LAUNCHES, mode)
     return out
 
 
@@ -252,16 +276,18 @@ def fused_beam_gain(gry, grz, gty, gtz, amp, psi, omega, wr, wi,
                     rx_shape: Tuple[int, int], tx_shape: Tuple[int, int],
                     n_k: int, out: Optional[torch.Tensor] = None,
                     mm_dtype: str = "float32") -> torch.Tensor:
-    """Beam-gain maps G [U, R*B, S*K] (float32) from per-path scalars and a
-    codebook.
+    """Beam-gain maps G [U, R*B, S*K] from per-path scalars and a codebook,
+    in the inputs' dtype (float32, or float64 for the kernel's float64
+    instantiation).
 
-    Inputs as in :func:`..render.fused_render` (float32, contiguous, one
-    device, invalid paths zeroed; psi [U, S*P], amp [U, P] or [U, S*P]),
-    plus the codebook planes ``wr``/``wi`` [B, T]. ``out``, when given, must
-    be a contiguous float32 tensor of that shape on the same device; the
-    result is written into it. ``mm_dtype`` "bfloat16"/"default" rounds
-    the path sum's operands to bf16; "float32"/"highest" keep f32 grade;
-    others raise ValueError.
+    Inputs as in :func:`..render.fused_render` (all float32 or all
+    float64, contiguous, one device, invalid paths zeroed; psi [U, S*P],
+    amp [U, P] or [U, S*P]), plus the codebook planes ``wr``/``wi`` [B, T]
+    of the same dtype. ``out``, when given, must be a contiguous tensor of
+    that shape and dtype on the same device; the result is written into
+    it. ``mm_dtype`` "bfloat16"/"default" rounds the path sum's operands
+    to bf16 (float32 only); "float32"/"highest" keep full grade; others
+    raise ValueError.
 
     Differentiable through :class:`FusedBeamGain` (gradients reach the
     codebook and the 7 per-path inputs). ``out=`` writes in place outside

@@ -255,17 +255,22 @@ def fused_render_reference(gry, grz, gty, gtz, amp, psi, omega,
     return torch.cat((hr, hi), dim=-1) if packed else torch.stack((hr, hi))
 
 
-def _check_inputs(args, rx_shape, tx_shape, n_k):
+def _check_inputs(args, rx_shape, tx_shape, n_k,
+                  dtypes=(torch.float32,)):
+    """(U, P, S, n_sa) of the 7 per-path inputs, all of one dtype among
+    ``dtypes``, or TypeError/ValueError."""
     names = ("gry", "grz", "gty", "gtz", "amp", "psi", "omega")
     omega = args[-1]
     if omega.dim() != 2:
         raise ValueError(f"omega must be [U, P]; got {tuple(omega.shape)}")
     u, p = omega.shape
+    want = omega.dtype if omega.dtype in dtypes else dtypes[0]
     for name, x in zip(names, args):
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32; got {x.dtype}")
+        if x.dtype != want:
+            raise TypeError(f"{name} must be {want} (one of {dtypes}, like "
+                            f"omega); got {x.dtype}")
         if x.device != omega.device:
             raise ValueError(f"{name} is on {x.device}, omega on "
                              f"{omega.device}")

@@ -12,7 +12,7 @@ JAX pytrees, and every constructor takes an explicit ``device``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -128,8 +128,7 @@ class ChannelConfig:
     """Static channel-generation configuration (hashable).
 
     Same fields and defaults as ``deepmimo_tpu.ops.types.ChannelConfig``
-    except the TPU kernel-layout flags, which have no counterpart here,
-    and the time-domain ``compact_td_paths`` (not ported yet).
+    except the TPU kernel-layout flags, which have no counterpart here.
     """
 
     bs_shape: Tuple[int, int] = (8, 1)
@@ -151,6 +150,12 @@ class ChannelConfig:
     enable_doppler: bool = False
     carrier_freq: float = 3.5e9
     doppler_times: Tuple[float, ...] = (0.0,)
+    # Time-domain path compaction (valid paths packed to the front of the
+    # path axis, as the reference orders them). "auto" compacts only when
+    # an FoV filter is active: loaded path data is tail-padded, so only
+    # the FoV punches interior holes. True always compacts (hand-built
+    # path data with interior holes); False never.
+    compact_td_paths: Union[bool, str] = "auto"
     # Precision of the complex output
     dtype: str = "complex64"
     # Product precision of the fused kernels (config.py "matmul_dtype"):
@@ -191,10 +196,11 @@ class ChannelConfig:
         return dataclasses.replace(self, **kw)
 
 
-def _tensor_from_numpy(x, dev: torch.device) -> torch.Tensor:
+def _tensor_from_numpy(x, dev: torch.device,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     x = np.array(x)                      # owned, writable copy
     return torch.as_tensor(x, device=dev, dtype=torch.bool
-                           if x.dtype == np.bool_ else torch.float32)
+                           if x.dtype == np.bool_ else dtype)
 
 
 def state_from_numpy(paths: dict, bs: dict, ue: dict, cfg: dict,
@@ -205,10 +211,13 @@ def state_from_numpy(paths: dict, bs: dict, ue: dict, cfg: dict,
     ``paths`` maps PathData field names to arrays (``valid`` bool, the
     rest already zero-filled) or None; ``bs``/``ue`` map ``rotation_deg``
     and ``spacing``; ``cfg`` maps ChannelConfig field names to values —
-    keys the port has no field for (TPU layout flags) are dropped.
+    keys the port has no field for (TPU layout flags) are dropped. The
+    float tensors are float64 for a complex128 ``cfg``, else float32.
     """
     dev = _device(device)
-    tensor = lambda x: _tensor_from_numpy(x, dev)
+    dtype = torch.float64 if cfg.get("dtype") == "complex128" else \
+        torch.float32
+    tensor = lambda x: _tensor_from_numpy(x, dev, dtype)
     pd = PathData(**{f.name: None if paths.get(f.name) is None
                      else tensor(paths[f.name])
                      for f in dataclasses.fields(PathData)})

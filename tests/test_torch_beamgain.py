@@ -229,6 +229,106 @@ def test_beam_gain_fits_is_the_shared_memory_bound():
     assert not kb.beam_gain_fits((1, 1), (8, 8), 16, 0, 64)
 
 
+def test_float64_shared_memory_bound():
+    """The float64 instantiation's complex entries are 16 bytes, so conj(W)
+    and the warps' buffers take twice the bytes: T*B <= 14,240."""
+    f64 = dict(f64=True)
+    # headline: conj(W) 64 x 16 (16,384 bytes), 8 warps of 18,432
+    assert kb.smem_bytes((1, 1), (8, 8), 16, 25, 64, **f64) == \
+        16_384 + 8 * 18_432
+    # the last codebook with room for one warp of 32 paths, then chunks
+    # of 8 (4,608 bytes per warp)
+    assert kb.smem_bytes((1, 1), (8, 8), 209, 25, 64, **f64) == 232_448
+    assert kb.smem_bytes((1, 1), (8, 8), 215, 25, 64, **f64) == \
+        220_160 + 2 * 4_608
+    # odd T*B needs no rounding: every entry is 16 bytes
+    assert kb.smem_bytes((2, 2), (4, 4), 5, 100, 17, **f64) == \
+        1_280 + 8 * 18_432
+    assert kb.beam_gain_fits((1, 1), (8, 8), 222, 25, 64, **f64)
+    assert not kb.beam_gain_fits((1, 1), (8, 8), 223, 25, 64, **f64)
+    assert kb.beam_gain_fits((1, 1), (8, 8), 223, 25, 64)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_float64_matches_numpy_fold_and_jax_kernel(name):
+    """Float64 inputs (complex128 configs) through the wrapper, whose CPU
+    route is the plain version in float64: |conj(W) H|^2 in float64 numpy
+    from the float64 render of the same scalars within 1e-9 * max|G|, and
+    JAX's Pallas kernel in interpret mode on the same float64 inputs
+    within RTOL (it returns float32)."""
+    import jax.numpy as jnp
+    from deepmimo_tpu.ops.pallas.beamgain import fused_beam_gain
+
+    from deepmimo_tpu_torch.ops.kernels.render import fused_render_reference
+
+    arrs, w, rx, tx, k = _case(name, seed=7)
+    a64 = [a.astype(np.float64) for a in (*arrs, *w)]
+    targs = [torch.from_numpy(a) for a in a64]
+    before = kb.LAUNCHES
+    got = kb.fused_beam_gain(*targs, rx, tx, k)
+    assert kb.LAUNCHES == before and got.dtype == torch.float64
+    assert torch.equal(got, kb.beam_gain_reference(*targs, rx, tx, k))
+    h = fused_render_reference(*targs[:7], rx, tx, k, packed=False)
+    assert h.dtype == torch.float64
+    u, r, t = arrs[0].shape[0], rx[0] * rx[1], tx[0] * tx[1]
+    hc = (h[0] + 1j * h[1]).numpy().reshape(u, r, t, -1)
+    wc = a64[7] + 1j * a64[8]
+    want = (np.abs(np.einsum("bt,urtk->urbk", wc.conj(), hc)) ** 2
+            ).reshape(u, -1, hc.shape[-1])
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-9 * want.max())
+    jk = np.asarray(fused_beam_gain(*(jnp.asarray(a) for a in a64), rx, tx,
+                                    k, user_tile=8, interpret=True))
+    np.testing.assert_allclose(got.numpy(), jk, rtol=0,
+                               atol=RTOL * want.max())
+
+
+def test_float64_refuses_bf16_and_mixed_dtypes():
+    arrs, w, rx, tx, k = _case("multi_rx", seed=8)
+    args = [torch.from_numpy(a).double() for a in (*arrs, *w)]
+    assert kb.beam_gain_mode("float32", torch.float64) == "f64"
+    assert kb.beam_gain_mode("highest", torch.float64) == "f64"
+    assert kb.beam_gain_mode("bfloat16", torch.float32) == "bf16_mm"
+    with pytest.raises(ValueError, match="bf16"):
+        kb.fused_beam_gain(*args, rx, tx, k, mm_dtype="bfloat16")
+    out32 = torch.empty(12, 16, 16)
+    with pytest.raises(ValueError, match="float64"):
+        kb.fused_beam_gain(*args, rx, tx, k, out=out32)
+    args[3] = args[3].float()
+    with pytest.raises(TypeError, match="gtz"):
+        kb.fused_beam_gain(*args, rx, tx, k)
+
+
+def test_float64_beyond_shared_memory_plain_on_cpu_raises_on_card(
+        monkeypatch):
+    """complex128 beam gains take the float64 instantiation, whose bound is
+    T*B <= 14,240: 223 beams of an 8 x 8 panel run the plain version on
+    CPU tensors and raise on the card (device check patched); 222 beams
+    take the kernel wrapper."""
+    _, (pd, bs, ue, cfg) = _state("isotropic")
+    cfg = cfg.replace(dtype="complex128")
+    wr, wi = (torch.from_numpy(x) for x in _codebook(223, 64))
+    assert not tch.beam_gain_eligible(cfg, 223)
+    assert tch.beam_gain_eligible(cfg, 222)
+    assert tch.beam_gain_eligible(cfg.replace(dtype="complex64"), 223)
+    xla = cfg.replace(backend="xla")
+    want = tch.render_beam_gains(pd, bs, ue, xla, wr, wi)
+    assert want.dtype == torch.float64 and torch.isfinite(want).all()
+    assert torch.equal(tch.render_beam_gains(pd, bs, ue, cfg, wr, wi), want)
+    monkeypatch.setattr(tch, "_on_card", lambda dev: True)
+    with pytest.raises(ValueError, match="complex128"):
+        tch.render_beam_gains(pd, bs, ue, cfg, wr, wi)
+    calls = []
+    real = kb.fused_beam_gain
+    monkeypatch.setattr(kb, "fused_beam_gain", lambda *a, **kw: (
+        calls.append((a[0].dtype, kw["mm_dtype"])), real(*a, **kw))[1])
+    got = tch.render_beam_gains(pd, bs, ue, cfg.replace(
+        matmul_dtype="bfloat16"), wr[:222], wi[:222])
+    assert calls == [(torch.float64, "float32")]
+    assert torch.equal(got, tch.render_beam_gains(pd, bs, ue, xla,
+                                                  wr[:222], wi[:222]))
+
+
 def _old_smem_bytes(rx_shape, tx_shape, n_beams, n_paths, n_k):
     """The one-block-per-user kernel's shared memory, as it was: conj(W)
     [T, B], a_tx [T, P] sharing its space with one slot's g [P, K], E
@@ -435,15 +535,6 @@ def test_beyond_shared_memory_plain_on_cpu_raises_on_card(polar,
     assert torch.equal(got, fn(pd, bs, ue, xla, *pol, wr[:16], wi[:16]))
 
 
-@pytest.mark.parametrize("change", [dict(dtype="complex128")],
-                         ids=["complex128"])
-def test_render_beam_gains_not_ported(change):
-    _, (pd, bs, ue, cfg) = _state("isotropic")
-    wr, wi = _codebook(4, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tch.render_beam_gains(pd, bs, ue, cfg.replace(**change), wr, wi)
-
-
 @pytest.fixture
 def port_on_cpu():
     """The port renders on the CPU here (its config default is "cuda")."""
@@ -597,6 +688,33 @@ def test_cuda_kernel_one_pass_matches_plain_version(cuda, name):
     assert float((got - want).abs().max()) <= BF16_RTOL * float(want.max())
 
 
+# the float64 instantiation at the card shapes its shared memory takes
+# (chunks_of_8's 440 beams do not), and its own chunk-of-8 plan
+CUDA_F64_CASES = {**{k: v for k, v in CUDA_CASES.items()
+                     if k != "chunks_of_8"},
+                  "chunks_of_8_f64": ((1, 1), (8, 8), 215, 64, 37, 20, 2,
+                                      True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CUDA_F64_CASES))
+def test_cuda_float64_kernel_matches_plain_version(cuda, name):
+    """The float64 instantiation against the plain version in float64,
+    within 1e-9 * max|G|, one launch counted under "f64"."""
+    rx, tx, b, k, u, p, s, per_slot = CUDA_F64_CASES[name]
+    arrs = _scalars(u, p, s, per_slot, seed=4)
+    w = _codebook(b, tx[0] * tx[1], seed=5)
+    args = [torch.from_numpy(a).double().to(cuda) for a in (*arrs, *w)]
+    before = kb.LAUNCHES, kb.MODE_LAUNCHES.get("f64", 0)
+    got = kb.fused_beam_gain(*args, rx, tx, k)
+    want = kb.beam_gain_reference(*args, rx, tx, k)
+    torch.cuda.synchronize()
+    assert (kb.LAUNCHES, kb.MODE_LAUNCHES["f64"]) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert got.dtype == torch.float64
+    assert float((got - want).abs().max()) <= 1e-9 * float(want.max())
+
+
 @pytest.mark.gpu
 def test_cuda_dataset_serving_loop_reuses_out(cuda):
     """config['device'] is "cuda" while the tensors report cuda:0: out=
@@ -652,10 +770,13 @@ def test_cuda_smem_bytes_is_the_kernels_own(cuda):
 
     from deepmimo_tpu_torch.ops.kernels import _build
     fn = _build.load_library("beamgain").beamgain_smem_bytes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_longlong
-    for tx in [(1, 1), (3, 5), (8, 8), (16, 16), (32, 32)]:
-        for b in (1, 5, 16, 64, 113, 320, 440, 449, 450, 1000):
-            t = tx[0] * tx[1]
-            want = kb.smem_bytes((1, 1), tx, b, 25, 64)
-            assert fn(t, b) == (want if want <= 232_448 else 0), (tx, b)
+    for f64 in (False, True):
+        for tx in [(1, 1), (3, 5), (8, 8), (16, 16), (32, 32)]:
+            for b in (1, 5, 16, 64, 113, 209, 215, 222, 223, 320, 440, 449,
+                      450, 1000):
+                t = tx[0] * tx[1]
+                want = kb.smem_bytes((1, 1), tx, b, 25, 64, f64)
+                assert fn(t, b, int(f64)) == (
+                    want if want <= 232_448 else 0), (tx, b, f64)

@@ -213,12 +213,3 @@ def test_calib_params_from_numpy_round_trip():
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     init = tsh.init_calib_params(paths, params.bs, params.ue)
     assert tuple(init.d_angles_deg.shape) == (U, 6, 4)
-
-
-@pytest.mark.parametrize("change", [
-    dict(freq_domain=False), dict(rx_filter=True), dict(dtype="complex128"),
-], ids=["time_domain", "rx_filter", "complex128"])
-def test_render_channels_out_of_slice_raises(change):
-    _, (pd, bs, ue, cfg) = _state()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tch.render_channels(pd, bs, ue, cfg.replace(**change))

@@ -122,15 +122,6 @@ def test_out_is_written_in_place():
         tch.render_channels_planes(pd, bs, ue, cfg, out=out[:-1])
 
 
-@pytest.mark.parametrize("change", [
-    dict(freq_domain=False), dict(rx_filter=True), dict(dtype="complex128"),
-], ids=["time_domain", "rx_filter", "complex128"])
-def test_out_of_slice_configs_raise(change):
-    _, (pd, bs, ue, cfg), _, _ = _state("single_subcarrier")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tch.render_channels_planes(pd, bs, ue, cfg.replace(**change))
-
-
 @pytest.mark.parametrize("kw", [
     dict(), dict(ue_shape=(2, 2), bs_shape=(4, 2)),
     dict(selected_subcarriers=(0, 2, 3)), dict(freq_domain=False),

@@ -2,7 +2,7 @@
 
 ``Dataset(dict).compute_channels`` (host and device results, ``out=``
 reuse, streamed vs single dispatch), ``load``/``generate`` of an on-disk
-scenario, ``to_config``, and the configurations still to be ported.
+scenario, ``to_config``, and the scenarios still to be ported (dynamic).
 Tolerance 5e-5 * max|H| (tests/test_pallas.py's fused-render bound).
 """
 
@@ -171,7 +171,7 @@ def test_to_config_matches_jax(kw):
     for name, value in dataclasses.asdict(tcfg).items():
         assert value == jfields[name], name
     assert set(jfields) - set(dataclasses.asdict(tcfg)) == \
-        {"kernel_no_pack", "kernel_pack_first", "compact_td_paths"}
+        {"kernel_no_pack", "kernel_pack_first"}
     for tpan, jpan in ((tbs, jbs), (tue, jue)):
         assert tpan.rotation_deg.device.type == "cpu"
         np.testing.assert_array_equal(tpan.rotation_deg.numpy(),
@@ -193,12 +193,6 @@ def test_delay_clipping_report_matches_jax(capsys):
 
 
 def test_out_of_slice_entry_points_raise(tmp_path):
-    ds = dmt.Dataset(_data())
-    params = _params(dmt)
-    params["freq_domain"] = 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ds.compute_channels(params)
-
     folder = str(tmp_path / "dynamic")
     write_synthetic_scenario(folder, n_ue=8, max_paths=4, grid=(4, 2))
     path = os.path.join(folder, "params.json")
