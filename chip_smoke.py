@@ -77,6 +77,32 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    of the beam-gain kernel's float64 instantiation, as the JAX package
    sends complex128 to its beam-gain kernel, and no other kernel; the
    oracle at 1e-9 * max|G|, timed and profiled the same way.
+5h. Scenarios from disk, at the headline width, each folder written by
+   the port's own writers (``save_mat``, ``save_dict_as_json``,
+   ``Scene.export_data``, ``export_matlab``) into a temporary directory
+   removed at the end, with the host seconds of every write and load, the
+   CUDA-event ms of every render and the peak device memory: (a) one TX
+   set of 4 points x 32,768 users (seed 12) loads into a ``MacroDataset``;
+   ``compute_channels_batched(to_device=True)`` is one render launch into
+   [131072, 1, 64, 128], each child against the oracle and against its
+   own ``compute_channels`` (3e-5 * max|H|), and
+   ``compute_beam_gains_batched`` one beam-gain launch (phase 5b's
+   codebook), both routes timed; after ``append`` of a fifth child the
+   batched render has its users and its own render's values; (b) a
+   dynamic scenario of 3 x 131,072-user snapshots (seeds 13-15) with a
+   scene of 300 box buildings and 3 materials loads into a
+   ``DynamicDataset``, one render launch per snapshot against the oracle;
+   (c) legacy v3 folders: single-pol with Doppler rows (131,072 users in
+   8 chunks at 30 dBm: the loaded matrices equal the written ones, one
+   launch, the oracle), dual-polar (16,384 users, one launch with 4
+   slots, each polarization against the oracle) and two BS (a
+   ``MacroDataset``; exported by worker processes while (b) runs);
+   (d) checkpoint/resume: child 0 of (a) streamed in
+   4 blocks of 8,192 into ``checkpoint_dir``, 2 block files deleted, the
+   resume equal to the first run bit for bit with 2 launches; child 1
+   (same user count and configuration) gets its own store and equals its
+   uncheckpointed render; the same resume for the dual-polar folder in
+   blocks of 4,096.
 6. Training path: the calibration step ``training_step_planes`` with the
    fused backend at the headline width (BS rotated 10 degrees in the
    target, calibration from 0): the first step's gradients of every
@@ -108,12 +134,13 @@ the script exits non-zero before printing any result.
 
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
 from collections import Counter
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -1387,6 +1414,520 @@ def phase_nonfused(torch, dmt):
     return launches
 
 
+# Phase 5h: scenarios from disk, at the headline width.
+SCEN_TX = 4                  # TX points of the multi-TX scenario
+SCEN_USERS = 32_768          # its RX grid, 256 x 128 users per TX
+SCEN_SNAPSHOTS = 3           # snapshots of the dynamic scenario
+SCEN_OBJECTS = 300           # box buildings of the dynamic scenario's scene
+V3_CHUNK = 16_384            # users per BS{i}_UE file of the v3 folders
+V3_SMALL = 4_096             # users per BS of the two-BS v3 folder
+CKPT_BLOCK = 8_192           # user_block of the checkpoint runs
+CKPT_POLAR_BLOCK = 4_096
+SCEN_MATERIALS = {
+    "material_0": {"id": 0, "name": "concrete", "permittivity": 5.24,
+                   "conductivity": 0.123, "scattering_model": "none"},
+    "material_1": {"id": 1, "name": "glass", "permittivity": 6.27,
+                   "conductivity": 0.0043, "scattering_model": "none"},
+    "material_2": {"id": 2, "name": "wood", "permittivity": 1.99,
+                   "conductivity": 0.0047, "scattering_model": "lambertian",
+                   "scattering_coefficient": 0.3},
+}
+
+
+def _grid_users(n, width=256):
+    """``n`` user positions on a 1 m grid ``width`` users wide."""
+    i = np.arange(n)
+    return np.stack([i % width, i // width, np.full(n, 1.5)],
+                    1).astype(np.float32)
+
+
+def _scenario_data(n_ue, seed):
+    """Headline path matrices with the rest of a converted pair: LoS code
+    on the first path of even users, single bounces after, NaN
+    interaction positions."""
+    d = make_data(n_ue, MAX_PATHS, seed=seed)
+    inter = np.where(np.isnan(d["power"]), np.nan, 1.0).astype(np.float32)
+    inter[::2, 0] = 0.0
+    d["inter"] = inter
+    d["inter_pos"] = np.full((n_ue, MAX_PATHS, 3, 3), np.nan, np.float32)
+    return d
+
+
+def write_scenario(dmt, folder, datas, n_ue, n_scenes=1, scene_meta=None,
+                   materials=None):
+    """A scenario folder with the port's writers: TX set 0 with one point
+    per ``datas`` entry, RX set 1 of ``n_ue`` grid users, params.json
+    (only params.json when ``datas`` is None: the root of a dynamic
+    scenario; only matrices for a snapshot folder, ``n_scenes`` > 1)."""
+    from deepmimo_tpu_torch.utils import save_dict_as_json, save_mat
+    c = dmt.consts
+    os.makedirs(folder, exist_ok=True)
+    rx_pos = _grid_users(n_ue)
+    for i, d in enumerate(datas or []):
+        tx_pos = np.array([[40.0 * i, -10.0, 25.0]], np.float32)
+        for key, value in dict(d, rx_pos=rx_pos, tx_pos=tx_pos).items():
+            save_mat(value, key, folder, tx_set_idx=0, tx_idx=i,
+                     rx_set_idx=1)
+    if datas is not None and n_scenes > 1:
+        return
+    n_tx = len(datas) if datas else 1
+    sets = {"txrx_set_0": ("bs", True, n_tx), "txrx_set_1": ("users",
+                                                             False, n_ue)}
+    scene = dict(scene_meta or {})
+    scene[c.SCENE_PARAM_NUMBER_SCENES] = n_scenes
+    save_dict_as_json(os.path.join(folder, "params.json"), {
+        c.VERSION_PARAM_NAME: "0.1.0",
+        c.RT_PARAMS_PARAM_NAME: {c.RT_PARAM_FREQUENCY: 3.5e9,
+                                 c.RT_PARAM_RAYTRACER: "synthetic"},
+        c.TXRX_PARAM_NAME: {key: {
+            "name": name, "id": int(key[-1]), "id_orig": int(key[-1]),
+            "is_tx": tx, "is_rx": not tx, "num_points": n,
+            "num_active_points": n, "num_ant": 1, "dual_pol": False}
+            for key, (name, tx, n) in sets.items()},
+        c.SCENE_PARAM_NAME: scene,
+        c.MATERIALS_PARAM_NAME: materials or {}})
+
+
+def box_scene(dmt, n_objects, seed):
+    """``n_objects`` box buildings on a 20 m lattice (6 quad faces each)."""
+    rng = np.random.RandomState(seed)
+    scene = dmt.Scene()
+    side = int(math.ceil(math.sqrt(n_objects)))
+    for i in range(n_objects):
+        x0, y0 = 20.0 * (i % side), 20.0 * (i // side)
+        w, l, h = rng.uniform(5, 15), rng.uniform(5, 15), rng.uniform(6, 60)
+        lo = [[x0, y0], [x0 + w, y0], [x0 + w, y0 + l], [x0, y0 + l]]
+        bottom = [[x, y, 0.0] for x, y in lo]
+        top = [[x, y, h] for x, y in lo]
+        quads = [bottom, top] + [
+            [bottom[k], bottom[(k + 1) % 4], top[(k + 1) % 4], top[k]]
+            for k in range(4)]
+        scene.add_object(dmt.PhysicalElement(
+            [dmt.Face(np.array(q), material_idx=i % 3) for q in quads],
+            object_id=i, label="buildings", name=f"building_{i}"))
+    return scene
+
+
+class _Launches:
+    """Render and beam-gain launches of the checked calls of a phase
+    (timing loops are not counted)."""
+
+    def __init__(self):
+        self.render = self.beam_gain = 0
+
+    def __call__(self, fn, render=0, beam_gain=0, what=""):
+        """``fn()``, failing unless it launched the render kernel
+        ``render`` times and the beam-gain kernel ``beam_gain`` times."""
+        from deepmimo_tpu_torch.ops.kernels import beamgain as kb
+        from deepmimo_tpu_torch.ops.kernels import render as kr
+        import torch
+        before = (kr.LAUNCHES, kb.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        got = (kr.LAUNCHES - before[0], kb.LAUNCHES - before[1])
+        if got != (render, beam_gain):
+            raise AssertionError(f"{what}: (render, beam-gain) launches "
+                                 f"{got}, expected {(render, beam_gain)}")
+        self.render += render
+        self.beam_gain += beam_gain
+        return out
+
+
+def _peak(torch, tag):
+    torch.cuda.synchronize()
+    log(f"[scenarios] {tag}: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _same_mats(tag, got, want, keys):
+    for key in keys:
+        a, b = np.asarray(got[key]), np.asarray(want[key], np.float32)
+        if a.shape != b.shape or not np.array_equal(a, b, equal_nan=True):
+            raise AssertionError(f"{tag}: loaded {key} differs from the "
+                                 f"written matrix")
+
+
+def _v3_source(kind, n_ue, n_polar, n_small):
+    """The matrices of a phase-5h v3 folder, from seeds: "single" (``n_ue``
+    users with Doppler rows), "polar" (its first ``n_polar`` users with
+    four polarizations) or "two_bs" (two BS of ``n_small`` users)."""
+    v3 = _scenario_data(n_ue, seed=16)
+    v3.pop("inter_pos")
+    rng = np.random.RandomState(16)
+    nan = np.isnan(v3["power"])
+    for key, lim in (("doppler_vel", 30), ("doppler_acc", 5)):
+        v3[key] = np.where(nan, np.nan, rng.uniform(
+            -lim, lim, nan.shape)).astype(np.float32)
+    v3["rx_pos"] = _grid_users(n_ue)
+    tx_pos = np.array([[0.0, -10.0, 25.0]], np.float32)
+    if kind == "single":
+        return dict(v3, tx_pos=tx_pos)
+    if kind == "polar":
+        pol = {k: v[:n_polar] for k, v in v3.items()}
+        pol.update(make_pol_data(pol, seed=19), tx_pos=tx_pos)
+        return pol
+    return [dict({k: v[i * n_small:(i + 1) * n_small]
+                  for k, v in v3.items()}, tx_pos=tx_pos + 50.0 * i)
+            for i in range(2)]
+
+
+def _write_v3(kind, folder, n_ue, n_polar, n_small):
+    """Export one phase-5h v3 folder with the port's ``export_matlab`` (run
+    in a worker process); returns its host seconds."""
+    import deepmimo_tpu_torch as dmt
+    t0 = time.perf_counter()
+    src = _v3_source(kind, n_ue, n_polar, n_small)
+    ds = (dmt.MacroDataset([dmt.Dataset(d) for d in src])
+          if kind == "two_bs" else dmt.Dataset(src))
+    dmt.export_matlab(ds, folder, tx_power_dbm={"single": 30.0, "polar": 0.0,
+                                                "two_bs": 10.0}[kind],
+                      chunk=n_polar)
+    return time.perf_counter() - t0
+
+
+def phase_scenarios(torch, dmt):
+    """Scenarios from disk (phase 5h): multi-TX batched renders (one launch
+    for all children), a dynamic scenario with a scene and materials,
+    legacy v3 folders, and checkpoint/resume of the streamed render; each
+    folder written by the port's own writers into a temporary directory
+    that is removed at the end. Returns the checked calls' launches."""
+    import shutil
+    import tempfile
+    from deepmimo_tpu_torch.generator.checkpoint import ChunkStore
+    from deepmimo_tpu_torch.generator.core import DynamicDataset
+    from deepmimo_tpu_torch.generator.dataset import POLS
+    from deepmimo_tpu_torch.ops.channel import (unpack_planes_np,
+                                                unpack_polar_planes_np)
+    c = dmt.consts
+    t_phase = time.perf_counter()
+    counted = _Launches()
+    params = make_params(dmt)
+    cfg, _, _ = params.to_config(CHUNK)
+    t = BS_SHAPE[0] * BS_SHAPE[1]
+    w = codebook(BG_BEAMS, t, seed=75)              # phase 5b's codebook
+    root = tempfile.mkdtemp(prefix="deepmimo_scenarios_")
+    old = {k: dmt.config.get(k) for k in ("user_block", "checkpoint_dir")}
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed(tag, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"[scenarios] {tag}: {time.perf_counter() - t0:.3f} s (host)")
+        return out
+
+    def oracle_check(tag, ds, planes, n_pol=1, pol_mats=None):
+        if n_pol == 1:
+            got = [unpack_planes_np(planes[:N_ORACLE].cpu().numpy(), cfg)]
+            mats = [(ds["power"], ds["phase"])]
+        else:
+            pcfg = params_polar.to_config(N_ORACLE)[0]
+            got = unpack_polar_planes_np(planes[:N_ORACLE].cpu().numpy(),
+                                         pcfg)
+            mats = pol_mats
+        for i, (power, phase) in enumerate(mats):
+            what = tag if n_pol == 1 else f"{tag} {POLS[i]}"
+            _check_oracle("scenarios", what, got[i],
+                          _oracle(ds, N_ORACLE, power, phase), ORACLE_RTOL)
+
+    params_polar = make_params(dmt)
+    params_polar[c.PARAMSET_POLAR_EN] = 1
+    v3_sizes = (CHUNK, V3_CHUNK, V3_SMALL)
+    pool = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context(
+        "spawn"))
+    try:
+        # (a) Multi-TX: one TX set of 4 points, a 256 x 128 RX grid.
+        n_child = SCEN_USERS
+        big = _scenario_data(SCEN_TX * n_child, seed=12)
+        datas = [{k: v[i * n_child:(i + 1) * n_child] for k, v in
+                  big.items()} for i in range(SCEN_TX)]
+        folder = os.path.join(root, "multi_tx")
+        timed(f"multi-TX write ({SCEN_TX} TX x {n_child} users)",
+              lambda: write_scenario(dmt, folder, datas, n_child,
+                                     materials=SCEN_MATERIALS))
+        macro = timed("multi-TX load", lambda: dmt.load(folder))
+        shutil.rmtree(folder)            # loaded: keep the disk small
+        if not isinstance(macro, dmt.MacroDataset) or len(macro) != SCEN_TX:
+            raise AssertionError(f"multi-TX load gave {type(macro)} of "
+                                 f"{len(macro)}")
+        for i, child in enumerate(macro.datasets):
+            _same_mats(f"multi-TX child {i}", child, datas[i],
+                       ("power", "phase", "delay", "aod_el"))
+        n_all = SCEN_TX * n_child
+        h = counted(lambda: macro.compute_channels_batched(
+            params, to_device=True), render=1,
+            what="compute_channels_batched")
+        if tuple(h.shape) != (n_all, 1, t, 2 * N_SC) or \
+                not bool(torch.isfinite(h).all()):
+            raise AssertionError(f"batched channels {tuple(h.shape)}")
+        own = []
+        diff = 0.0
+        for i, child in enumerate(macro.datasets):
+            part = h[i * n_child:(i + 1) * n_child]
+            oracle_check(f"batched child {i}", child, part)
+            mine = counted(lambda: child.compute_channels(
+                params, to_device=True), render=1,
+                what=f"child {i} compute_channels")
+            own.append(mine)
+            d = float((part - mine).abs().max())
+            if not d <= KERNEL_RTOL * float(mine.abs().max()):
+                raise AssertionError(f"batched child {i} differs from its "
+                                     f"own render by {d:.3e}")
+            diff = max(diff, d)
+        log(f"[scenarios] compute_channels_batched: {tuple(h.shape)}, 1 "
+            f"render launch for {SCEN_TX} children; vs each child's own "
+            f"render max_abs_diff={diff:.3e} (limit {KERNEL_RTOL:g} x "
+            f"max|H|)")
+        batched = [lambda: macro.compute_channels_batched(
+            params, to_device=True, out=h)]
+        per_child = [lambda ch=ch, o=o: ch.compute_channels(
+            params, to_device=True, out=o)
+            for ch, o in zip(macro.datasets, own)]
+        ms_b, wall_b = timed_sweep(torch, batched)
+        ms_c, wall_c = (SCEN_TX * x for x in timed_sweep(torch, per_child))
+        log(f"[scenarios] multi-TX channels, {n_all} users: batched "
+            f"{ms_b:.4f} ms per call (host wall {wall_b:.4f}), per-child "
+            f"route {ms_c:.4f} ms ({SCEN_TX} calls; host wall "
+            f"{wall_c:.4f}); CUDA events over 5 calls")
+        profile_cell(torch, "multi-TX batched channels", batched)
+        profile_cell(torch, "multi-TX per-child channels", per_child)
+        del h, own, batched, per_child   # the call lists hold planes too
+        g = counted(lambda: macro.compute_beam_gains_batched(
+            params, codebook=w, to_device=True), beam_gain=1,
+            what="compute_beam_gains_batched")
+        if tuple(g.shape) != (n_all, BG_BEAMS, N_SC):
+            raise AssertionError(f"batched beam gains {tuple(g.shape)}")
+        diff, own = 0.0, []
+        for i, child in enumerate(macro.datasets):
+            part = g[i * n_child:(i + 1) * n_child]
+            want = _beam_oracle(w, _oracle(child, N_ORACLE, child["power"],
+                                           child["phase"]))
+            _check_oracle("scenarios", f"batched beam gains child {i}",
+                          part[:N_ORACLE].cpu().numpy(), want,
+                          BG_ORACLE_RTOL)
+            mine = counted(lambda: child.compute_beam_gains(
+                params, codebook=w, to_device=True), beam_gain=1,
+                what=f"child {i} compute_beam_gains")
+            own.append(mine)
+            d = float((part - mine).abs().max())
+            if not d <= BG_RTOL * float(mine.max()):
+                raise AssertionError(f"batched beam gains child {i} differ "
+                                     f"from its own by {d:.3e}")
+            diff = max(diff, d)
+        batched = [lambda: macro.compute_beam_gains_batched(
+            params, codebook=w, to_device=True)]
+        ms_gb, wall_gb = timed_sweep(torch, batched)
+        ms_gc, wall_gc = (SCEN_TX * x for x in timed_sweep(torch, [
+            lambda ch=ch, o=o: ch.compute_beam_gains(
+                params, codebook=w, to_device=True, out=o)
+            for ch, o in zip(macro.datasets, own)]))
+        log(f"[scenarios] compute_beam_gains_batched: {tuple(g.shape)}, 1 "
+            f"beam-gain launch; vs each child's own max_abs_diff="
+            f"{diff:.3e} (limit {BG_RTOL:g} x max|G|); batched {ms_gb:.4f} "
+            f"ms per call (host wall {wall_gb:.4f}), per-child route "
+            f"{ms_gc:.4f} ms (host wall {wall_gc:.4f}); CUDA events over "
+            f"5 calls")
+        profile_cell(torch, "multi-TX batched beam gains", batched)
+        del g, own, batched
+        # append a fifth child: the batched render sees it
+        fifth = _scenario_data(V3_CHUNK // 2, seed=17)
+        fifth.update(rx_pos=_grid_users(V3_CHUNK // 2),
+                     tx_pos=np.array([[0.0, 200.0, 30.0]], np.float32))
+        extra = dmt.Dataset(fifth)
+        macro.append(extra)
+        h = counted(lambda: macro.compute_channels_batched(
+            params, to_device=True), render=1, what="batched after append")
+        mine = counted(lambda: extra.compute_channels(
+            params, to_device=True), render=1, what="appended child")
+        if h.shape[0] != n_all + extra.n_ue or \
+                not torch.equal(h[n_all:], mine):
+            raise AssertionError(f"batched render after append: "
+                                 f"{tuple(h.shape)}, fifth slice equal "
+                                 f"{torch.equal(h[n_all:], mine)}")
+        log(f"[scenarios] after append: {tuple(h.shape)}, the fifth "
+            f"child's slice equals its own render exactly")
+        del h, mine
+        _peak(torch, "multi-TX")
+        # scipy writes the v3 folders' cells of structs at ~0.15 ms per
+        # user on one core: worker processes export them while (b) runs
+        # (after (a), whose per-child route is host-bound and would slow).
+        v3_jobs = {kind: pool.submit(_write_v3, kind, os.path.join(
+            root, f"v3_{kind}"), *v3_sizes)
+            for kind in ("single", "polar", "two_bs")}
+
+        # (b) Dynamic: scene_0..2 of CHUNK users, a scene and materials.
+        folder = os.path.join(root, "dynamic")
+        scene = box_scene(dmt, SCEN_OBJECTS, seed=18)
+
+        def write_dynamic():
+            for i in range(SCEN_SNAPSHOTS):
+                write_scenario(dmt, os.path.join(folder, f"scene_{i}"),
+                               [_scenario_data(CHUNK, seed=13 + i)], CHUNK,
+                               n_scenes=SCEN_SNAPSHOTS)
+            write_scenario(dmt, folder, None, CHUNK, n_scenes=SCEN_SNAPSHOTS,
+                           scene_meta=scene.export_data(folder),
+                           materials=SCEN_MATERIALS)
+        timed(f"dynamic write ({SCEN_SNAPSHOTS} x {CHUNK} users, "
+              f"{SCEN_OBJECTS} objects)", write_dynamic)
+        dyn = timed("dynamic load", lambda: dmt.load(folder))
+        shutil.rmtree(folder)
+        if not isinstance(dyn, DynamicDataset) or \
+                dyn.n_snapshots != SCEN_SNAPSHOTS:
+            raise AssertionError(f"dynamic load gave {type(dyn)}")
+        if not isinstance(dyn.scene, dmt.Scene) or \
+                len(dyn.scene.objects) != SCEN_OBJECTS:
+            raise AssertionError(f"dynamic scene: {dyn.scene!r}")
+        if not isinstance(dyn.materials, dmt.MaterialList) or \
+                len(dyn.materials) != len(SCEN_MATERIALS):
+            raise AssertionError(f"dynamic materials: {dyn.materials!r}")
+        hs = counted(lambda: dyn.compute_channels(params, to_device=True),
+                     render=SCEN_SNAPSHOTS, what="dynamic compute_channels")
+        for i, (snap, hi) in enumerate(zip(dyn.datasets, hs)):
+            oracle_check(f"dynamic snapshot {i}", snap, hi)
+        ms_d = timed_sweep(torch, [
+            lambda s=s, o=o: s.compute_channels(params, to_device=True,
+                                                out=o)
+            for s, o in zip(dyn.datasets, hs)])[0]
+        log(f"[scenarios] dynamic: {SCEN_SNAPSHOTS} snapshots, "
+            f"{len(dyn.scene.objects)} objects, {len(dyn.materials)} "
+            f"materials; 1 render launch per snapshot, {ms_d:.4f} ms per "
+            f"{CHUNK}-user snapshot (CUDA events over 5 sweeps)")
+        del hs, dyn
+        torch.cuda.empty_cache()
+        _peak(torch, "dynamic")
+
+        # (c) Legacy v3 folders, exported by the worker processes.
+        what = {"single": f"single-pol ({CHUNK} users, "
+                          f"{CHUNK // V3_CHUNK} chunks, 30 dBm)",
+                "polar": f"dual-polar ({V3_CHUNK} users)",
+                "two_bs": f"two-BS (2 x {V3_SMALL} users)"}
+        for kind, future in v3_jobs.items():
+            log(f"[scenarios] v3 {what[kind]} export: {future.result():.3f} "
+                f"s (host, in a worker process)")
+        v3 = _v3_source("single", *v3_sizes)
+        folder = os.path.join(root, "v3_single")
+        ds = timed("v3 single-pol load", lambda: dmt.load(folder))
+        if not isinstance(ds, dmt.Dataset) or os.path.exists(
+                os.path.join(folder, "params.json")):
+            raise AssertionError("v3 single-pol load")
+        shutil.rmtree(folder)
+        _same_mats("v3 single-pol", ds, v3,
+                   ("power", "phase", "delay", "aoa_az", "aoa_el", "aod_az",
+                    "aod_el", "doppler_vel", "doppler_acc"))
+        h = counted(lambda: ds.compute_channels(params, to_device=True),
+                    render=1, what="v3 single-pol compute_channels")
+        oracle_check("v3 single-pol", ds, h)
+        ms_v = event_ms(torch, lambda: ds.compute_channels(
+            params, to_device=True, out=h), 5)
+        log(f"[scenarios] v3 single-pol: matrices equal the written ones "
+            f"(dBm on disk at 30 dBm, dBW loaded); {ms_v:.4f} ms per "
+            f"{CHUNK}-user render (CUDA events)")
+        del h
+
+        pol = _v3_source("polar", *v3_sizes)
+        folder = os.path.join(root, "v3_polar")
+        dual = timed("v3 dual-polar load", lambda: dmt.load(folder))
+        shutil.rmtree(folder)
+        _same_mats("v3 dual-polar", dual, pol,
+                   [f"{k}_{p.lower()}" for p in POLS
+                    for k in ("power", "phase")])
+        h = counted(lambda: dual.compute_channels(params_polar,
+                                                  to_device=True),
+                    render=1, what="v3 dual-polar compute_channels")
+        if tuple(h.shape) != (V3_CHUNK, 1, t, 2 * len(POLS) * N_SC):
+            raise AssertionError(f"v3 dual-polar planes {tuple(h.shape)}")
+        oracle_check("v3 dual-polar", dual, h, n_pol=len(POLS), pol_mats=[
+            (dual[f"power_{p.lower()}"], dual[f"phase_{p.lower()}"])
+            for p in POLS])
+        ms_p = event_ms(torch, lambda: dual.compute_channels(
+            params_polar, to_device=True, out=h), 5)
+        log(f"[scenarios] v3 dual-polar: 1 render launch with 4 slots, "
+            f"{ms_p:.4f} ms per {V3_CHUNK}-user render (CUDA events)")
+        del h
+
+        two = _v3_source("two_bs", *v3_sizes)
+        folder = os.path.join(root, "v3_two_bs")
+        both = timed("v3 two-BS load", lambda: dmt.load(folder))
+        shutil.rmtree(folder)
+        if not isinstance(both, dmt.MacroDataset) or len(both) != 2:
+            raise AssertionError(f"v3 two-BS load gave {type(both)}")
+        for i in range(2):
+            _same_mats(f"v3 two-BS {i}", both[i], two[i],
+                       ("power", "phase", "delay", "tx_pos"))
+        log("[scenarios] v3 two-BS: a MacroDataset of 2, matrices equal "
+            "the written ones")
+        _peak(torch, "v3")
+
+        # (d) Checkpoint/resume: child 0 of (a), cut to its 32,768 users.
+        ckpt = os.path.join(root, "ckpt")
+        dmt.config.set("user_block", CKPT_BLOCK)
+        dmt.config.set("checkpoint_dir", ckpt)
+        child0, child1 = macro[0], macro[1]
+        n_blocks = n_child // CKPT_BLOCK
+        first = timed(f"checkpoint first run ({n_blocks} blocks of "
+                      f"{CKPT_BLOCK} written)", lambda: counted(
+                          lambda: child0.compute_channels(params),
+                          render=n_blocks, what="checkpoint first run"))
+        (fp,) = os.listdir(ckpt)
+        store = ChunkStore(ckpt, fp)
+        if store.blocks() != list(range(0, n_child, CKPT_BLOCK)):
+            raise AssertionError(f"checkpoint blocks {store.blocks()}")
+        for start in store.blocks()[1::2]:
+            os.remove(store._block_path(start))
+        again = timed("checkpoint resume (2 blocks rendered)", lambda:
+                      counted(lambda: child0.compute_channels(params),
+                              render=2, what="checkpoint resume"))
+        if not np.array_equal(again, first):
+            raise AssertionError("resumed render differs from the first")
+        other = counted(lambda: child1.compute_channels(params),
+                        render=n_blocks, what="child 1 checkpointed")
+        dmt.config.set("checkpoint_dir", None)
+        plain = counted(lambda: child1.compute_channels(params), render=1,
+                        what="child 1 uncheckpointed")
+        if len(os.listdir(ckpt)) != 2 or not np.array_equal(other, plain):
+            raise AssertionError("child 1 shared child 0's checkpoint "
+                                 "blocks")
+        log(f"[scenarios] checkpoint: resume equals the first run bit for "
+            f"bit with 2 of {n_blocks} blocks rendered; child 1 (same "
+            f"n_ue and cfg) got its own store and equals its "
+            f"uncheckpointed render")
+        del first, again, other, plain
+        shutil.rmtree(ckpt)
+        dmt.config.set("checkpoint_dir", ckpt)
+        dmt.config.set("user_block", CKPT_POLAR_BLOCK)
+        n_blocks = V3_CHUNK // CKPT_POLAR_BLOCK
+        first = timed(f"dual-polar checkpoint first run ({n_blocks} "
+                      f"blocks)", lambda: counted(
+                          lambda: dual.compute_channels(params_polar),
+                          render=n_blocks, what="dual-polar first run"))
+        (fp,) = os.listdir(ckpt)
+        store = ChunkStore(ckpt, fp)
+        for start in store.blocks()[::2]:
+            os.remove(store._block_path(start))
+        again = timed("dual-polar checkpoint resume (2 blocks rendered)",
+                      lambda: counted(
+                          lambda: dual.compute_channels(params_polar),
+                          render=2, what="dual-polar resume"))
+        for p in POLS:
+            if not np.array_equal(again[p], first[p]):
+                raise AssertionError(f"dual-polar resume {p} differs")
+        log("[scenarios] dual-polar checkpoint: resume equals the first "
+            "run bit for bit")
+        del first, again
+        _peak(torch, "checkpoint")
+    finally:
+        pool.shutdown(cancel_futures=True)
+        for k, v in old.items():
+            dmt.config.set(k, v)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"[scenarios] phase 5h: {time.perf_counter() - t_phase:.1f} s "
+        f"(host wall, disk writes included); launches counted: render "
+        f"{counted.render}, beam gain {counted.beam_gain}")
+    return {"fused_render": counted.render,
+            "fused_beam_gain": counted.beam_gain}
+
+
 def kernel_bounds(fma=False):
     """Least card time (ms) of each kernel's work, in each mode, at its
     headline shapes, and what bounds it: bytes (each input read once, each
@@ -1666,6 +2207,7 @@ def main():
     del datasets
     torch.cuda.empty_cache()
     nonfused = phase_nonfused(torch, dmt)
+    scenarios = phase_scenarios(torch, dmt)
     doppler = phase_doppler(torch, dmt)
     polar_render, polar_bg = phase_polar(torch, dmt)
     torch.cuda.empty_cache()
@@ -1677,15 +2219,18 @@ def main():
                      train_fwd, "fused_render_bwd": train_bwd,
                      "fused_path_sum": pallas_launches,
                      "fused_beam_gain": bg_launches + polar_bg})
-    for phase in (bf16_serving, angle_space, doppler, nonfused, train_bf16):
+    for phase in (bf16_serving, angle_space, doppler, nonfused, train_bf16,
+                  scenarios):
         launches.update(phase)
     log(f"[launches] fused_render: serving {serve_launches} + dual-polar "
         f"{polar_render} + training {train_fwd} + angle space "
-        f"{angle_space['fused_render']} + Doppler {doppler['fused_render']};"
-        f" fused_render_bwd: training {train_bwd}; fused_path_sum: pallas "
+        f"{angle_space['fused_render']} + Doppler {doppler['fused_render']}"
+        f" + scenarios from disk {scenarios['fused_render']}; "
+        f"fused_render_bwd: training {train_bwd}; fused_path_sum: pallas "
         f"training {pallas_launches}; fused_beam_gain: serving "
         f"{bg_launches} + dual-polar {polar_bg} + Doppler "
-        f"{doppler['fused_beam_gain']}; modes: complex128 beam gains "
+        f"{doppler['fused_beam_gain']} + scenarios from disk "
+        f"{scenarios['fused_beam_gain']}; modes: complex128 beam gains "
         f"{nonfused}, bf16 serving {bf16_serving}, "
         f"bf16 training {train_bf16}")
     src = "deepmimo_tpu_torch/csrc/"

@@ -6,8 +6,13 @@ with plain tensor code in PyTorch and the hot paths in hand-written CUDA
 kernels for NVIDIA Hopper: the render (also of all four polarizations
 of a dual-polar scenario in one launch), its backward for the
 differentiable calibration step (``deepmimo_tpu_torch.parallel``), the
-path sum, and codebook beam-gain maps that never form the channel. It imports torch and numpy/scipy, never jax. Tensors live on
-``config['device']`` (default ``"cuda"``).
+path sum, and codebook beam-gain maps that never form the channel.
+Scenarios load from disk with several TX-RX pairs (``MacroDataset``, whose
+batched renders take one launch for every pair), as dynamic snapshots or
+from legacy v3 folders, with their scene and materials; the streamed
+render resumes from a checkpoint directory. It imports torch and
+numpy/scipy, never jax. Tensors live on ``config['device']`` (default
+``"cuda"``).
 """
 
 __version__ = "0.1.0"
@@ -17,12 +22,24 @@ from .config import config
 from .ops import (AntennaPanel, ChannelConfig, PathData, render_beam_gains,
                   render_beam_gains_polar, render_channels,
                   render_channels_and_grads, render_channels_planes_polar)
-from .generator import ChannelGenParameters, Dataset, generate, load
+from .utils import (DotDict, get_available_scenarios, get_params_path,
+                    get_scenario_folder, load_dict_from_json)
+from .generator import (ChannelGenParameters, Dataset, MacroDataset,
+                        generate, load)
+from .txrx import (TxRxPair, TxRxSet, get_txrx_pairs, get_txrx_sets,
+                   print_available_txrx_pair_ids)
+from .materials import Material, MaterialList
+from .scene import Face, PhysicalElement, PhysicalElementGroup, Scene
+from .integrations import export_matlab
 
 __all__ = [
-    "Dataset", "ChannelGenParameters", "load", "generate",
+    "Dataset", "MacroDataset", "ChannelGenParameters", "load", "generate",
     "PathData", "AntennaPanel", "ChannelConfig", "render_channels",
     "render_channels_and_grads", "render_beam_gains",
     "render_beam_gains_polar", "render_channels_planes_polar", "config",
-    "consts",
+    "consts", "DotDict", "get_available_scenarios", "get_params_path",
+    "get_scenario_folder", "load_dict_from_json", "TxRxSet", "TxRxPair",
+    "get_txrx_sets", "get_txrx_pairs", "print_available_txrx_pair_ids",
+    "Material", "MaterialList", "Face", "PhysicalElement",
+    "PhysicalElementGroup", "Scene", "export_matlab",
 ]

@@ -44,6 +44,11 @@ class DeepMIMOConfig:
         # host)
         "planes_out_dtype": "float32",
         "user_block": 16384,              # users per block when streaming
+        # Folder of the streamed render's checkpoint store
+        # (generator/checkpoint.py): with it set, a host result streams
+        # over user blocks, each saved once copied to the host, and a
+        # render of the same inputs resumes from the blocks on disk.
+        "checkpoint_dir": None,
         # compute_channels renders in ONE launch when the output tensor fits
         # this budget (bytes); larger outputs stream over user_block blocks
         # with the device->host copy overlapped against compute.

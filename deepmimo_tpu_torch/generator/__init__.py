@@ -1,11 +1,11 @@
 """Generator layer: scenario loading, datasets, channel computation."""
 
 from .params import ChannelGenParameters
-from .dataset import Dataset
-from .core import load, generate
+from .dataset import Dataset, MacroDataset
+from .core import DynamicDataset, load, generate
 from .sampling import dbw2watt, get_uniform_idxs
 
 __all__ = [
-    "ChannelGenParameters", "Dataset", "load", "generate", "dbw2watt",
-    "get_uniform_idxs",
+    "ChannelGenParameters", "Dataset", "MacroDataset", "DynamicDataset",
+    "load", "generate", "dbw2watt", "get_uniform_idxs",
 ]

@@ -1,12 +1,12 @@
 """Scenario loading and one-shot generation entry points.
 
-``load()`` reads a static scenario with one TX-RX pair from disk
-(params.json + per-pair .mat matrices, the DeepMIMO scenario format) into a
-:class:`Dataset`; ``generate()`` is load + compute_channels. Counterpart of
-``deepmimo_tpu/generator/core.py``. Not yet ported (they raise
-NotImplementedError): several TX-RX pairs (MacroDataset), dynamic
-multi-scene scenarios, legacy v3 scenarios, and the ``Scene`` /
-``MaterialList`` objects the JAX loader attaches.
+``load()`` reads a scenario from disk (params.json + per-pair .mat
+matrices, the DeepMIMO scenario format) into a :class:`Dataset`, a
+:class:`MacroDataset` of several TX-RX pairs, or a :class:`DynamicDataset`
+of snapshots (``scene_i`` subfolders); a legacy v3 folder (params.mat +
+``BS{i}_UE`` chunks) loads through the same entry point. The scenario's
+``Scene`` and ``MaterialList`` are attached. ``generate()`` is load +
+compute_channels. Counterpart of ``deepmimo_tpu/generator/core.py``.
 """
 
 from __future__ import annotations
@@ -18,10 +18,11 @@ import numpy as np
 import scipy.io
 
 from .. import consts as c
-from ..ops.channel import not_ported
+from ..materials import MaterialList
+from ..scene import Scene
 from ..utils import (get_mat_filename, get_scenario_folder,
                      load_dict_from_json)
-from .dataset import Dataset
+from .dataset import Dataset, MacroDataset
 from .params import ChannelGenParameters
 
 
@@ -36,8 +37,8 @@ def generate(scen_name: str, load_params: Dict[str, Any] = {},
     return dataset
 
 
-def load(scen_name: str, **load_params) -> Dataset:
-    """Load a DeepMIMO scenario into a Dataset.
+def load(scen_name: str, **load_params) -> Dataset | MacroDataset:
+    """Load a DeepMIMO scenario into a Dataset (or MacroDataset).
 
     Args:
         scen_name: scenario name (resolved under the scenarios folder) or an
@@ -51,45 +52,76 @@ def load(scen_name: str, **load_params) -> Dataset:
     else:
         scen_folder = get_scenario_folder(scen_name)
     if not os.path.exists(scen_folder):
-        raise ValueError(f"Scenario {scen_name} not found at {scen_folder}")
+        raise ValueError(f"Scenario {scen_name} not found at {scen_folder} "
+                         "(downloading is not ported yet: ROADMAP item 16)")
 
     params_file = os.path.join(scen_folder, f"{c.PARAMS_FILENAME}.json")
     if not os.path.exists(params_file):
-        raise ValueError(f"Parameters file not found in {scen_folder} "
-                         "(legacy v3 scenarios are not ported yet)")
+        # Published legacy-v3 scenarios (params.mat + BS{i}_UE chunks)
+        # load through the same entry point.
+        from ..converter.legacy_v3 import is_v3_scenario, load_v3_scenario
+        if is_v3_scenario(scen_folder):
+            dataset = load_v3_scenario(
+                scen_folder, max_paths=load_params.get("max_paths",
+                                                       c.MAX_PATHS))
+            dataset[c.NAME_PARAM_NAME] = scen_name
+            dataset[c.LOAD_PARAMS_PARAM_NAME] = load_params
+            return dataset
+        raise ValueError(f"Parameters file not found in {scen_folder}")
     params = load_dict_from_json(params_file)
-    if params[c.SCENE_PARAM_NAME].get(c.SCENE_PARAM_NUMBER_SCENES, 1) > 1:
-        raise not_ported("Dynamic (multi-scene) scenarios",
-                         "10 (MacroDataset)")
 
-    dataset = _load_raytracing_scene(scen_folder, params[c.TXRX_PARAM_NAME],
-                                     **load_params)
+    n_snapshots = params[c.SCENE_PARAM_NAME].get(c.SCENE_PARAM_NUMBER_SCENES,
+                                                 1)
+    if n_snapshots > 1:
+        # Dynamic scenario: one dataset (or macro-dataset) per snapshot.
+        snapshots = []
+        for i in range(n_snapshots):
+            snap_folder = os.path.join(scen_folder, f"scene_{i}")
+            folder = snap_folder if os.path.isdir(snap_folder) else scen_folder
+            snapshots.append(_load_raytracing_scene(
+                folder, params[c.TXRX_PARAM_NAME], **load_params))
+        dataset = DynamicDataset(snapshots)
+    else:
+        dataset = _load_raytracing_scene(scen_folder,
+                                         params[c.TXRX_PARAM_NAME],
+                                         **load_params)
+
     dataset[c.NAME_PARAM_NAME] = scen_name
     dataset[c.LOAD_PARAMS_PARAM_NAME] = load_params
     dataset[c.RT_PARAMS_PARAM_NAME] = params[c.RT_PARAMS_PARAM_NAME]
+    dataset[c.SCENE_PARAM_NAME] = Scene.from_data(scen_folder)
+    dataset[c.MATERIALS_PARAM_NAME] = MaterialList.from_dict(
+        params.get(c.MATERIALS_PARAM_NAME, {}))
     return dataset
+
+
+class DynamicDataset(MacroDataset):
+    """Time-snapshot sequence of datasets (dynamic scenarios)."""
+
+    @property
+    def n_snapshots(self) -> int:
+        return len(self.datasets)
 
 
 def _load_raytracing_scene(scene_folder: str, txrx_dict: dict,
                            max_paths: int = c.MAX_PATHS,
                            tx_sets="all", rx_sets="all",
-                           matrices="all") -> Dataset:
-    """Load the scene's single requested TX-RX pair into a Dataset."""
+                           matrices="all") -> Dataset | MacroDataset:
+    """Load all requested TX-RX pairs of one scene: a Dataset for one
+    pair, else a MacroDataset."""
     tx_sets = _validate_txrx_sets(tx_sets, txrx_dict, "tx")
     rx_sets = _validate_txrx_sets(rx_sets, txrx_dict, "rx")
-    pairs = [(tx_set_id, rx_set_id, tx_idx, rx_idxs)
-             for tx_set_id, tx_idxs in tx_sets.items()
-             for rx_set_id, rx_idxs in rx_sets.items()
-             for tx_idx in tx_idxs]
-    if len(pairs) != 1:
-        raise not_ported(f"Loading {len(pairs)} TX-RX pairs (MacroDataset)",
-                         "10 (MacroDataset)")
-    tx_set_id, rx_set_id, tx_idx, rx_idxs = pairs[0]
-    d = _load_tx_rx_raydata(scene_folder, tx_set_id, rx_set_id, tx_idx,
-                            rx_idxs, max_paths, matrices)
-    d["txrx"] = {"tx_set_id": tx_set_id, "rx_set_id": rx_set_id,
-                 "tx_idx": int(tx_idx)}
-    return Dataset(d)
+    datasets = []
+    for tx_set_id, tx_idxs in tx_sets.items():
+        for rx_set_id, rx_idxs in rx_sets.items():
+            for tx_idx in tx_idxs:
+                d = _load_tx_rx_raydata(scene_folder, tx_set_id, rx_set_id,
+                                        tx_idx, rx_idxs, max_paths, matrices)
+                d["txrx"] = {"tx_set_id": tx_set_id,
+                             "rx_set_id": rx_set_id,
+                             "tx_idx": int(tx_idx)}
+                datasets.append(Dataset(d))
+    return MacroDataset(datasets) if len(datasets) > 1 else datasets[0]
 
 
 def _load_tx_rx_raydata(rayfolder: str, tx_set_id: int, rx_set_id: int,

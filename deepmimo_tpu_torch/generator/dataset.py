@@ -4,8 +4,12 @@ Counterpart of ``deepmimo_tpu/generator/dataset.py``: the same keys,
 aliases and ``compute_channels`` / ``compute_beam_gains`` contracts, with
 the renders running through the PyTorch renderer (the CUDA kernels on a
 card) on masked ``PathData`` — in one launch, or streamed over user
-blocks when the output exceeds ``config['max_device_output_bytes']``.
-Dual-polar scenarios render all four polarizations in one launch.
+blocks when the output exceeds ``config['max_device_output_bytes']``
+(or, for a host result, whenever ``config['checkpoint_dir']`` is set: the
+blocks are saved and a later render of the same inputs resumes from
+them). Dual-polar scenarios render all four polarizations in one launch.
+``MacroDataset`` holds the datasets of several TX-RX pairs or snapshots;
+its batched renders take one launch for every child.
 
 The derived attributes (rotated and FoV-filtered angles, ``apply_fov``,
 pathloss, LoS, path and interaction counts, pattern-gain powers, the
@@ -16,6 +20,8 @@ in the port's own torch geometry in float64 on ``config['device']``.
 
 from __future__ import annotations
 
+import dataclasses
+import inspect
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -24,7 +30,8 @@ import torch
 from .. import consts as c
 from ..config import config
 from ..ops import geometry as _geo
-from ..ops.channel import (_fused_n_snap, planes_dtype,
+from ..ops.channel import (_fov_valid, _fused_n_snap, _rotated_angles,
+                           _td_compact_active, planes_dtype,
                            polar_fused_eligible, polar_out_shape,
                            render_beam_gains, render_beam_gains_polar,
                            render_channels_planes,
@@ -34,6 +41,7 @@ from ..ops.kernels.render import out_torch_dtype
 from ..ops.patterns import pattern_gain
 from ..ops.types import AntennaPanel, PathData, _small_tensor
 from ..utils import DotDict
+from .checkpoint import ChunkStore
 from .params import ChannelGenParameters
 from .sampling import dbw2watt, get_uniform_idxs
 
@@ -294,42 +302,13 @@ class Dataset(DotDict):
                              "([n_beams, n_tx_ant] complex, or an "
                              "(wr, wi) tuple)")
         params, cfg, bs_panel, ue_panel = self._channel_config(params)
-        wdt = np.float64 if cfg.dtype == "complex128" else np.float32
-        if isinstance(codebook, tuple):
-            wr, wi = (np.asarray(x, wdt) for x in codebook)
-        else:
-            cb = np.asarray(codebook)
-            wr = np.real(cb).astype(wdt)
-            wi = np.imag(cb).astype(wdt)
-        if wr.ndim != 2 or wr.shape != wi.shape or \
-                wr.shape[1] != cfg.n_tx_ant:
-            raise ValueError(
-                f"codebook must be [n_beams, {cfg.n_tx_ant}] for this "
-                f"antenna config; got {wr.shape}")
-
-        pd = self._path_data()
-        dev = pd.valid.device
-        w = [_small_tensor(x, cfg.rdtype, dev) for x in (wr, wi)]
+        w = _codebook_planes(codebook, cfg, self._path_data().valid.device)
         polar = bool(params.get(c.PARAMSET_POLAR_EN, 0))
-        n_pol = len(POLS) if polar else 1
-        n_b, n_k = wr.shape[0], cfg.n_sel_subcarriers
-        n_s = _fused_n_snap(cfg)
-        shape = (self.n_ue, cfg.n_rx_ant * n_b, n_pol * n_s * n_k)
-        out = _reusable(out, shape, dev, cfg.rdtype)
         if polar:
             self._check_pols()
-            g = render_beam_gains_polar(pd, bs_panel, ue_panel, cfg,
-                                        *self._polar_stacks(), *w, out=out)
-        else:
-            g = render_beam_gains(pd, bs_panel, ue_panel, cfg, *w, out=out)
-        if to_device:
-            return g
-        arr = g.cpu().numpy().reshape(self.n_ue, cfg.n_rx_ant, n_b, n_pol,
-                                      n_s, n_k)
-        # [U, R, B, S, K] per polarization -> time axis last
-        maps = [arr[:, :, :, i].transpose(0, 1, 2, 4, 3) if n_s > 1
-                else arr[:, :, :, i, 0] for i in range(n_pol)]
-        return dict(zip(POLS, maps)) if polar else maps[0]
+        return _beam_gain_maps(self._path_data(), bs_panel, ue_panel, cfg, w,
+                               to_device, out,
+                               self._polar_stacks() if polar else None)
 
     def _device_dtype(self):
         dev = torch.device(config.get("device"))
@@ -806,6 +785,54 @@ def _print_delay_clipping_warning(r: dict) -> None:
 
 
 # ============================================================================
+# Beam-gain maps (Dataset and MacroDataset)
+# ============================================================================
+
+def _codebook_planes(codebook, cfg, dev):
+    """(wr, wi) [n_beams, n_tx_ant] on ``dev`` in the config's real dtype,
+    from a complex codebook or a (wr, wi) tuple; ValueError on a shape
+    that does not fit the BS panel."""
+    wdt = np.float64 if cfg.dtype == "complex128" else np.float32
+    if isinstance(codebook, tuple):
+        wr, wi = (np.asarray(x, wdt) for x in codebook)
+    else:
+        cb = np.asarray(codebook)
+        wr = np.real(cb).astype(wdt)
+        wi = np.imag(cb).astype(wdt)
+    if wr.ndim != 2 or wr.shape != wi.shape or \
+            wr.shape[1] != cfg.n_tx_ant:
+        raise ValueError(
+            f"codebook must be [n_beams, {cfg.n_tx_ant}] for this "
+            f"antenna config; got {wr.shape}")
+    return tuple(_small_tensor(x, cfg.rdtype, dev) for x in (wr, wi))
+
+
+def _beam_gain_maps(pd: PathData, bs_panel, ue_panel, cfg, w,
+                    to_device: bool, out=None, pol_stacks=None):
+    """One beam-gain render of ``pd`` with the codebook planes ``w``:
+    the raw [U, R*B, N_pol*S*K] tensor with ``to_device`` (written into
+    ``out`` when it fits), else the host maps [U, R, B, K(, S)], a dict of
+    them per polarization with ``pol_stacks`` (power, phase [4, U, P])."""
+    n_pol = len(POLS) if pol_stacks is not None else 1
+    n_ue, n_b, n_k = pd.n_ue, w[0].shape[0], cfg.n_sel_subcarriers
+    n_s = _fused_n_snap(cfg)
+    shape = (n_ue, cfg.n_rx_ant * n_b, n_pol * n_s * n_k)
+    out = _reusable(out, shape, pd.valid.device, cfg.rdtype)
+    if pol_stacks is not None:
+        g = render_beam_gains_polar(pd, bs_panel, ue_panel, cfg,
+                                    *pol_stacks, *w, out=out)
+    else:
+        g = render_beam_gains(pd, bs_panel, ue_panel, cfg, *w, out=out)
+    if to_device:
+        return g
+    arr = g.cpu().numpy().reshape(n_ue, cfg.n_rx_ant, n_b, n_pol, n_s, n_k)
+    # [U, R, B, S, K] per polarization -> time axis last
+    maps = [arr[:, :, :, i].transpose(0, 1, 2, 4, 3) if n_s > 1
+            else arr[:, :, :, i, 0] for i in range(n_pol)]
+    return dict(zip(POLS, maps)) if pol_stacks is not None else maps[0]
+
+
+# ============================================================================
 # Streaming renderer (host-side batching over user blocks)
 # ============================================================================
 
@@ -825,6 +852,27 @@ def _fits_one_launch(shape, dtype, to_device: bool) -> bool:
         config.get("max_device_output_bytes"))
 
 
+def _chunk_store(cfg, path_data: PathData, bs_panel, ue_panel, *tensors,
+                 **extra):
+    """The checkpoint store of this render (``config['checkpoint_dir']``),
+    or None without one. Its fingerprint hashes the configuration, the
+    user count, the block size, every path matrix, both panels and
+    ``tensors`` (the polarization stacks), once per call."""
+    root = config.get("checkpoint_dir")
+    if not root:
+        return None
+    block = int(config.get("user_block"))
+    fields = [getattr(path_data, f.name)
+              for f in dataclasses.fields(PathData)]
+    store = ChunkStore(root, ChunkStore.fingerprint(
+        cfg, path_data.n_ue, block,
+        fields + [bs_panel.rotation_deg, bs_panel.spacing,
+                  ue_panel.rotation_deg, ue_panel.spacing, *tensors],
+        extra))
+    store.write_manifest({"n_ue": path_data.n_ue, "block": block, **extra})
+    return store
+
+
 def _render_streamed(path_data: PathData, bs_panel, ue_panel, cfg,
                      to_device: bool = False, out=None):
     """Render all users' channels.
@@ -832,12 +880,16 @@ def _render_streamed(path_data: PathData, bs_panel, ue_panel, cfg,
     Single launch (the output fits ``config['max_device_output_bytes']``,
     or ``to_device``): the whole user batch renders at once; ``out``, if
     its shape and dtype match, receives the result in place (the previous
-    contents are overwritten), else it is ignored. Otherwise streamed over
-    user blocks (:func:`_stream_blocks`).
+    contents are overwritten), else it is ignored. Otherwise, and always
+    for a host result with ``config['checkpoint_dir']`` set, streamed over
+    user blocks (:func:`_stream_blocks`), resuming from the blocks already
+    in the checkpoint store.
     """
     shape = render_out_shape(path_data.n_ue, cfg, path_data.max_paths)
     dtype = planes_dtype(cfg)
-    if _fits_one_launch(shape, dtype, to_device):
+    store = None if to_device else _chunk_store(cfg, path_data, bs_panel,
+                                                ue_panel)
+    if store is None and _fits_one_launch(shape, dtype, to_device):
         h = render_channels_planes(
             path_data, bs_panel, ue_panel, cfg,
             out=_reusable(out, shape, path_data.valid.device, dtype))
@@ -846,14 +898,15 @@ def _render_streamed(path_data: PathData, bs_panel, ue_panel, cfg,
         path_data, bs_panel, ue_panel,
         lambda pd, bsp, uep, start, size: render_channels_planes(
             pd, bsp, uep, cfg),
-        lambda planes: unpack_planes_np(planes, cfg), axis=0)
+        lambda planes: unpack_planes_np(planes, cfg), axis=0, store=store)
 
 
 def _render_polar_streamed(path_data: PathData, bs_panel, ue_panel, cfg,
                            pol_power_dbw, pol_phase_deg,
                            to_device: bool = False, out=None):
     """Dual-polar render: one launch (with ``out`` reused as in
-    :func:`_render_streamed`) or streamed over user blocks.
+    :func:`_render_streamed`) or streamed over user blocks, with the same
+    checkpoint rule as :func:`_render_streamed`.
 
     Returns host complex [N_pol, U, R, T, K], or with ``to_device`` the raw
     polar planes on the device.
@@ -861,7 +914,13 @@ def _render_polar_streamed(path_data: PathData, bs_panel, ue_panel, cfg,
     n_pol = pol_power_dbw.shape[0]
     shape = polar_out_shape(path_data.n_ue, cfg, n_pol)
     dtype = out_torch_dtype(cfg.out_dtype)
-    if _fits_one_launch(shape, dtype, to_device):
+    # The JAX dual-polar streamer consults its store only past the output
+    # budget; here a checkpoint directory streams a host result whatever
+    # its size, as for single-pol.
+    store = None if to_device else _chunk_store(
+        cfg, path_data, bs_panel, ue_panel, pol_power_dbw, pol_phase_deg,
+        polar=n_pol)
+    if store is None and _fits_one_launch(shape, dtype, to_device):
         h = render_channels_planes_polar(
             path_data, bs_panel, ue_panel, cfg, pol_power_dbw, pol_phase_deg,
             out=_reusable(out, shape, path_data.valid.device, dtype))
@@ -873,18 +932,21 @@ def _render_polar_streamed(path_data: PathData, bs_panel, ue_panel, cfg,
         lambda pd, bsp, uep, start, size: render_channels_planes_polar(
             pd, bsp, uep, cfg, pol_power_dbw[:, start:start + size],
             pol_phase_deg[:, start:start + size]),
-        lambda planes: unpack_polar_planes_np(planes, cfg, n_pol), axis=1)
+        lambda planes: unpack_polar_planes_np(planes, cfg, n_pol), axis=1,
+        store=store)
 
 
 def _stream_blocks(path_data: PathData, bs_panel, ue_panel, render_block,
-                   unpack, axis: int):
+                   unpack, axis: int, store=None):
     """Render ``config['user_block']`` user blocks in turn on the current
     stream with ``render_block(pd, bs, ue, start, size)``; each block's
     device->host copy runs on a side stream into pinned memory (in the
     planes' own dtype, so bf16 planes move half the bytes) while the next
     block renders, with at most two blocks in flight. Returns the host
     blocks, each through ``unpack`` (which takes the host tensor), joined
-    along ``axis``."""
+    along ``axis``. With a checkpoint ``store``, a block already in it is
+    loaded instead of rendered, and each rendered block is saved once its
+    copy to the host has completed."""
     n_ue = path_data.n_ue
     block = int(config.get("user_block"))
     per_user_rot = bs_panel.rotation_deg.dim() == 2 or \
@@ -892,16 +954,22 @@ def _stream_blocks(path_data: PathData, bs_panel, ue_panel, render_block,
     cuda = path_data.valid.device.type == "cuda"
     copy_stream = torch.cuda.Stream(path_data.valid.device) if cuda else None
     chunks: list = []
-    inflight: list = []                  # (chunk index, host planes, event)
+    inflight: list = []          # (chunk index, start, host planes, event)
 
     def collect(entry):
-        idx, host, done = entry
+        idx, start, host, done = entry
         if done is not None:
             done.synchronize()
         chunks[idx] = unpack(host)
+        if store is not None:
+            store.save_block(start, chunks[idx])
 
     for start in range(0, n_ue, block):
         size = min(block, n_ue - start)
+        chunks.append(None)
+        if store is not None and store.has_block(start):
+            chunks[-1] = store.load_block(start)
+            continue
         pd, bsp, uep = _slice_block(path_data, bs_panel, ue_panel,
                                     per_user_rot, start, size)
         h = render_block(pd, bsp, uep, start, size)
@@ -915,8 +983,7 @@ def _stream_blocks(path_data: PathData, bs_panel, ue_panel, render_block,
                 done.record(copy_stream)
         else:
             host, done = h, None
-        chunks.append(None)
-        inflight.append((len(chunks) - 1, host, done))
+        inflight.append((len(chunks) - 1, start, host, done))
         if len(inflight) >= 2:           # bound the blocks in flight
             collect(inflight.pop(0))
     for entry in inflight:
@@ -940,3 +1007,212 @@ def _slice_block(path_data: PathData, bs_panel: AntennaPanel,
         return AntennaPanel(rotation_deg=p.rotation_deg[start:start + size],
                             spacing=p.spacing)
     return pd, panel(bs_panel), panel(ue_panel)
+
+
+# ============================================================================
+# MacroDataset
+# ============================================================================
+
+def _join_paths(pds: List[PathData]) -> PathData:
+    """Path data of several datasets joined on the user axis, path slots
+    padded to the widest (invalid, zero); Doppler arrays kept when any
+    dataset has them (zero, no Doppler phase, for the others)."""
+    pmax = max(pd.max_paths for pd in pds)
+
+    def pad(x):
+        if x.shape[1] == pmax:
+            return x
+        return torch.cat([x, x.new_zeros((x.shape[0], pmax - x.shape[1]))],
+                         dim=1)
+
+    fields = {}
+    for f in dataclasses.fields(PathData):
+        xs = [getattr(pd, f.name) for pd in pds]
+        if all(x is None for x in xs):
+            fields[f.name] = None
+            continue
+        fields[f.name] = torch.cat([pad(torch.zeros_like(pd.power_dbw)
+                                        if x is None else x)
+                                    for x, pd in zip(xs, pds)], dim=0)
+    return PathData(**fields)
+
+
+def _join_panels(parts, side: str, sizes: List[int]):
+    """One panel of ``side`` (bs or ue) for the joined users, from each
+    child's (params, cfg, bs panel, ue panel): the first child's when
+    every child has the same single rotation, else per-user rotations
+    [U, 3]. Decided on the host parameters, so no device sync."""
+    specs = [p[side] for p, *_ in parts]
+    if len({float(s[c.PARAMSET_ANT_SPACING]) for s in specs}) > 1:
+        raise ValueError("the children's antenna spacings differ; render "
+                         "them one by one")
+    panels = [q[2] if side == c.PARAMSET_ANT_BS else q[3] for q in parts]
+    rots = [np.asarray(s[c.PARAMSET_ANT_ROTATION], np.float64)
+            for s in specs]
+    if all(r.shape == (3,) and np.array_equal(r, rots[0]) for r in rots):
+        return panels[0]
+    return AntennaPanel(
+        rotation_deg=torch.cat([p.rotation_deg.expand(n, 3)
+                                for p, n in zip(panels, sizes)], dim=0),
+        spacing=panels[0].spacing)
+
+
+class MacroDataset:
+    """Container propagating attribute/method access to child Datasets
+    (the TX-RX pairs of a scenario, or the snapshots of a dynamic one),
+    with one-launch renders of every child."""
+
+    SINGLE_ACCESS_METHODS = {"info"}
+
+    PROPAGATE_METHODS = {
+        name for name, _ in inspect.getmembers(Dataset,
+                                               predicate=inspect.isfunction)
+        if not name.startswith("__")
+    }
+
+    def __init__(self, datasets=None):
+        self.datasets = datasets if datasets is not None else []
+
+    def _get_single(self, key):
+        if not self.datasets:
+            raise IndexError("MacroDataset is empty")
+        return self.datasets[0][key]
+
+    def __getattr__(self, name):
+        if name == "datasets":           # not set yet (copy, unpickling)
+            raise AttributeError(name)
+        if name in self.PROPAGATE_METHODS:
+            if name in self.SINGLE_ACCESS_METHODS:
+                def single_method(*args, **kwargs):
+                    return getattr(self.datasets[0], name)(*args, **kwargs)
+                return single_method
+
+            def propagated(*args, **kwargs):
+                results = [getattr(d, name)(*args, **kwargs)
+                           for d in self.datasets]
+                return results[0] if len(results) == 1 else results
+            return propagated
+
+        if name in SHARED_PARAMS:
+            return self._get_single(name)
+
+        results = [getattr(d, name) for d in self.datasets]
+        return results[0] if len(results) == 1 else results
+
+    def __getitem__(self, idx):
+        if isinstance(idx, (int, slice)):
+            return self.datasets[idx]
+        if idx in SHARED_PARAMS:
+            return self._get_single(idx)
+        results = [d[idx] for d in self.datasets]
+        return results[0] if len(results) == 1 else results
+
+    def __setitem__(self, key, value):
+        for d in self.datasets:
+            d[key] = value
+
+    def __len__(self):
+        return len(self.datasets)
+
+    def append(self, dataset):
+        self.datasets.append(dataset)
+
+    def _joined(self, params):
+        """(cfg, path data, bs panel, ue panel) of one render of every
+        child, built from the children as they are now (nothing is cached
+        here: each child keeps its own device path data).
+
+        Each child resolves (and stores) the parameters as its own
+        ``compute_channels`` would, per-user UE rotations drawn for its
+        own users. The configurations must agree but for the fields of
+        view; where those differ, each child's FoV is folded into its
+        path mask and the joined render runs without one (time-domain
+        compaction on when any child's would be)."""
+        for d in self.datasets:
+            p = d.get(c.CH_PARAMS_PARAM_NAME) if params is None else params
+            if p is not None and p.get(c.PARAMSET_POLAR_EN, 0):
+                raise ValueError("the batched renders do not support "
+                                 "dual-polarization; call per dataset.")
+        parts = [d._channel_config(params) for d in self.datasets]
+        cfgs = [p[1] for p in parts]
+        cfg = cfgs[0]
+
+        def no_fov(x):
+            return x.replace(bs_fov=None, ue_fov=None)
+        if any(no_fov(x) != no_fov(cfg) for x in cfgs):
+            raise ValueError("the children's channel parameters differ; "
+                             "render them one by one")
+        pds = [d._path_data() for d in self.datasets]
+        if any(x != cfg for x in cfgs):
+            pds = [dataclasses.replace(pd, valid=_fov_valid(
+                x, pd.valid, *_rotated_angles(pd, bs, ue)))
+                for pd, (_, x, bs, ue) in zip(pds, parts)]
+            compact = cfg.compact_td_paths
+            if compact == "auto":
+                compact = any(_td_compact_active(x) for x in cfgs)
+            cfg = no_fov(cfg).replace(compact_td_paths=compact)
+        sizes = [pd.n_ue for pd in pds]
+        return (cfg, _join_paths(pds),
+                _join_panels(parts, c.PARAMSET_ANT_BS, sizes),
+                _join_panels(parts, c.PARAMSET_ANT_UE, sizes))
+
+    def _split(self, arr, widths=None):
+        """Per-child slices of a joined host result (the time domain's
+        path axis cut to each child's own width)."""
+        out, start = [], 0
+        for i, d in enumerate(self.datasets):
+            part = arr[start:start + d.n_ue]
+            if widths is not None:
+                part = part[:, :, :, :widths[i]]
+            out.append(part)
+            start += d.n_ue
+        return out
+
+    def compute_channels_batched(self, params=None, to_device: bool = False,
+                                 out=None):
+        """Channels of every child in ONE render: the children's path data
+        joined on the user axis (path slots padded to the widest child),
+        one launch of the render kernel on a card.
+
+        Returns a list of per-child channel arrays, each equal to the
+        child's own ``compute_channels`` (not cached on the child), or
+        with ``to_device`` the joined planes (children in order on the
+        user axis), written into ``out`` when it fits. Dual-polarization
+        raises ValueError (call per dataset).
+        """
+        if not self.datasets:
+            raise IndexError("MacroDataset is empty")
+        if len(self.datasets) == 1:
+            res = self.datasets[0].compute_channels(
+                params, to_device=to_device, out=out)
+            return res if to_device else [res]
+        cfg, pd, bs, ue = self._joined(params)
+        ch = _render_streamed(pd, bs, ue, cfg, to_device=to_device, out=out)
+        if to_device:
+            return ch
+        widths = None if cfg.freq_domain else [
+            min(cfg.num_paths, d._path_data().max_paths)
+            for d in self.datasets]
+        return self._split(ch, widths)
+
+    def compute_beam_gains_batched(self, params=None, codebook=None,
+                                   to_device: bool = False):
+        """Beam-gain maps of every child in ONE launch of the beam-gain
+        kernel (children joined on the user axis as in
+        :meth:`compute_channels_batched`; H is never formed). Returns a
+        list of per-child [n_ue, R, B, K] maps, or with ``to_device`` the
+        joined raw tensor."""
+        if not self.datasets:
+            raise IndexError("MacroDataset is empty")
+        if len(self.datasets) == 1:
+            res = self.datasets[0].compute_beam_gains(
+                params, codebook=codebook, to_device=to_device)
+            return res if to_device else [res]
+        if codebook is None:
+            raise ValueError("compute_beam_gains_batched requires a "
+                             "codebook")
+        cfg, pd, bs, ue = self._joined(params)
+        g = _beam_gain_maps(pd, bs, ue, cfg,
+                            _codebook_planes(codebook, cfg, pd.valid.device),
+                            to_device)
+        return g if to_device else self._split(g)

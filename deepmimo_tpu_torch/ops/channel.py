@@ -67,12 +67,6 @@ from .patterns import pattern_gain
 from .types import AntennaPanel, ChannelConfig, PathData
 
 
-def not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet "
-        f"(ROADMAP.md, port queue item {item})")
-
-
 def planes_dtype(cfg: ChannelConfig) -> torch.dtype:
     """dtype of :func:`render_channels_planes`' output: ``cfg.out_dtype``,
     float64 for a complex128 render in "float32" (as the JAX package, which

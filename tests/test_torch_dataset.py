@@ -2,7 +2,7 @@
 
 ``Dataset(dict).compute_channels`` (host and device results, ``out=``
 reuse, streamed vs single dispatch), ``load``/``generate`` of an on-disk
-scenario, ``to_config``, and the scenarios still to be ported (dynamic).
+scenario (also a dynamic one), ``to_config``.
 Tolerance 5e-5 * max|H| (tests/test_pallas.py's fused-render bound).
 """
 
@@ -193,6 +193,12 @@ def test_delay_clipping_report_matches_jax(capsys):
 
 
 def test_out_of_slice_entry_points_raise(tmp_path):
+    """The entry point this test once held to a NotImplementedError, a
+    dynamic (two-scene) scenario without scene_i subfolders, now loads
+    into a DynamicDataset whose snapshots (both from the root folder)
+    match the JAX package's, arrays and channels."""
+    from deepmimo_tpu.generator.core import DynamicDataset as JaxDynamic
+    from deepmimo_tpu_torch.generator.core import DynamicDataset
     folder = str(tmp_path / "dynamic")
     write_synthetic_scenario(folder, n_ue=8, max_paths=4, grid=(4, 2))
     path = os.path.join(folder, "params.json")
@@ -201,8 +207,15 @@ def test_out_of_slice_entry_points_raise(tmp_path):
     meta["scene"]["num_scenes"] = 2
     with open(path, "w") as f:
         json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dmt.load(folder)
+    jds, tds = dm.load(folder), dmt.load(folder)
+    assert isinstance(jds, JaxDynamic) and isinstance(tds, DynamicDataset)
+    assert tds.n_snapshots == jds.n_snapshots == 2
+    for t, j in zip(tds.datasets, jds.datasets):
+        for key in ("power", "phase", "delay", "aoa_az", "rx_pos", "inter"):
+            np.testing.assert_array_equal(t[key], np.asarray(j[key]))
+    for t, j in zip(tds.compute_channels(_params(dmt)),
+                    jds.compute_channels(_params(dm))):
+        _close(t, j)
 
 
 def test_unpack_gives_the_host_channel():

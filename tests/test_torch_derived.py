@@ -209,10 +209,13 @@ def test_subset_matches_jax(scenario, setup):
         ds["los"], ds["pathloss"]                    # cached, then indexed
     jsub, tsub = jds.subset(idxs), tds.subset(idxs)
     assert isinstance(tsub, dmt.Dataset) and tsub.n_ue == len(idxs)
-    # The port's load does not build Scene / MaterialList yet (ROADMAP).
-    not_loaded = set(jds.keys()) - set(tds.keys())
-    assert not_loaded <= {"scene", "materials"}
-    assert set(tsub.keys()) == set(jsub.keys()) - not_loaded
+    # load attaches the scene (none written here) and the materials, and
+    # subset shares them as the JAX package's does
+    assert {"scene", "materials"} <= set(tds.keys()) & set(jds.keys())
+    assert tds.scene is None and jds.scene is None
+    assert isinstance(tds.materials, dmt.MaterialList)
+    assert tds.materials.to_dict() == jds.materials.to_dict()
+    assert set(tsub.keys()) == set(jsub.keys())
     for k in ("power", "rx_pos", "inter", "los", "pathloss", "inter_str",
               "distance"):
         _same(tsub[k], jsub[k], k)
@@ -221,7 +224,9 @@ def test_subset_matches_jax(scenario, setup):
     assert isinstance(tsub.ch_params, dmt.ChannelGenParameters)
     from deepmimo_tpu_torch.generator.dataset import SHARED_PARAMS
     shared = [k for k in SHARED_PARAMS if k in tds.keys()]
-    assert shared and all(tsub[k] is tds[k] for k in shared)
+    assert set(shared) == set(SHARED_PARAMS)
+    assert all(tsub[k] is tds[k] for k in shared)
+    assert all(jsub[k] is jds[k] for k in shared)
 
 
 def test_index_helpers_match_jax(scenario):
