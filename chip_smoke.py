@@ -103,6 +103,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    (same user count and configuration) gets its own store and equals its
    uncheckpointed render; the same resume for the dual-polar folder in
    blocks of 4,096.
+5i. The public surface, at the headline width, on a 131,072-user dataset
+   (seed 16) with users on a 256 x 512 grid: (a) ``LinearPath`` across
+   the grid in 256 steps and ``get_idxs_with_limits`` (a 64 x 128 box,
+   8,192 users), each ``subset`` rendered in one launch and held against
+   the float64 oracle (every user of the path; every 128th of the box);
+   (b) 16 beams of ``steering_vec`` as the codebook of
+   ``compute_beam_gains``: one beam-gain launch, 64 users against
+   |conj(W) . H| ** 2 of the oracle (1e-4 * max|G|), CUDA-event ms;
+   (c) 5 serving calls, each in a ``StageTimer`` stage and an
+   ``annotate("dm.serve")`` range: each stage at least 0.95 x the call's
+   CUDA-event time (the stage waits for the device); one call under
+   ``xla_trace`` whose written trace must hold a render-kernel event and
+   the ``dm.serve`` range; ``renderer_roofline``'s memory bound equal to
+   ``kernel_bounds()``'s for the render (1e-9 relative), its users/s
+   beside the measured; (d) a 16,384-user scenario written with the port's
+   writers, its ``summary``, ``upload`` to a loopback mock of the scenario
+   database (``tests/mock_db_server.py``), the folder deleted, ``load``
+   downloading and loading it, one render launch against the oracle; host
+   seconds of the zip, upload, download and loads.
 6. Training path: the calibration step ``training_step_planes`` with the
    fused backend at the headline width (BS rotated 10 degrees in the
    target, calibration from 0): the first step's gradients of every
@@ -778,22 +797,30 @@ def profile_cell(torch, tag, calls, top=4):
     ``calls``, after a warm-up sweep that the profiler also runs (its first
     cycle can drop device events). Prints the device window per call, the
     busy and idle share of it, and the largest kernels by time with their
-    launch counts."""
+    launch counts. A cycle that records no device event at all is
+    profiled once more (the profiler dropped every event of one cycle in
+    one run of about ten); a second empty cycle fails."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        for _ in range(2):
-            for call in calls:
-                call()
-            torch.cuda.synchronize()
-            prof.step()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type.name == "CUDA" and
-                   e.time_range.end > e.time_range.start)
-    if not spans:
-        raise AssertionError(f"{tag}: the profiler saw no device time")
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for call in calls:
+                    call()
+                torch.cuda.synchronize()
+                prof.step()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type.name == "CUDA" and
+                       e.time_range.end > e.time_range.start)
+        if spans:
+            break
+        log(f"[profile] {tag}: the profiler saw no device time; profiling "
+            f"again")
+    else:
+        raise AssertionError(f"{tag}: the profiler saw no device time "
+                             f"twice")
     busy, reach, by_name = 0.0, spans[0][0], {}
     for start, end, name in spans:
         busy += max(0.0, end - max(start, reach))
@@ -1928,6 +1955,246 @@ def phase_scenarios(torch, dmt):
             "fused_beam_gain": counted.beam_gain}
 
 
+# Phase 5i: the public surface, at the headline width.
+SURF_SEED = 16
+SURF_PATH_STEPS = 256        # LinearPath steps across the 256 x 512 grid
+SURF_LIMITS = {"x_max": 63, "y_max": 127}    # a 64 x 128 box: 8,192 users
+SURF_SERVES = 5              # serving calls timed by StageTimer
+SURF_SCEN_USERS = 16_384     # users of the scenario sent through the client
+STAGE_FLOOR = 0.95           # stage time >= this x the call's CUDA-event time
+
+
+def _steering_codebook(dmt):
+    """16 beams of ``steering_vec`` on the BS panel: 4 polar angles x 4
+    azimuths; complex128 [16, T]."""
+    return np.stack([dmt.steering_vec(BS_SHAPE, phi=phi, theta=theta)
+                     for phi in (60.0, 80.0, 100.0, 120.0)
+                     for theta in (-45.0, -15.0, 15.0, 45.0)])
+
+
+def _oracle_rows(ds, rows):
+    """float64 oracle channels of the users ``rows`` of ``ds``."""
+    sub = {k: np.asarray(ds[k])[rows] for k in (
+        "power", "phase", "delay", "aoa_az", "aoa_el", "aod_az", "aod_el")}
+    return _oracle(sub, len(rows), sub["power"], sub["phase"])
+
+
+def _trace_check(tdir):
+    """(render-kernel events, ``dm.serve`` ranges, file MB, device window
+    ms, device busy ms) of the one ``xla_trace`` file written into
+    ``tdir``; window and busy span every kernel, copy and memset."""
+    import glob
+    (path,) = glob.glob(os.path.join(tdir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and
+               "render_fwd_kernel" in e.get("name", "")]
+    ranges = [e for e in events if e.get("name") == "dm.serve"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, reach = 0.0, spans[0][0] if spans else 0.0
+    for start, end in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    window = reach - spans[0][0] if spans else 0.0
+    return (kernels, ranges, os.path.getsize(path) / 2 ** 20, window / 1e3,
+            busy / 1e3)
+
+
+def phase_surface(torch, dmt):
+    """The public surface on the card (phase 5i): sampling and subset
+    renders, a steering-vector codebook through the beam-gain kernel,
+    profiling (stage timers, a ``torch.profiler`` trace, the roofline) and
+    the scenario database client end to end against a loopback mock.
+    Returns the checked calls' launches."""
+    import shutil
+    import tempfile
+    from deepmimo_tpu_torch.ops.channel import unpack_planes_np
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+    from deepmimo_tpu_torch.utils.profiling import (StageTimer, annotate,
+                                                    renderer_roofline,
+                                                    xla_trace)
+    if os.path.join(HERE, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+    from mock_db_server import MockDatabase
+    t_phase = time.perf_counter()
+    counted = _Launches()
+    params = make_params(dmt)
+    t = BS_SHAPE[0] * BS_SHAPE[1]
+
+    def oracle_check(tag, planes, ds, rows):
+        got = unpack_planes_np(planes[rows].cpu().numpy(),
+                               params.to_config(len(rows))[0])
+        _check_oracle("surface", tag, got, _oracle_rows(ds, rows),
+                      ORACLE_RTOL)
+
+    # (a) Sampling: a LinearPath and a coordinate box, each a subset
+    # rendered in one launch.
+    d = make_data(CHUNK, MAX_PATHS, seed=SURF_SEED)
+    d["rx_pos"] = _grid_users(CHUNK)
+    d["tx_pos"] = np.array([[128.0, -10.0, 25.0]], np.float32)
+    ds = dmt.Dataset(d)
+    t0 = time.perf_counter()
+    path = dmt.LinearPath(d["rx_pos"], (0, 0), (255, 511),
+                          n_steps=SURF_PATH_STEPS)
+    log(f"[surface] LinearPath over {CHUNK} users, {SURF_PATH_STEPS} steps: "
+        f"{time.perf_counter() - t0:.3f} s (host), {len(path.idxs)} users")
+    sub = ds.subset(path.idxs)
+    h = counted(lambda: sub.compute_channels(params, to_device=True),
+                render=1, what="LinearPath subset")
+    if tuple(h.shape) != (len(path.idxs), 1, t, 2 * N_SC):
+        raise AssertionError(f"LinearPath subset: {tuple(h.shape)}")
+    oracle_check(f"LinearPath subset, all {len(path.idxs)} users", h, sub,
+                 np.arange(len(path.idxs)))
+    box = dmt.get_idxs_with_limits(d["rx_pos"], **SURF_LIMITS)
+    inside = np.flatnonzero((d["rx_pos"][:, 0] <= SURF_LIMITS["x_max"]) &
+                            (d["rx_pos"][:, 1] <= SURF_LIMITS["y_max"]))
+    if not np.array_equal(box, inside):
+        raise AssertionError(f"get_idxs_with_limits: {len(box)} users, "
+                             f"{len(inside)} inside the box")
+    sub = ds.subset(box)
+    h = counted(lambda: sub.compute_channels(params, to_device=True),
+                render=1, what="box subset")
+    oracle_check(f"box subset ({len(box)} users), every 128th", h, sub,
+                 np.arange(0, len(box), len(box) // N_ORACLE))
+    del sub, h
+
+    # (b) A steering-vector codebook through the beam-gain kernel.
+    w = _steering_codebook(dmt)
+    g = counted(lambda: ds.compute_beam_gains(params, codebook=w,
+                                              to_device=True),
+                beam_gain=1, what="steering-codebook beam gains")
+    if tuple(g.shape) != (CHUNK, BG_BEAMS, N_SC):
+        raise AssertionError(f"steering-codebook beam gains: "
+                             f"{tuple(g.shape)}")
+    want = _beam_oracle(w, _oracle(ds, N_ORACLE, d["power"], d["phase"]))
+    _check_oracle("surface", "steering-codebook beam gains",
+                  g[:N_ORACLE].cpu().numpy(), want, BG_ORACLE_RTOL)
+    ms = event_ms(torch, lambda: ds.compute_beam_gains(
+        params, codebook=w, to_device=True, out=g), 5)
+    log(f"[surface] steering-codebook beam gains: {ms:.4f} ms per "
+        f"{CHUNK}-user call (CUDA events), {CHUNK / ms * 1e3:.1f} users/s")
+    del g
+
+    # (c) Profiling: stage timers, a trace, the roofline.
+    h = counted(lambda: ds.compute_channels(params, to_device=True),
+                render=1, what="serving warm call")
+    timer = StageTimer()
+    event_times = []
+    before = kr.LAUNCHES
+    for _ in range(SURF_SERVES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with timer.stage("serve"), annotate("dm.serve"):
+            start.record()
+            ds.compute_channels(params, to_device=True, out=h)
+            end.record()
+        if not end.query():
+            raise AssertionError("StageTimer: a stage ended before its "
+                                 "render")
+        event_times.append(start.elapsed_time(end))
+    if kr.LAUNCHES - before != SURF_SERVES:
+        raise AssertionError(f"serving stages: {kr.LAUNCHES - before} "
+                             f"render launches for {SURF_SERVES} calls")
+    counted.render += SURF_SERVES
+    stage_ms = [dt * 1e3 for _, dt in timer.records]
+    log("[surface] StageTimer 'serve' ms (CUDA-event ms): " + "; ".join(
+        f"{a:.4f} ({b:.4f})" for a, b in zip(stage_ms, event_times)))
+    for a, b in zip(stage_ms, event_times):
+        if not a >= STAGE_FLOOR * b:
+            raise AssertionError(f"StageTimer: stage {a:.4f} ms < "
+                                 f"{STAGE_FLOOR} x its call's {b:.4f} ms")
+    root = tempfile.mkdtemp(prefix="deepmimo_surface_")
+    old = {k: dmt.config.get(k) for k in ("scenarios_folder",
+                                          "api_endpoint")}
+    try:
+        tdir = os.path.join(root, "trace")
+        t0 = time.perf_counter()
+        with xla_trace(tdir):
+            with annotate("dm.serve"):
+                counted(lambda: ds.compute_channels(params, to_device=True,
+                                                    out=h),
+                        render=1, what="traced serving call")
+        kernels, ranges, mb, window, busy = _trace_check(tdir)
+        log(f"[surface] xla_trace: {time.perf_counter() - t0:.3f} s (host), "
+            f"{mb:.2f} MB; render kernel events {len(kernels)} ("
+            + ", ".join(f"{e['dur'] / 1e3:.4f} ms" for e in kernels) +
+            f"), 'dm.serve' ranges {len(ranges)} ("
+            + ", ".join(sorted({e.get('cat', '?') for e in ranges})) +
+            f"); device window {window:.4f} ms, busy {busy:.4f} ms, idle "
+            f"{100 * (1 - busy / window) if window else 0:.2f}%")
+        if not kernels or not ranges:
+            raise AssertionError("xla_trace: the trace lacks the render "
+                                 "kernel or the dm.serve range")
+        roof = renderer_roofline(CHUNK, UE_SHAPE[0] * UE_SHAPE[1], t, N_SC,
+                                 MAX_PATHS)
+        bound = kernel_bounds()["fused_render"][0]
+        got = roof["t_memory_bound_s"] * 1e3
+        if not abs(got - bound) <= 1e-9 * bound:
+            raise AssertionError(f"renderer_roofline {got} ms != "
+                                 f"kernel_bounds {bound} ms")
+        ms = sorted(event_times)[len(event_times) // 2]
+        log(f"[surface] renderer_roofline: memory bound {got:.4f} ms "
+            f"(kernel_bounds {bound:.4f}), compute bound "
+            f"{roof['t_compute_bound_s'] * 1e3:.4f} ms, users/s at the "
+            f"bound {roof['users_per_s_sol']:.1f}; measured "
+            f"{CHUNK / ms * 1e3:.1f} users/s (median {ms:.4f} ms per call)")
+        del h, ds
+
+        # (d) The scenario database client against a loopback mock.
+        dmt.config.set("scenarios_folder", root)
+        name = "surface_scen"
+        folder = os.path.join(root, name)
+        data = _scenario_data(SURF_SCEN_USERS, seed=SURF_SEED + 1)
+        write_scenario(dmt, folder, [data], SURF_SCEN_USERS)
+        text = dmt.summary(name, print_summary=False)
+        log("[surface] summary: " + " | ".join(text.splitlines()[1:7]))
+        with MockDatabase() as db:
+            dmt.config.set("api_endpoint", db.url)
+            t0 = time.perf_counter()
+            zip_path = dmt.zip(folder)
+            log(f"[surface] zip of {SURF_SCEN_USERS} users: "
+                f"{time.perf_counter() - t0:.3f} s (host), "
+                f"{os.path.getsize(zip_path) / 2 ** 20:.2f} MB")
+            t0 = time.perf_counter()
+            dmt.upload(name, key="chip-smoke", include_images=False)
+            log(f"[surface] upload: {time.perf_counter() - t0:.3f} s "
+                f"(host)")
+            sent = db.received["submission"]
+            if sent["scenario"] != name or sent["summary"] != text:
+                raise AssertionError("upload: wrong submission payload")
+            shutil.rmtree(folder)
+            os.remove(zip_path)
+            t0 = time.perf_counter()
+            loaded = dmt.load(name)           # downloads, then loads
+            log(f"[surface] load of the missing scenario (download + "
+                f"load): {time.perf_counter() - t0:.3f} s (host)")
+        if not os.path.isfile(os.path.join(folder, "params.json")) or \
+                isinstance(loaded, dmt.MacroDataset):
+            raise AssertionError("download: params.json is not in "
+                                 f"{folder}")
+        t0 = time.perf_counter()
+        dmt.load(name)
+        log(f"[surface] load from disk: {time.perf_counter() - t0:.3f} s "
+            f"(host)")
+        _same_mats("downloaded scenario", loaded, data,
+                   ("power", "phase", "delay", "aoa_az", "aod_el"))
+        h = counted(lambda: loaded.compute_channels(params, to_device=True),
+                    render=1, what="downloaded scenario")
+        oracle_check("downloaded scenario", h, loaded, np.arange(N_ORACLE))
+        del h, loaded
+    finally:
+        for k, v in old.items():
+            dmt.config.set(k, v)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"[surface] phase 5i: {time.perf_counter() - t_phase:.1f} s (host "
+        f"wall); launches counted: render {counted.render}, beam gain "
+        f"{counted.beam_gain}")
+    return {"fused_render": counted.render,
+            "fused_beam_gain": counted.beam_gain}
+
+
 def kernel_bounds(fma=False):
     """Least card time (ms) of each kernel's work, in each mode, at its
     headline shapes, and what bounds it: bytes (each input read once, each
@@ -2208,6 +2475,7 @@ def main():
     torch.cuda.empty_cache()
     nonfused = phase_nonfused(torch, dmt)
     scenarios = phase_scenarios(torch, dmt)
+    surface = phase_surface(torch, dmt)
     doppler = phase_doppler(torch, dmt)
     polar_render, polar_bg = phase_polar(torch, dmt)
     torch.cuda.empty_cache()
@@ -2220,17 +2488,19 @@ def main():
                      "fused_path_sum": pallas_launches,
                      "fused_beam_gain": bg_launches + polar_bg})
     for phase in (bf16_serving, angle_space, doppler, nonfused, train_bf16,
-                  scenarios):
+                  scenarios, surface):
         launches.update(phase)
     log(f"[launches] fused_render: serving {serve_launches} + dual-polar "
         f"{polar_render} + training {train_fwd} + angle space "
         f"{angle_space['fused_render']} + Doppler {doppler['fused_render']}"
-        f" + scenarios from disk {scenarios['fused_render']}; "
+        f" + scenarios from disk {scenarios['fused_render']} + public "
+        f"surface {surface['fused_render']}; "
         f"fused_render_bwd: training {train_bwd}; fused_path_sum: pallas "
         f"training {pallas_launches}; fused_beam_gain: serving "
         f"{bg_launches} + dual-polar {polar_bg} + Doppler "
         f"{doppler['fused_beam_gain']} + scenarios from disk "
-        f"{scenarios['fused_beam_gain']}; modes: complex128 beam gains "
+        f"{scenarios['fused_beam_gain']} + public surface "
+        f"{surface['fused_beam_gain']}; modes: complex128 beam gains "
         f"{nonfused}, bf16 serving {bf16_serving}, "
         f"bf16 training {train_bf16}")
     src = "deepmimo_tpu_torch/csrc/"

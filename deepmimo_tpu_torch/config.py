@@ -57,6 +57,8 @@ class DeepMIMOConfig:
         # O(users x antennas^2 x paths); above this it raises MemoryError
         # with guidance).
         "max_array_product_bytes": 4 << 30,
+        # Scenario database (api.py: upload, download, search)
+        "api_endpoint": "https://dev.deepmimo.net",
     }
 
     def __new__(cls):

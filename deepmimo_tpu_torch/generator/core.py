@@ -42,7 +42,9 @@ def load(scen_name: str, **load_params) -> Dataset | MacroDataset:
 
     Args:
         scen_name: scenario name (resolved under the scenarios folder) or an
-            absolute path to a scenario folder.
+            absolute path to a scenario folder. A folder that does not
+            exist is downloaded from the scenario database into it first
+            (``api.download``).
         **load_params: max_paths (int), tx_sets / rx_sets (dict | list |
             'all'), matrices (list | 'all').
     """
@@ -52,8 +54,12 @@ def load(scen_name: str, **load_params) -> Dataset | MacroDataset:
     else:
         scen_folder = get_scenario_folder(scen_name)
     if not os.path.exists(scen_folder):
-        raise ValueError(f"Scenario {scen_name} not found at {scen_folder} "
-                         "(downloading is not ported yet: ROADMAP item 16)")
+        from ..api import download
+        print(f"Scenario '{scen_name}' not found locally; "
+              "attempting download...")
+        download(scen_name, output_dir=os.path.dirname(scen_folder))
+        if not os.path.exists(scen_folder):
+            raise ValueError(f"Scenario {scen_name} not found")
 
     params_file = os.path.join(scen_folder, f"{c.PARAMS_FILENAME}.json")
     if not os.path.exists(params_file):

@@ -16,6 +16,8 @@ pathloss, LoS, path and interaction counts, pattern-gain powers, the
 array-response product, grid info, ``subset``) resolve through the same
 registry, NaN-padded on the host; their angle, FoV and pattern math runs
 in the port's own torch geometry in float64 on ``config['device']``.
+``plot_coverage``, ``plot_rays`` and ``info`` pass through to
+``generator/visualization.py`` and ``info.py``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from .. import consts as c
 from ..config import config
+from ..info import info as _info
 from ..ops import geometry as _geo
 from ..ops.channel import (_fov_valid, _fused_n_snap, _rotated_angles,
                            _td_compact_active, planes_dtype,
@@ -649,6 +652,35 @@ class Dataset(DotDict):
     def get_uniform_idxs(self, steps: List[int]) -> np.ndarray:
         """Indices of the users on a uniform [x_step, y_step] subgrid."""
         return get_uniform_idxs(self.n_ue, self["grid_size"], steps)
+
+    def plot_coverage(self, cov_map, **kwargs):
+        """Users coloured by ``cov_map`` [n_ue], with the BS and its
+        boresight (``visualization.plot_coverage``); returns the axes."""
+        from .visualization import plot_coverage
+        return plot_coverage(self[c.RX_POS_PARAM_NAME], cov_map,
+                             bs_pos=np.asarray(self[c.TX_POS_PARAM_NAME]).T,
+                             bs_ori=self.tx_ori, **kwargs)
+
+    def plot_rays(self, idx: int, **kwargs):
+        """The ray paths of user ``idx`` (``visualization.plot_rays``, 3D
+        and coloured by first bounce unless ``kwargs`` say otherwise)."""
+        from .visualization import plot_rays
+        defaults = {"proj_3D": True, "color_by_type": True}
+        defaults.update(kwargs)
+        return plot_rays(np.asarray(self[c.RX_POS_PARAM_NAME])[idx],
+                         np.asarray(self[c.TX_POS_PARAM_NAME])[0],
+                         np.asarray(self[c.INTERACTIONS_POS_PARAM_NAME])[idx],
+                         np.asarray(self[c.INTERACTIONS_PARAM_NAME])[idx],
+                         **defaults)
+
+    def info(self, param_name: Optional[str] = None) -> None:
+        """Print help for one dataset key (an alias resolves to its key),
+        or for all of them."""
+        if param_name in c.DATASET_ALIASES:
+            resolved = c.DATASET_ALIASES[param_name]
+            print(f"'{param_name}' is an alias for '{resolved}'")
+            param_name = resolved
+        _info(param_name)
 
     _computed_attributes = {
         c.N_UE_PARAM_NAME: "_compute_n_ue",

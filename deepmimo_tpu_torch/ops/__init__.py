@@ -10,10 +10,12 @@ from .types import (AntennaPanel, ChannelConfig, PathData,
 from .geometry import (
     ant_indices,
     apply_fov,
+    array_response,
     array_response_planes,
     rotate_angles,
     rotate_unit_vec,
     safe_arccos,
+    steering_vec,
 )
 from .patterns import PATTERN_REGISTRY, pattern_gain
 from .channel import (beam_gain_eligible, polar_fused_eligible,
@@ -25,8 +27,9 @@ from .channel import (beam_gain_eligible, polar_fused_eligible,
 __all__ = [
     "AntennaPanel", "ChannelConfig", "PathData", "state_from_numpy",
     "calib_params_from_numpy",
-    "ant_indices", "apply_fov", "array_response_planes", "rotate_angles",
-    "rotate_unit_vec", "safe_arccos", "PATTERN_REGISTRY", "pattern_gain",
+    "ant_indices", "apply_fov", "array_response", "array_response_planes",
+    "rotate_angles", "rotate_unit_vec", "safe_arccos", "steering_vec",
+    "PATTERN_REGISTRY", "pattern_gain",
     "render_channels", "render_channels_and_grads",
     "render_channels_planes", "unpack_planes_np", "beam_gain_eligible",
     "render_beam_gains", "polar_fused_eligible",

@@ -195,3 +195,20 @@ def array_response_planes(panel_shape: Tuple[int, int], spacing,
         re = torch.where(v, re, torch.zeros_like(re))
         im = torch.where(v, im, torch.zeros_like(im))
     return re, im
+
+
+def steering_vec(array, phi: float = 0, theta: float = 0,
+                 spacing: float = 0.5) -> np.ndarray:
+    """Normalized steering vector (numpy complex128 [M1 * M2]) of an
+    (M1, M2) panel toward (phi, theta), with the JAX package's angle
+    convention: the panel's polar angle is phi (degrees) and its azimuth
+    is theta + 90 degrees."""
+    pos = ant_indices(array)
+    kd = 2 * np.pi * spacing
+    t = np.deg2rad(phi)
+    p = np.deg2rad(theta) + np.pi / 2
+    kvec = kd * np.array([np.sin(t) * np.cos(p),
+                          np.sin(t) * np.sin(p),
+                          np.cos(t)])
+    resp = np.exp(1j * pos @ kvec)
+    return resp / np.linalg.norm(resp)

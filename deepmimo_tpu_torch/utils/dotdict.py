@@ -114,3 +114,14 @@ def compare_two_dicts(dict1: Dict[str, Any], dict2: Dict[str, Any]) -> set:
         if isinstance(item, (dict, DotDict)) and key in dict2:
             extra |= compare_two_dicts(dict1[key], dict2[key])
     return extra
+
+
+class PrintIfVerbose:
+    """Callable that prints only when constructed with verbose=True."""
+
+    def __init__(self, verbose: bool) -> None:
+        self.verbose = verbose
+
+    def __call__(self, message: str) -> None:
+        if self.verbose:
+            print(message)

@@ -1,5 +1,5 @@
 """Filesystem utilities: scenario folders, matrix file naming, mat and
-JSON IO.
+JSON IO, zip.
 
 The scenario-on-disk naming contract (``{key}_t{SSS}_tx{III}_r{RRR}.mat``),
 copied from ``deepmimo_tpu.utils.files`` so the port reads and writes the
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import json
 import os
+import zipfile as _zipfile
 from typing import Any, Dict
 
 import numpy as np
@@ -110,3 +111,27 @@ def save_mat(data: np.ndarray, key: str, folder: str, tx_set_idx=0,
 def load_mat(path: str, key: str) -> np.ndarray:
     """Load one matrix from a scenario .mat file."""
     return scipy.io.loadmat(path)[key]
+
+
+def zip(folder_path: str) -> str:
+    """Zip a folder (recursively, structure preserved) next to itself."""
+    zip_path = folder_path + ".zip"
+    all_files = []
+    for root, _, files in os.walk(folder_path):
+        for file in files:
+            file_path = os.path.join(root, file)
+            rel_path = os.path.relpath(file_path, os.path.dirname(folder_path))
+            all_files.append((file_path, rel_path))
+    with _zipfile.ZipFile(zip_path, "w",
+                          compression=_zipfile.ZIP_DEFLATED) as zf:
+        for file_path, rel_path in all_files:
+            zf.write(file_path, rel_path)
+    return zip_path
+
+
+def unzip(path_to_zip: str) -> str:
+    """Extract a zip archive next to itself; returns the extraction folder."""
+    extracted_path = path_to_zip.replace(".zip", "")
+    with _zipfile.ZipFile(path_to_zip, "r") as zf:
+        zf.extractall(extracted_path)
+    return extracted_path

@@ -18,6 +18,7 @@ import deepmimo_tpu as dm
 import deepmimo_tpu_torch as dmt
 from deepmimo_tpu.generator.dataset import \
     delay_clipping_report as jax_clipping_report
+from deepmimo_tpu_torch.api import ApiError
 from deepmimo_tpu_torch.generator.dataset import delay_clipping_report
 from deepmimo_tpu_torch.ops.channel import unpack_planes_np
 
@@ -148,8 +149,12 @@ def test_load_and_generate_match_jax(tmp_path):
     want = dm.generate(folder, ch_gen_params=_params(dm)).channel
     got = dmt.generate(folder, ch_gen_params=_params(dmt)).channel
     _close(got, want)
-    with pytest.raises(ValueError):
+    # A missing folder is downloaded first; with the database unreachable
+    # (a closed loopback port) the load raises ApiError, as the JAX one.
+    dmt.config.set("api_endpoint", "http://127.0.0.1:1")
+    with pytest.raises(ApiError):
         dmt.load(str(tmp_path / "missing"))
+    assert not os.path.exists(tmp_path / "missing")
 
 
 @pytest.mark.parametrize("kw", [
