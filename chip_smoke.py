@@ -122,6 +122,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    database (``tests/mock_db_server.py``), the folder deleted, ``load``
    downloading and loading it, one render launch against the oracle; host
    seconds of the zip, upload, download and loads.
+5j. Converted scenarios, at the headline width: one set of 131,072 users
+   (a 256 x 512 grid) x 25 paths (seed 20; line of sight and chains of 1
+   or 2 reflections) written as a Wireless InSite project (.setup from the
+   port's token writer, project .xml, .city, a ~410 MB .paths.p2m printed
+   with ``%.17g`` by 4 worker processes while the Sionna conversion runs,
+   and the .pl.p2m) and as a Sionna RT export (six pickles); ``convert``
+   of each, InSite through the native p2m parser (built with g++ into
+   ``build/native/``; its parse count must rise); a 16,384-user file parsed
+   by the native and the Python parser, bit for bit; the two scenarios'
+   path matrices equal bit for bit; ``load`` of each, ``compute_channels``
+   in one render launch each, 64 users against the oracle (5e-5 x
+   max|H|), the two channels equal; beam gains of the Sionna scenario in
+   one beam-gain launch against the oracle (1e-4 x max|G|); the batch CLI
+   (``convert_folder_loop``) over a 4,096-user InSite run, a Sionna run
+   and an unclaimed folder (2 converted, 1 error, the error log), its
+   ``--retry`` reading the log, ``copy_source`` writing
+   ``rt_source.zip``; where pandas and pyarrow are installed, an AODT
+   export of 1,024 users converted and rendered in one launch against the
+   oracle (else its ``convert`` must raise ImportError). Host seconds of
+   every write, conversion, parse (the whole file's native parse alone
+   too), load and the zip; CUDA-event ms and a ``torch.profiler``
+   breakdown of each render; the peak device memory.
 6. Training path: the calibration step ``training_step_planes`` with the
    fused backend at the headline width (BS rotated 10 degrees in the
    target, calibration from 0): the first step's gradients of every
@@ -155,6 +177,7 @@ import json
 import math
 import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1619,7 +1642,6 @@ def phase_scenarios(torch, dmt):
     legacy v3 folders, and checkpoint/resume of the streamed render; each
     folder written by the port's own writers into a temporary directory
     that is removed at the end. Returns the checked calls' launches."""
-    import shutil
     import tempfile
     from deepmimo_tpu_torch.generator.checkpoint import ChunkStore
     from deepmimo_tpu_torch.generator.core import DynamicDataset
@@ -2007,7 +2029,6 @@ def phase_surface(torch, dmt):
     profiling (stage timers, a ``torch.profiler`` trace, the roofline) and
     the scenario database client end to end against a loopback mock.
     Returns the checked calls' launches."""
-    import shutil
     import tempfile
     from deepmimo_tpu_torch.ops.channel import unpack_planes_np
     from deepmimo_tpu_torch.ops.kernels import render as kr
@@ -2191,6 +2212,597 @@ def phase_surface(torch, dmt):
     log(f"[surface] phase 5i: {time.perf_counter() - t_phase:.1f} s (host "
         f"wall); launches counted: render {counted.render}, beam gain "
         f"{counted.beam_gain}")
+    return {"fused_render": counted.render,
+            "fused_beam_gain": counted.beam_gain}
+
+
+# Phase 5j: ray-tracer outputs converted by the port, at the headline width.
+CONV_SEED = 20
+CONV_GRID = 256              # users per grid row: 256 x 512 at CHUNK
+CONV_PARTS = 8               # .paths.p2m text parts, CONV_PY_USERS each
+CONV_WORKERS = 4             # worker processes writing them
+CONV_PY_USERS = 16_384       # users of the file read by both parsers
+CONV_CLI_USERS = 4_096       # users of each run of the batch CLI
+CONV_AODT_USERS = 1_024      # users of the AODT export (a row per path)
+CONV_FREQ = 3.5e9
+CONV_TX = (128.0, -10.0, 25.0)
+CONV_PROJ = "conv"           # InSite project name
+CONV_PATH_KEYS = ("power", "phase", "delay", "aoa_az", "aoa_el", "aod_az",
+                  "aod_el", "inter", "inter_pos", "rx_pos", "tx_pos")
+P2M_XYZ = "%.17g %.17g %.17g\n"
+
+
+def conv_source(n_ue, seed=CONV_SEED):
+    """One set of ray-traced paths for both engines, in float64: complex
+    amplitudes (-130 to -60 dB, NaN-free; 0 past a user's paths), delays,
+    angles in radians, reflection chains of 0-2 bounces (path 0 is the
+    line of sight, each later path 1 or 2 reflections, the rest of
+    ``vertices`` NaN), users on a grid ``CONV_GRID`` wide, about 1 in 32
+    with no path."""
+    rng = np.random.RandomState(seed)
+    p = MAX_PATHS
+    n_valid = rng.randint(1, p + 1, n_ue)
+    n_valid[rng.rand(n_ue) < 1 / 32] = 0
+    valid = np.arange(p)[None, :] < n_valid[:, None]
+    mag = 10.0 ** (rng.uniform(-130, -60, (n_ue, p)) / 20)
+    a = np.where(valid, mag * np.exp(1j * rng.uniform(-np.pi, np.pi,
+                                                      (n_ue, p))), 0)
+    bounces = rng.randint(1, 3, (n_ue, p))
+    bounces[:, 0] = 0
+    vertices = rng.uniform(-100.0, 100.0, (2, n_ue, p, 3))
+    vertices[~((np.arange(2)[:, None, None] < bounces) & valid)] = np.nan
+    i = np.arange(n_ue)
+    src = {"a": a, "n_valid": n_valid, "bounces": bounces,
+           "vertices": vertices, "tau": rng.uniform(1e-7, 4e-6, (n_ue, p)),
+           "rx_pos": np.stack([i % CONV_GRID, i // CONV_GRID,
+                               np.full(n_ue, 1.5)], 1).astype(np.float64),
+           "tx_pos": np.array([CONV_TX])}
+    for key, (lo, hi) in (("phi_r", (-np.pi, np.pi)), ("theta_r", (0, np.pi)),
+                          ("phi_t", (-np.pi, np.pi)),
+                          ("theta_t", (0, np.pi))):
+        src[key] = rng.uniform(lo, hi, (n_ue, p))
+    return src
+
+
+def write_sionna_export(folder, src):
+    """The six pickles of a Sionna RT export of ``src`` (one batch, one TX;
+    path types per path index: 0 line of sight, then 1 reflection
+    chains), as ``converter/sionna/exporter.py`` writes them."""
+    import pickle
+    os.makedirs(folder, exist_ok=True)
+    n, p = src["a"].shape
+    paths = {"a": src["a"].reshape(1, n, 1, 1, 1, p, 1),
+             "types": np.concatenate([[0.0], np.ones(p - 1)])[None],
+             "vertices": src["vertices"].reshape(2, n, 1, p, 3),
+             "sources": src["tx_pos"], "targets": src["rx_pos"]}
+    for key in ("tau", "phi_r", "theta_r", "phi_t", "theta_t"):
+        paths[key] = src[key].reshape(1, n, 1, p)
+    tri = np.array([[0, 0, 0], [10, 0, 0], [10, 10, 0], [0, 0, 0],
+                    [10, 10, 0], [0, 10, 0]], dtype=np.float64)
+    pickles = {
+        "paths": [paths],
+        "rt_params": {
+            "frequency": CONV_FREQ, "los": True, "synthetic_array": True,
+            "max_depth": 2, "reflection": True, "diffraction": False,
+            "scattering": False, "num_samples": 1_000_000,
+            "method": "fibonacci", "scat_random_phases": False,
+            "tx_array_size": 1, "tx_array_num_ant": 1, "rx_array_size": 1,
+            "rx_array_num_ant": 1, "tx_array_ant_pos": [[0, 0, 0]],
+            "rx_array_ant_pos": [[0, 0, 0]]},
+        "materials": [{
+            "name": "itu_concrete", "relative_permittivity": 5.24,
+            "conductivity": 0.123, "scattering_coefficient": 0.0,
+            "xpd_coefficient": 0.0, "scattering_pattern": "LambertianPattern",
+            "alpha_r": 4.0, "alpha_i": 4.0, "lambda_": 0.5}],
+        "material_indices": [0], "vertices": tri,
+        "objects": {"building_1": (0, 6)}}
+    for name, obj in pickles.items():
+        with open(os.path.join(folder, f"sionna_{name}.pkl"), "wb") as f:
+            pickle.dump(obj, f)
+
+
+def _p2m_path_fmt(n_bounces):
+    """One path of a .paths.p2m receiver block: the data line (path number,
+    interactions, power dB, phase deg, delay s, AoA el/az, AoD el/az deg),
+    the interaction chain, the TX, bounce and RX positions."""
+    return ("%d %d" + " %.17g" * 7 + "\n" + "Tx-" + "R-" * n_bounces +
+            "Rx\n" + P2M_XYZ * (n_bounces + 2))
+
+
+def p2m_header(n_rx):
+    """The 21 info lines and the receiver count of a .paths.p2m file."""
+    return "".join(f"# {CONV_PROJ} paths, info line {i + 1}\n"
+                   for i in range(21)) + f"{n_rx}\n"
+
+
+def p2m_body(src, start, stop):
+    """The receiver blocks of users ``start`` to ``stop`` of ``src``, every
+    number printed with ``%.17g`` from the float64 values that the Sionna
+    export holds (power 20 log10|a|, phase angle(a) and the angles in
+    degrees), so both engines' converters read the same numbers."""
+    a = src["a"][start:stop]
+    with np.errstate(divide="ignore"):
+        power = 20 * np.log10(np.abs(a))
+    cols = [power, np.angle(a, deg=True), src["tau"][start:stop]] + [
+        np.rad2deg(src[k][start:stop])
+        for k in ("theta_r", "phi_r", "theta_t", "phi_t")]
+    rows = np.stack(cols, -1).tolist()                   # [U, P, 7]
+    verts = np.moveaxis(src["vertices"][:, start:stop], 0, 2).reshape(
+        stop - start, MAX_PATHS, 6).tolist()
+    tx = src["tx_pos"][0].tolist()
+    fmts = [_p2m_path_fmt(b) for b in range(3)]
+    out = []
+    for u in range(stop - start):
+        n = int(src["n_valid"][start + u])
+        out.append("%d %d\n" % (start + u + 1, n))
+        if not n:
+            continue
+        out.append("%.17g 0 0\n" % max(r[0] for r in rows[u][:n]))
+        rx = src["rx_pos"][start + u].tolist()
+        for p in range(n):
+            b = int(src["bounces"][start + u, p])
+            out.append(fmts[b] % tuple(
+                [p + 1, b] + rows[u][p] + tx + verts[u][p][:3 * b] + rx))
+    return "".join(out)
+
+
+def pl_text(src):
+    """The .pl.p2m file of ``src``: positions, distance, and path loss
+    (250 dB marks a receiver with no path)."""
+    d = np.linalg.norm(src["rx_pos"] - src["tx_pos"], axis=1)
+    pl = np.where(src["n_valid"] == 0, 250.0, 100.0)
+    return "# <rx> <x> <y> <z> <distance> <pathloss>\n" + "".join(
+        "%d %.17g %.17g %.17g %.17g %.17g\n" % (i + 1, *xyz, di, pi)
+        for i, (xyz, di, pi) in enumerate(zip(src["rx_pos"].tolist(),
+                                              d.tolist(), pl.tolist())))
+
+
+def _setup_text(serialize, node_cls):
+    """A minimal .setup: one study area (2 reflections, no diffraction or
+    scattering), an isotropic antenna and a sinusoid at ``CONV_FREQ``."""
+    def node(kind, name="", values=None, children=(), data=()):
+        n = node_cls(kind=kind, name=name)
+        n.values.update(values or {})
+        n.data.extend(data)
+        for ch in children:
+            n.children.append(ch)
+            n.values.setdefault(ch.kind, ch)
+        return n
+    model = node("model", values={
+        "ray_spacing": 0.25, "max_reflections": 2, "max_transmissions": 0,
+        "max_wedge_diffractions": 0, "terrain_diffractions": "No"})
+    boundary = node("boundary", children=[node("reference", values={
+        "latitude": 0.0, "longitude": 0.0})], values={"nVertices": 4},
+        data=[(-600.0, -600.0, 0.0), (-600.0, 600.0, 0.0),
+              (600.0, 600.0, 0.0), (600.0, -600.0, 0.0)])
+    studyarea = node("studyarea", "study_area", children=[
+        model, node("apg_acceleration", values={"path_depth": 2}),
+        node("diffuse_scattering", values={"enabled": False}), boundary])
+    return serialize([node("project", CONV_PROJ, children=[
+        studyarea,
+        node("antenna", "Isotropic", values={"type": "isotropic"}),
+        node("Waveform", "Sinusoid", values={"CarrierFrequency": CONV_FREQ,
+                                             "bandwidth": BANDWIDTH})])])
+
+
+def _xml_point(x, y, z):
+    return ("<ProjectedPoint><remcom::rxapi::CartesianPoint>" + "".join(
+        f'<{k}><remcom::rxapi::Double Value="{v!r}"/></{k}>'
+        for k, v in (("X", x), ("Y", y), ("Z", z))) +
+        "</remcom::rxapi::CartesianPoint></ProjectedPoint>")
+
+
+def _xml_set(kind, role, out_id, name, points, extra=""):
+    return (f"<TxRxSet><remcom::rxapi::{kind}><ControlPoints>"
+            "<remcom::rxapi::ProjectedPointList>" +
+            "".join(_xml_point(*p) for p in points) +
+            "</remcom::rxapi::ProjectedPointList></ControlPoints>" + extra +
+            f'<OutputID><remcom::rxapi::Integer Value="{out_id}"/>'
+            f'</OutputID><ShortDescription><remcom::rxapi::String '
+            f'Value="{name}"/></ShortDescription><{role}>'
+            f"<remcom::rxapi::{role}/></{role}>"
+            f"</remcom::rxapi::{kind}></TxRxSet>")
+
+
+def project_xml(tx_points, nx, ny, rx_id=2):
+    """The project XML: TX point set 1 at ``tx_points``, RX grid set
+    ``rx_id`` of nx x ny users at 1 m spacing from (0, 0, 1.5)."""
+    grid = "".join(f'<{k}><remcom::rxapi::Double Value="{v!r}"/></{k}>'
+                   for k, v in (("LengthX", nx - 1.0), ("LengthY", ny - 1.0),
+                                ("Spacing", 1.0)))
+    return ("<!DOCTYPE InSite>\n<InSite><remcom::rxapi::Job><Scene>"
+            "<remcom::rxapi::Scene><TxRxSetList>"
+            "<remcom::rxapi::TxRxSetList>" +
+            _xml_set("PointSet", "Transmitter", 1, "BS", tx_points) +
+            _xml_set("GridSet", "Receiver", rx_id, "users",
+                     [(0.0, 0.0, 1.5)], grid) +
+            "</remcom::rxapi::TxRxSetList></TxRxSetList>"
+            "</remcom::rxapi::Scene></Scene></remcom::rxapi::Job></InSite>")
+
+
+CITY_TEXT = """Format type:keyword version: 1.1.0
+begin_<city> site
+begin_<Material> Concrete
+Material 0
+begin_<DielectricLayer>
+conductivity 0.123
+permittivity 5.24
+roughness 0.0
+thickness 0.3
+end_<DielectricLayer>
+end_<Material>
+begin_<structure_group>
+begin_<structure>
+begin_<sub_structure>
+begin_<face>
+Material 0
+nVertices 4
+0.0000 0.0000 0.0000
+10.0000 0.0000 0.0000
+10.0000 10.0000 0.0000
+0.0000 10.0000 0.0000
+end_<face>
+end_<sub_structure>
+end_<structure>
+end_<structure_group>
+end_<city>
+"""
+
+
+def write_insite_project(folder, src, body=None):
+    """An InSite project of ``src`` with the port's token writer: .setup,
+    .xml, .city, and under ``study_area/`` the .pl.p2m and (unless
+    ``body`` is False: written apart) the .paths.p2m of TX 1 of set 1 to RX
+    set 2. Returns the .paths.p2m path."""
+    from deepmimo_tpu_torch.converter.insite.tokenfmt import (
+        InsiteNode, serialize_insite_text)
+    study = os.path.join(folder, "study_area")
+    os.makedirs(study, exist_ok=True)
+    n = len(src["n_valid"])
+    files = {f"{CONV_PROJ}.setup": _setup_text(serialize_insite_text,
+                                               InsiteNode),
+             f"{CONV_PROJ}.xml": project_xml([CONV_TX], CONV_GRID,
+                                             n // CONV_GRID),
+             f"{CONV_PROJ}.city": CITY_TEXT,
+             f"study_area/{CONV_PROJ}.pl.t001_01.r002.p2m": pl_text(src)}
+    paths = os.path.join(study, f"{CONV_PROJ}.paths.t001_01.r002.p2m")
+    if body is not False:
+        files[os.path.relpath(paths, folder)] = p2m_header(n) + (
+            body if body is not None else p2m_body(src, 0, n))
+    for name, text in files.items():
+        with open(os.path.join(folder, name), "w") as f:
+            f.write(text)
+    return paths
+
+
+def write_aodt_export(folder, src):
+    """An AODT parquet export of ``src`` (the tables
+    ``converter/aodt/aodt_converter.py`` reads: one RU, the UEs, a polyline
+    and a channel amplitude per path, the scenario's carrier); needs pandas
+    and pyarrow."""
+    import pandas as pd
+    os.makedirs(folder, exist_ok=True)
+    with open(os.path.join(folder, "sim.aodt"), "w") as f:
+        f.write("aodt export marker")
+    tx = src["tx_pos"][0]
+    rays, cirs = [], []
+    for u, n in enumerate(src["n_valid"]):
+        for p in range(n):
+            b = int(src["bounces"][u, p])
+            pts = np.concatenate([tx, src["vertices"][:b, u, p].ravel(),
+                                  src["rx_pos"][u]])
+            key = {"time_idx": 0, "ru_id": 0, "ue_id": u, "path_id": p}
+            rays.append(dict(key, points=pts.tolist(),
+                             interaction_types=[0] + [1] * b + [5]))
+            a = src["a"][u, p]
+            cirs.append(dict(key, cir_re=a.real, cir_im=a.imag,
+                             cir_delay=src["tau"][u, p]))
+    tables = {
+        "rus": pd.DataFrame([{"id": 0, "x": tx[0], "y": tx[1], "z": tx[2]}]),
+        "ues": pd.DataFrame({"id": np.arange(len(src["rx_pos"])),
+                             "x": src["rx_pos"][:, 0],
+                             "y": src["rx_pos"][:, 1],
+                             "z": src["rx_pos"][:, 2]}),
+        "raypaths": pd.DataFrame(rays), "cirs": pd.DataFrame(cirs),
+        "scenario": pd.DataFrame([{"carrier_frequency": CONV_FREQ,
+                                   "max_depth": 2}])}
+    for name, table in tables.items():
+        table.to_parquet(os.path.join(folder, f"{name}.parquet"))
+
+
+def _write_p2m_part(path, n_ue, seed, start, stop):
+    """Write the receiver blocks of users ``start`` to ``stop`` of
+    ``conv_source(n_ue, seed)`` to ``path`` (run in a worker process);
+    returns its host seconds."""
+    t0 = time.perf_counter()
+    text = p2m_body(conv_source(n_ue, seed), start, stop)
+    with open(path, "w") as f:
+        f.write(text)
+    return time.perf_counter() - t0
+
+
+def _concat(dest, head, parts):
+    with open(dest, "wb") as out:
+        out.write(head.encode())
+        for part in parts:
+            with open(part, "rb") as f:
+                shutil.copyfileobj(f, out, 16 << 20)
+
+
+def phase_convert(torch, dmt):
+    """Ray-tracer outputs converted by the port (phase 5j): one set of
+    131,072 users x 25 paths written as a Wireless InSite project (the
+    .paths.p2m text by worker processes while the Sionna conversion runs)
+    and as a Sionna RT export; ``convert`` of each (InSite through the
+    native p2m parser; a 16,384-user file also through the Python parser,
+    bit for bit); the two scenarios' path matrices equal bit for bit;
+    ``load`` of each, one render launch each against the oracle and equal
+    channels; beam gains of the Sionna scenario in one launch; the batch
+    CLI over an InSite run, a Sionna run and an unclaimed folder, its
+    ``--retry``, ``copy_source``; an AODT export converted and rendered
+    where pandas and pyarrow are installed, else ImportError. Everything lives in a temporary directory removed
+    at the end. Returns the checked calls' launches."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+    from deepmimo_tpu_torch import native
+    from deepmimo_tpu_torch.converter.insite.p2m import parse_paths_p2m
+    from deepmimo_tpu_torch.ops.channel import unpack_planes_np
+    from deepmimo_tpu_torch.scripts.convert_cli import (convert_folder_loop,
+                                                        main as cli_main)
+    from deepmimo_tpu_torch.utils import get_mat_filename, load_mat
+    t_phase = time.perf_counter()
+    counted = _Launches()
+    params = make_params(dmt)
+    cfg, _, _ = params.to_config(CHUNK)
+    t = BS_SHAPE[0] * BS_SHAPE[1]
+    root = tempfile.mkdtemp(prefix="deepmimo_convert_")
+    old = dmt.config.get("scenarios_folder")
+    dmt.config.set("scenarios_folder", os.path.join(root, "scenarios"))
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+
+    def timed(tag, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t0
+        log(f"[convert] {tag}: {dt:.3f} s (host)")
+        return out, dt
+
+    def quiet(fn):
+        """``fn()`` with its standard output (the converters' chatter)
+        dropped."""
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn()
+
+    if not native.p2m_native.available():
+        raise AssertionError("the native p2m parser did not build")
+    pool = ProcessPoolExecutor(CONV_WORKERS, mp_context=multiprocessing
+                               .get_context("spawn"))
+    try:
+        src, _ = timed(f"source paths ({CHUNK} users x {MAX_PATHS})",
+                       lambda: conv_source(CHUNK))
+        insite_dir = os.path.join(root, "insite_run")
+        sionna_dir = os.path.join(root, "sionna_run")
+        parts = [os.path.join(root, f"part{i}.txt")
+                 for i in range(CONV_PARTS)]
+        jobs = [pool.submit(_write_p2m_part, part, CHUNK, CONV_SEED,
+                            i * CONV_PY_USERS, (i + 1) * CONV_PY_USERS)
+                for i, part in enumerate(parts)]
+        t_text = time.perf_counter()
+        timed("Sionna export write (6 pickles)",
+              lambda: write_sionna_export(sionna_dir, src))
+        timed("InSite project write (.setup, .xml, .city, .pl.p2m)",
+              lambda: write_insite_project(insite_dir, src, body=False))
+        sionna_name, sionna_s = timed("Sionna convert", lambda: dmt.convert(
+            sionna_dir, overwrite=True, scenario_name="conv_sionna"))
+        part_s = [job.result() for job in jobs]
+        pool.shutdown()
+        log(f"[convert] .paths.p2m text, {CONV_PARTS} parts of "
+            f"{CONV_PY_USERS} users in {CONV_WORKERS} worker processes: "
+            f"{max(part_s):.3f} s per part at most, "
+            f"{time.perf_counter() - t_text:.3f} s wall beside the Sionna "
+            f"convert (host)")
+        paths_file = os.path.join(insite_dir, "study_area",
+                                  f"{CONV_PROJ}.paths.t001_01.r002.p2m")
+        timed("InSite .paths.p2m assembly", lambda: _concat(
+            paths_file, p2m_header(CHUNK), parts))
+        small = os.path.join(root, "small.paths.p2m")
+        _concat(small, p2m_header(CONV_PY_USERS), parts[:1])
+        for part in parts:
+            os.remove(part)
+        log(f"[convert] .paths.p2m: {os.path.getsize(paths_file) / 2**20:.1f}"
+            f" MB for {CHUNK} users; {os.path.getsize(small) / 2**20:.1f} MB "
+            f"for {CONV_PY_USERS}")
+        before = native.NATIVE_PARSES
+        insite_name, insite_s = timed(
+            "InSite convert (native p2m parser)", lambda: dmt.convert(
+                insite_dir, overwrite=True, scenario_name="conv_insite"))
+        if native.NATIVE_PARSES != before + 1:
+            raise AssertionError(f"InSite convert: "
+                                 f"{native.NATIVE_PARSES - before} native "
+                                 f"parses, expected 1")
+        whole, whole_s = timed(f"native parse of the whole .paths.p2m "
+                               f"({CHUNK} users) alone", lambda:
+                               parse_paths_p2m(paths_file))
+        del whole
+        nat, nat_s = timed(f"native parse, {CONV_PY_USERS} users",
+                           lambda: parse_paths_p2m(small, use_native=True))
+        py, py_s = timed(f"Python parse, {CONV_PY_USERS} users",
+                         lambda: parse_paths_p2m(small, use_native=False))
+        if native.NATIVE_PARSES != before + 3:
+            raise AssertionError("the native parse of the small file fell "
+                                 "back to Python")
+        for key in nat:
+            if not np.array_equal(nat[key], py[key], equal_nan=True):
+                raise AssertionError(f"native and Python parses differ in "
+                                     f"{key}")
+        log(f"[convert] native == Python parse bit for bit on "
+            f"{CONV_PY_USERS} users ({len(nat)} matrices); native "
+            f"{nat_s:.3f} s, Python {py_s:.3f} s ({py_s / nat_s:.1f}x); "
+            f"convert: InSite {insite_s:.3f} s (its native parse alone "
+            f"{whole_s:.3f} s), Sionna {sionna_s:.3f} s")
+        del nat, py, src
+
+        # Gate 1: the two scenarios' path matrices, bit for bit.
+        folders = {e: dmt.get_scenario_folder(n) for e, n in (
+            ("insite", insite_name), ("sionna", sionna_name))}
+        for key in CONV_PATH_KEYS:
+            fname = get_mat_filename(key, 0, 0, 1)
+            a, b = (load_mat(os.path.join(f, fname), key)
+                    for f in folders.values())
+            if a.shape != b.shape or a.dtype != b.dtype or \
+                    not np.array_equal(a, b, equal_nan=True):
+                raise AssertionError(f"converted {key} differs: InSite "
+                                     f"{a.shape} {a.dtype}, Sionna {b.shape}"
+                                     f" {b.dtype}")
+        log(f"[convert] InSite == Sionna path matrices bit for bit: "
+            f"{', '.join(CONV_PATH_KEYS)}")
+
+        # Gates 2-4: load, render each in one launch, the oracle.
+        loaded = {}
+        planes = {}
+        for engine, name in (("insite", insite_name),
+                             ("sionna", sionna_name)):
+            ds, _ = timed(f"{engine} scenario load", lambda: dmt.load(name))
+            if not isinstance(ds, dmt.Dataset) or ds.n_ue != CHUNK:
+                raise AssertionError(f"{engine} load gave {type(ds)}")
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            h = counted(lambda: ds.compute_channels(params, to_device=True),
+                        render=1, what=f"{engine} compute_channels")
+            log(f"[convert] {engine} compute_channels: peak device memory "
+                f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 30:.3f}"
+                f" GiB above the {base / 2 ** 30:.3f} GiB held before it, "
+                f"{h.numel() * h.element_size() / 2 ** 30:.3f} GiB of it "
+                f"the planes")
+            if tuple(h.shape) != (CHUNK, 1, t, 2 * N_SC) or \
+                    not bool(torch.isfinite(h).all()):
+                raise AssertionError(f"{engine} channels {tuple(h.shape)}")
+            _check_oracle("convert", f"{engine} channels", unpack_planes_np(
+                h[:N_ORACLE].cpu().numpy(), cfg), _oracle(
+                    ds, N_ORACLE, ds["power"], ds["phase"]), ORACLE_RTOL)
+            ms = event_ms(torch, lambda: ds.compute_channels(
+                params, to_device=True, out=h), 5)
+            log(f"[convert] {engine} channels: 1 render launch, {ms:.4f} ms "
+                f"per {CHUNK}-user call (CUDA events over 5 calls)")
+            profile_cell(torch, f"converted {engine} channels", [
+                lambda: ds.compute_channels(params, to_device=True, out=h)])
+            loaded[engine], planes[engine] = ds, h
+        if not torch.equal(planes["insite"], planes["sionna"]):
+            raise AssertionError("the two converted scenarios' channels "
+                                 "differ")
+        log("[convert] InSite and Sionna channels equal bit for bit")
+        del planes
+        ds = loaded.pop("sionna")
+        w = codebook(BG_BEAMS, t, seed=75)
+        g = counted(lambda: ds.compute_beam_gains(params, codebook=w,
+                                                  to_device=True),
+                    beam_gain=1, what="converted beam gains")
+        if tuple(g.shape) != (CHUNK, BG_BEAMS, N_SC):
+            raise AssertionError(f"converted beam gains {tuple(g.shape)}")
+        _check_oracle("convert", "Sionna beam gains",
+                      g[:N_ORACLE].cpu().numpy(), _beam_oracle(w, _oracle(
+                          ds, N_ORACLE, ds["power"], ds["phase"])),
+                      BG_ORACLE_RTOL)
+        ms = event_ms(torch, lambda: ds.compute_beam_gains(
+            params, codebook=w, to_device=True, out=g), 5)
+        log(f"[convert] Sionna beam gains: 1 beam-gain launch, {ms:.4f} ms "
+            f"per {CHUNK}-user call (CUDA events over 5 calls)")
+        del g, ds, loaded
+        torch.cuda.synchronize()
+        log(f"[convert] peak device memory from the Sionna render on "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; "
+            f"{held / 2 ** 30:.3f} GiB held before the phase")
+        shutil.rmtree(dmt.config.get("scenarios_folder"))
+        shutil.rmtree(insite_dir)
+        shutil.rmtree(sionna_dir)
+
+        # Gate 5: the batch CLI over two runs and an unclaimed folder.
+        runs = os.path.join(root, "runs")
+        small_src = conv_source(CONV_CLI_USERS, seed=CONV_SEED + 1)
+        timed(f"CLI runs write ({CONV_CLI_USERS} users each)", lambda: (
+            write_insite_project(os.path.join(runs, "cli_insite"),
+                                 small_src),
+            write_sionna_export(os.path.join(runs, "cli_sionna"),
+                                small_src),
+            os.makedirs(os.path.join(runs, "cli_unclaimed"))))
+        err_log = os.path.join(root, "conversion_errors.json")
+        report, _ = timed("convert_folder_loop", lambda: quiet(
+            lambda: convert_folder_loop(runs, error_log=err_log)))
+        if sorted(report["converted"]) != ["cli_insite", "cli_sionna"] or \
+                [e[0] for e in report["errors"]] != ["cli_unclaimed"] or \
+                not os.path.exists(err_log):
+            raise AssertionError(f"convert_folder_loop report {report}")
+        log(f"[convert] convert_folder_loop: converted "
+            f"{report['converted']} (s: {report['timing_s']}), errors "
+            f"{report['errors']}; error log written")
+        write_sionna_export(os.path.join(runs, "cli_unclaimed"), small_src)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main([runs, "--retry", "--error-log", err_log])
+        retry = json.loads(out.getvalue().strip().splitlines()[-1])
+        if rc != 0 or retry["converted"] != ["cli_unclaimed"] or \
+                retry["errors"] or os.path.exists(err_log):
+            raise AssertionError(f"--retry: rc {rc}, report {retry}")
+        log(f"[convert] --retry read the error log: converted "
+            f"{retry['converted']} only, rc 0, log removed")
+        zipped, _ = timed("InSite convert with copy_source (zip)",
+                          lambda: quiet(lambda: dmt.convert(
+                              os.path.join(runs, "cli_insite"),
+                              overwrite=True, copy_source=True,
+                              scenario_name="cli_insite_src")))
+        zip_path = os.path.join(dmt.get_scenario_folder(zipped),
+                                "rt_source.zip")
+        if not os.path.isfile(zip_path):
+            raise AssertionError("copy_source wrote no rt_source.zip")
+        log(f"[convert] copy_source: rt_source.zip "
+            f"{os.path.getsize(zip_path) / 2 ** 20:.2f} MB")
+
+        # AODT reads parquet tables through pandas and pyarrow: converted
+        # and rendered where both are installed, else ImportError.
+        aodt = os.path.join(runs, "aodt_run")
+        if all(importlib.util.find_spec(m) for m in ("pandas", "pyarrow")):
+            aodt_src = conv_source(CONV_AODT_USERS, seed=CONV_SEED + 2)
+            timed(f"AODT export write ({CONV_AODT_USERS} users)",
+                  lambda: write_aodt_export(aodt, aodt_src))
+            name, _ = timed("AODT convert", lambda: quiet(
+                lambda: dmt.convert(aodt, overwrite=True,
+                                    scenario_name="conv_aodt")))
+            ds = dmt.load(name)
+            delay = np.asarray(ds["delay"])
+            want = np.where(np.arange(MAX_PATHS) < aodt_src["n_valid"][
+                :, None], aodt_src["tau"], np.nan).astype(np.float32)
+            if ds.n_ue != CONV_AODT_USERS or not np.array_equal(
+                    delay, want[:, :delay.shape[1]], equal_nan=True):
+                raise AssertionError("AODT convert: wrong users or delays")
+            h = counted(lambda: ds.compute_channels(params, to_device=True),
+                        render=1, what="AODT compute_channels")
+            _check_oracle("convert", "AODT channels", unpack_planes_np(
+                h[:N_ORACLE].cpu().numpy(), cfg), _oracle(
+                    ds, N_ORACLE, ds["power"], ds["phase"]), ORACLE_RTOL)
+            del h, ds
+        else:
+            os.makedirs(aodt)
+            with open(os.path.join(aodt, "sim.aodt"), "w") as f:
+                f.write("aodt export marker")
+            try:
+                quiet(lambda: dmt.convert(aodt, overwrite=True))
+            except ImportError as e:
+                log(f"[convert] AODT without pandas/pyarrow: ImportError "
+                    f"({e})")
+            else:
+                raise AssertionError("AODT convert without pandas did not "
+                                     "raise ImportError")
+    finally:
+        pool.shutdown(cancel_futures=True)
+        dmt.config.set("scenarios_folder", old)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"[convert] phase 5j: {time.perf_counter() - t_phase:.1f} s (host "
+        f"wall, disk writes included); launches counted: render "
+        f"{counted.render}, beam gain {counted.beam_gain}")
     return {"fused_render": counted.render,
             "fused_beam_gain": counted.beam_gain}
 
@@ -2476,6 +3088,7 @@ def main():
     nonfused = phase_nonfused(torch, dmt)
     scenarios = phase_scenarios(torch, dmt)
     surface = phase_surface(torch, dmt)
+    converted = phase_convert(torch, dmt)
     doppler = phase_doppler(torch, dmt)
     polar_render, polar_bg = phase_polar(torch, dmt)
     torch.cuda.empty_cache()
@@ -2488,19 +3101,21 @@ def main():
                      "fused_path_sum": pallas_launches,
                      "fused_beam_gain": bg_launches + polar_bg})
     for phase in (bf16_serving, angle_space, doppler, nonfused, train_bf16,
-                  scenarios, surface):
+                  scenarios, surface, converted):
         launches.update(phase)
     log(f"[launches] fused_render: serving {serve_launches} + dual-polar "
         f"{polar_render} + training {train_fwd} + angle space "
         f"{angle_space['fused_render']} + Doppler {doppler['fused_render']}"
         f" + scenarios from disk {scenarios['fused_render']} + public "
-        f"surface {surface['fused_render']}; "
+        f"surface {surface['fused_render']} + converted scenarios "
+        f"{converted['fused_render']}; "
         f"fused_render_bwd: training {train_bwd}; fused_path_sum: pallas "
         f"training {pallas_launches}; fused_beam_gain: serving "
         f"{bg_launches} + dual-polar {polar_bg} + Doppler "
         f"{doppler['fused_beam_gain']} + scenarios from disk "
         f"{scenarios['fused_beam_gain']} + public surface "
-        f"{surface['fused_beam_gain']}; modes: complex128 beam gains "
+        f"{surface['fused_beam_gain']} + converted scenarios "
+        f"{converted['fused_beam_gain']}; modes: complex128 beam gains "
         f"{nonfused}, bf16 serving {bf16_serving}, "
         f"bf16 training {train_bf16}")
     src = "deepmimo_tpu_torch/csrc/"

@@ -15,8 +15,11 @@ public surface is here too: steering vectors, sampling, ``info``,
 ``summary``, plots (matplotlib is imported inside the plotting functions
 only), the scenario database client (``upload``, ``download``, ``search``;
 ``load`` of a missing scenario downloads it) and profiling on the card
-(``utils.profiling``). Still to come: ``convert`` (the converters) and
-``DeepMIMOSionnaAdapter``. It imports torch and numpy/scipy, never jax.
+(``utils.profiling``). ``convert`` turns Wireless InSite (with a native
+C++ .p2m parser, built with g++ at first use), Sionna RT and AODT output
+folders into scenarios, and ``scripts.convert_cli`` converts a folder of
+runs in a loop. Still to come: ``DeepMIMOSionnaAdapter``. It imports
+torch and numpy/scipy, never jax.
 Tensors live on ``config['device']`` (default ``"cuda"``).
 """
 
@@ -40,6 +43,7 @@ from .txrx import (TxRxPair, TxRxSet, get_txrx_pairs, get_txrx_sets,
 from .materials import Material, MaterialList
 from .scene import Face, PhysicalElement, PhysicalElementGroup, Scene
 from .integrations import export_matlab
+from .converter import convert
 from .info import info
 from .summary import plot_summary, summary
 from .api import download, search, upload, upload_images, upload_rt_source
@@ -60,7 +64,7 @@ __all__ = [
     "get_available_scenarios", "get_params_path", "get_scenario_folder",
     "load_dict_from_json", "zip", "unzip", "Face", "PhysicalElement",
     "PhysicalElementGroup", "Scene", "Material", "MaterialList",
-    "export_matlab", "summary", "plot_summary", "upload",
+    "export_matlab", "convert", "summary", "plot_summary", "upload",
     "upload_rt_source", "upload_images", "download", "search", "consts",
     "config",
 ]

@@ -24,6 +24,10 @@ class DeepMIMOConfig:
     _instance: Optional["DeepMIMOConfig"] = None
 
     _DEFAULTS = {
+        # Ray-tracer versions the converters write into rt_params
+        "wireless_insite_version": c.RAYTRACER_VERSION_WIRELESS_INSITE,
+        "sionna_version": c.RAYTRACER_VERSION_SIONNA,
+        "aodt_version": c.RAYTRACER_VERSION_AODT,
         # Scenario storage
         "scenarios_folder": c.SCENARIOS_FOLDER,
         # Torch device of the compute path ("cuda", "cuda:1", "cpu", ...)

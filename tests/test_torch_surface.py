@@ -34,7 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from scenario_utils import write_synthetic_scenario  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-STILL_TO_PORT = {"convert", "DeepMIMOSionnaAdapter"}
+STILL_TO_PORT = {"DeepMIMOSionnaAdapter"}
 
 
 @pytest.fixture
@@ -108,6 +108,9 @@ def test_every_public_name_is_ported(dm):
 
 
 def test_imports_without_jax_or_matplotlib():
+    """The package, its converters (InSite, Sionna, AODT), the native
+    parser's loader and the batch CLI import without JAX, the JAX package
+    and matplotlib, and import no pandas (the card's machine has none)."""
     code = (
         "import sys\n"
         "for m in ('jax', 'deepmimo_tpu', 'matplotlib'):\n"
@@ -117,8 +120,17 @@ def test_imports_without_jax_or_matplotlib():
         "xla_trace, annotate, renderer_roofline)\n"
         "import deepmimo_tpu_torch.api, deepmimo_tpu_torch.api_validators\n"
         "import deepmimo_tpu_torch.generator.visualization\n"
+        "import deepmimo_tpu_torch.converter\n"
+        "import deepmimo_tpu_torch.converter.insite.insite_converter\n"
+        "import deepmimo_tpu_torch.converter.sionna.sionna_converter\n"
+        "import deepmimo_tpu_torch.converter.sionna.exporter\n"
+        "import deepmimo_tpu_torch.converter.aodt.aodt_converter\n"
+        "import deepmimo_tpu_torch.native\n"
+        "import deepmimo_tpu_torch.scripts.convert_cli\n"
+        "assert callable(dmt.convert)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'deepmimo_tpu', 'matplotlib') and sys.modules[m]]\n"
+        "('jax', 'deepmimo_tpu', 'matplotlib', 'pandas') and "
+        "sys.modules[m]]\n"
         "assert not bad, bad\n"
         "print('ok', len(dmt.__all__))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
