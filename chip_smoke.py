@@ -144,6 +144,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    every write, conversion, parse (the whole file's native parse alone
    too), load and the zip; CUDA-event ms and a ``torch.profiler``
    breakdown of each render; the peak device memory.
+5k. The scenario factory, at the headline width: (a) ``csv_gen_cli`` on a
+   three-city CSV it writes (one city under the population floor), the
+   two rows read back by ``read_pipeline_csv``, row 0's box set so that
+   ``gen_rx_grid`` at 2 m places 256 x 512 = 131,072 users,
+   ``gen_tx_pos`` the BS; (b) ``write_insite_project`` for that placement
+   (one inferred grid set) read back by the port's InSite parsers, the
+   Blender OSM script compiled; (c) a Sionna export of phase 5j's path
+   generator (seed 24) at those positions standing in for the ray
+   tracers, the row's ``scene`` and ``raytrace`` stages marked done;
+   (d) ``run_pipeline`` with an upload key against the loopback mock of
+   the database: row 0 converts and uploads, row 1 fails at
+   ``fetch_osm_scene`` (no Blender) and is marked ``error``; (e) the
+   scenario loaded back by download, ``compute_channels`` in one render
+   launch and ``compute_beam_gains`` (phase 5b's codebook) in one
+   beam-gain launch against the oracle; (f) ``DeepMIMOSionnaAdapter`` over
+   every user on the time-domain channels (eager, no fused launch), users
+   per second and memory, 64 yields against the time-domain oracle, and
+   again after ``apply_fov(bs_fov=(120, 180))`` with every kept column's
+   ``tau`` its own path's delay; (g) ``export_cdl`` of every user,
+   ``save_cdl_mat`` of 16,384 read back, ``synthesize_cdl_cir`` of 4;
+   (h) ``stats_cli --json``. Host seconds of each step; everything in a
+   temporary directory removed at the end.
 6. Training path: the calibration step ``training_step_planes`` with the
    fused backend at the headline width (BS rotated 10 degrees in the
    target, calibration from 0): the first step's gradients of every
@@ -2807,6 +2829,403 @@ def phase_convert(torch, dmt):
             "fused_beam_gain": counted.beam_gain}
 
 
+# Phase 5k: the scenario factory on the card, at the headline width.
+FACT_SEED = 24
+FACT_SPACING = 2.0           # m between the pipeline's grid users
+FACT_BS_HEIGHT = 25.0
+FACT_POPULATION = 100_000    # csvgen's --min-population
+FACT_CITIES = ("city,city_ascii,lat,lng,population\n"
+               "Tempe,Tempe,33.4255,-111.9400,180587\n"
+               "Smallville,Smallville,40.0,-90.0,1200\n"
+               "Jersey City,Jersey City,40.7178,-74.0431,292449\n")
+FACT_FOV = (120, 180)        # bs_fov of the adapter's second run
+FACT_CDL_MAT_USERS = 16_384  # users save_cdl_mat writes (~0.15 ms a user)
+FACT_CIR_USERS = 4           # users synthesize_cdl_cir evaluates
+FACT_BLOCK = 16_384          # users per block of the tau alignment check
+
+
+def factory_box(bbox, n_x, n_y, spacing):
+    """``bbox`` (min_lat, min_lon, max_lat, max_lon) resized about its
+    centre so that ``gen_rx_grid`` at ``spacing`` places ``n_x`` x ``n_y``
+    users: each side ``(n - 1) * spacing + spacing / 2`` m, half a
+    spacing clear of the next grid line either way."""
+    from deepmimo_tpu_torch.pipelines.geo_utils import (METERS_PER_DEG_LAT,
+                                                        bbox_center,
+                                                        meters_per_deg_lon)
+    lat_c, lon_c = bbox_center(bbox)
+    half_x = ((n_x - 1) * spacing + spacing / 2) / 2
+    half_y = ((n_y - 1) * spacing + spacing / 2) / 2
+    dlon = half_x / meters_per_deg_lon(lat_c)
+    dlat = half_y / METERS_PER_DEG_LAT
+    return tuple(float(v) for v in (lat_c - dlat, lon_c - dlon,
+                                    lat_c + dlat, lon_c + dlon))
+
+
+def tau_alignment(ch, tau, ref_ch, ref_tau, tol):
+    """Under an FoV, is each column's ``tau`` the delay of the path whose
+    gains sit in that column? ``ch``/``tau`` are the adapter's time-domain
+    channels [U, R, T, P] and delays [U, P]; ``ref_*`` the same without
+    the FoV (every path in its own column). A non-empty column j of user
+    u passes when some path k has ``ref_tau[u, k] == tau[u, j]`` and
+    ``ref_ch[u, ..., k]`` within ``tol`` of ``ch[u, ..., j]``; an empty
+    column needs ``tau`` 0. Returns (columns checked, columns failed,
+    users whose raw delay matrix would misplace a column)."""
+    checked = failed = moved = 0
+    for s in range(0, ch.shape[0], FACT_BLOCK):
+        c, t = ch[s:s + FACT_BLOCK], tau[s:s + FACT_BLOCK]
+        rc, rt = ref_ch[s:s + FACT_BLOCK], ref_tau[s:s + FACT_BLOCK]
+        full = np.abs(c).max(axis=(1, 2)) > 0                       # [u, P]
+        same = t[:, :, None] == rt[:, None, :]                      # [u,P,P]
+        u, j, k = np.nonzero(same & full[:, :, None])
+        close = np.abs(c[u, :, :, j] - rc[u, :, :, k]).max(axis=(1, 2)) \
+            <= tol
+        hit = np.zeros_like(full)
+        hit[u[close], j[close]] = True
+        checked += int(full.sum())
+        failed += int((full & ~hit).sum() + (t[~full] != 0).sum())
+        moved += int(((t != rt) & full).any(axis=1).sum())
+    return checked, failed, moved
+
+
+def phase_factory(torch, dmt):
+    """The scenario factory on the card (phase 5k), at the headline width:
+    ``csv_gen_cli`` on a three-city CSV, its rows read back by the runner,
+    one row's box set to a 256 x 512 grid of users at 2 m; its InSite
+    project (one inferred grid set) read back by the port's converter; the
+    Blender script compiled; a Sionna export at those positions standing in
+    for the ray tracers (no Blender or Sionna RT on the card), the row's
+    ``scene`` and ``raytrace`` stages marked done; ``run_pipeline`` with an
+    upload key against a loopback mock of the database: the row converts
+    and uploads, the other row fails at ``fetch_osm_scene`` and is marked
+    ``error``; the scenario loaded back by download, one render launch and
+    one beam-gain launch against the oracle; ``DeepMIMOSionnaAdapter``
+    over every user (time-domain channels, users per second, memory),
+    against the time-domain oracle, and again under ``apply_fov`` with each
+    column's delay its path's; ``export_cdl``, ``save_cdl_mat`` and
+    ``synthesize_cdl_cir``; ``stats_cli --json``. Everything lives in a
+    temporary directory removed at the end. Returns the checked calls'
+    launches."""
+    import contextlib
+    import csv
+    import io
+    import tempfile
+    import scipy.io
+    from deepmimo_tpu_torch.converter.insite.rt_params import read_rt_params
+    from deepmimo_tpu_torch.converter.insite.txrx import read_txrx
+    from deepmimo_tpu_torch.integrations import (CDLConfig, export_cdl,
+                                                 save_cdl_mat,
+                                                 synthesize_cdl_cir)
+    from deepmimo_tpu_torch.ops.channel import unpack_planes_np
+    from deepmimo_tpu_torch.pipelines import (gen_rx_grid, gen_tx_pos,
+                                              read_pipeline_csv,
+                                              run_pipeline)
+    from deepmimo_tpu_torch.pipelines.blender_osm import (
+        build_blender_script, find_blender)
+    from deepmimo_tpu_torch.pipelines.insite_project import \
+        write_insite_project
+    from deepmimo_tpu_torch.pipelines.runner import PipelineState
+    from deepmimo_tpu_torch.scripts import csv_gen_cli, stats_cli
+    if os.path.join(HERE, "tests") not in sys.path:
+        sys.path.insert(0, os.path.join(HERE, "tests"))
+    from mock_db_server import MockDatabase
+    t_phase = time.perf_counter()
+    counted = _Launches()
+    params = make_params(dmt)
+    cfg, _, _ = params.to_config(CHUNK)
+    t = BS_SHAPE[0] * BS_SHAPE[1]
+    n_x, n_y = CONV_GRID, CHUNK // CONV_GRID
+    root = tempfile.mkdtemp(prefix="deepmimo_factory_")
+    old = {k: dmt.config.get(k) for k in ("scenarios_folder",
+                                          "api_endpoint")}
+    dmt.config.set("scenarios_folder", os.path.join(root, "scenarios"))
+    dmt.config.set("api_endpoint", "http://127.0.0.1:1")
+    work = os.path.join(root, "work")
+
+    def timed(tag, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"[factory] {tag}: {time.perf_counter() - t0:.3f} s (host)")
+        return out
+
+    def quiet(fn):
+        """``fn()`` with its standard output and error captured; returns
+        (result, the captured text)."""
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text), \
+                contextlib.redirect_stderr(text):
+            out = fn()
+        return out, text.getvalue()
+
+    try:
+        # (a) Sites: csvgen over three cities (one under the population
+        # floor), read back by the runner; row 0's box set to the grid.
+        cities = os.path.join(root, "worldcities.csv")
+        with open(cities, "w", encoding="utf-8") as f:
+            f.write(FACT_CITIES)
+        sites = os.path.join(root, "sites.csv")
+        rc, _ = timed("csv_gen_cli", lambda: quiet(lambda: csv_gen_cli.main(
+            [cities, sites, "--box-m", "400", "--num-bs", "1",
+             "--bs-height", f"{FACT_BS_HEIGHT:g}", "--min-population",
+             str(FACT_POPULATION)])))
+        rows = read_pipeline_csv(sites)
+        if rc != 0 or [r.name for r in rows] != ["city_0000_tempe",
+                                                 "city_0001_jersey_city"]:
+            raise AssertionError(f"csv_gen_cli: rc {rc}, rows "
+                                 f"{[r.name for r in rows]}")
+        row, other = rows
+        (row.min_lat, row.min_lon, row.max_lat, row.max_lon) = factory_box(
+            row.gps_bbox, n_x, n_y, FACT_SPACING)
+        with open(sites, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["name", "min_lat", "min_lon", "max_lat", "max_lon",
+                        "bs_lat", "bs_lon", "bs_height"])
+            for r in rows:
+                w.writerow([r.name, *(repr(x) for x in r.gps_bbox)] + [
+                    "|".join(repr(x) for x in v) for v in (
+                        r.bs_lats, r.bs_lons, r.bs_heights)])
+        if read_pipeline_csv(sites)[0].gps_bbox != row.gps_bbox:
+            raise AssertionError("the sites CSV did not keep row 0's box")
+        rt = {"gps_bbox": row.gps_bbox, "bs_lats": row.bs_lats,
+              "bs_lons": row.bs_lons, "bs_heights": row.bs_heights,
+              "grid_spacing": FACT_SPACING, "ue_height": 1.5,
+              "frequency": CONV_FREQ, "name": row.name}
+        rx = gen_rx_grid(rt)
+        tx = gen_tx_pos(rt)
+        if rx.shape != (CHUNK, 3) or tx.shape != (1, 3) or \
+                tx[0, 2] != FACT_BS_HEIGHT:
+            raise AssertionError(f"placement: {rx.shape} users, BS {tx}")
+        log(f"[factory] {len(rows)} sites from {FACT_CITIES.count(chr(10)) - 1}"
+            f" cities; {row.name}: gen_rx_grid {n_x} x {n_y} = {len(rx)} "
+            f"users at {FACT_SPACING:g} m, BS at {tx[0].round(3).tolist()}")
+
+        # (b) Projects: the InSite project (one inferred grid set) read
+        # back by the port's converter; the Blender script compiles.
+        row_dir = os.path.join(work, row.name)
+        proj = os.path.join(row_dir, "insite_project")
+        timed("write_insite_project", lambda: write_insite_project(
+            row_dir, proj, tx, rx, rt))
+        with open(os.path.join(proj, f"{row.name}.xml")) as f:
+            xml = f.read()
+        setup, sets, locations = timed("InSite setup read back", lambda: (
+            read_rt_params(proj), *quiet(lambda: read_txrx(proj))[0]))
+        users = [i for i, s in enumerate(sets.values()) if s["is_rx"]]
+        if xml.count("<remcom::rxapi::GridSet>") != 1 or len(users) != 1 \
+                or setup["frequency"] != CONV_FREQ or \
+                not np.allclose(locations[users[0]], rx, atol=1e-6):
+            raise AssertionError("InSite project: not one grid set of the "
+                                 "users at the frequency")
+        script = build_blender_script(row.gps_bbox,
+                                      os.path.join(row_dir, "osm"))
+        compile(script, "osm_export.py", "exec")
+        if "deepmimo_tpu" in script:
+            raise AssertionError("the Blender script names a package")
+        log(f"[factory] InSite project: one grid set, {len(rx)} users read "
+            f"back; Blender script {len(script)} chars compiles")
+
+        # (c) Ray-tracer output: a Sionna export at the placement.
+        src = timed(f"source paths ({CHUNK} users x {MAX_PATHS})",
+                    lambda: conv_source(CHUNK, seed=FACT_SEED))
+        src["rx_pos"], src["tx_pos"] = rx, tx
+        timed("Sionna export write", lambda: write_sionna_export(
+            os.path.join(row_dir, "rt_output"), src))
+        state = PipelineState(work)
+        for stage in ("scene", "raytrace"):
+            state.mark(row.name, stage)
+        n_valid = src["n_valid"]
+        del src
+
+        # (d) The pipeline: converts and uploads row 0; row 1 has no
+        # Blender.
+        if find_blender() is not None:
+            raise AssertionError(f"Blender found at {find_blender()}: the "
+                                 "phase expects the OSM stage to fail")
+        with MockDatabase() as db:
+            dmt.config.set("api_endpoint", db.url)
+            done, text = timed("run_pipeline (convert + upload, 2 rows)",
+                               lambda: quiet(lambda: run_pipeline(
+                                   sites, work, raytracer="sionna",
+                                   upload_key="chip-smoke",
+                                   grid_spacing=FACT_SPACING)))
+            state = PipelineState(work).state
+            if done != [row.name] or any(
+                    state[row.name].get(s) != "done"
+                    for s in ("convert", "upload")) or \
+                    "Blender" not in state.get(other.name, {}).get(
+                        "error", "") or \
+                    db.received["submission"]["scenario"] != row.name:
+                raise AssertionError(f"run_pipeline: completed {done}, "
+                                     f"state {state}, output {text[-2000:]}")
+            log(f"[factory] run_pipeline: completed {done}; state "
+                f"{state[row.name]}; {other.name} error: "
+                f"{state[other.name]['error'][:60]!r}; archive "
+                f"{len(db.received['zip']) / 2 ** 20:.1f} MB; "
+                + ("images skipped (no matplotlib)" if "Image upload "
+                   "skipped" in text else "images uploaded"))
+
+            # (e) Render: loaded back by download.
+            shutil.rmtree(dmt.get_scenario_folder(row.name))
+            ds = timed("load by download", lambda: quiet(
+                lambda: dmt.load(row.name))[0])
+        if not isinstance(ds, dmt.Dataset) or ds.n_ue != CHUNK or not \
+                np.allclose(ds.rx_pos, rx, atol=1e-3):
+            raise AssertionError("downloaded scenario: wrong users")
+        h = counted(lambda: ds.compute_channels(params, to_device=True),
+                    render=1, what="pipeline scenario compute_channels")
+        if tuple(h.shape) != (CHUNK, 1, t, 2 * N_SC):
+            raise AssertionError(f"channels {tuple(h.shape)}")
+        _check_oracle("factory", "channels", unpack_planes_np(
+            h[:N_ORACLE].cpu().numpy(), cfg), _oracle(
+                ds, N_ORACLE, ds["power"], ds["phase"]), ORACLE_RTOL)
+        ms = event_ms(torch, lambda: ds.compute_channels(
+            params, to_device=True, out=h), 5)
+        log(f"[factory] channels: 1 render launch, {ms:.4f} ms per "
+            f"{CHUNK}-user call (CUDA events over 5 calls)")
+        del h
+        w = codebook(BG_BEAMS, t, seed=75)
+        g = counted(lambda: ds.compute_beam_gains(params, codebook=w,
+                                                  to_device=True),
+                    beam_gain=1, what="pipeline scenario beam gains")
+        if tuple(g.shape) != (CHUNK, BG_BEAMS, N_SC):
+            raise AssertionError(f"beam gains {tuple(g.shape)}")
+        _check_oracle("factory", "beam gains", g[:N_ORACLE].cpu().numpy(),
+                      _beam_oracle(w, _oracle(ds, N_ORACLE, ds["power"],
+                                              ds["phase"])), BG_ORACLE_RTOL)
+        del g
+        torch.cuda.empty_cache()
+
+        # (f) Downstream: the Sionna adapter over every user, then under
+        # an FoV.
+        def adapter(tag):
+            before = _kernel_launches()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            a = timed(f"DeepMIMOSionnaAdapter ({tag}; time-domain "
+                      f"channels)", lambda: dmt.DeepMIMOSionnaAdapter(ds))
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            ch, dl = a._channels[0], a._delays[0]
+            if _kernel_launches() != before:
+                raise AssertionError("the adapter launched a fused kernel")
+            if ch.shape != (CHUNK, 1, t, MAX_PATHS) or ch.dtype != \
+                    np.complex64 or a.num_paths != MAX_PATHS or \
+                    a.num_tx_ant != t or len(a) != CHUNK:
+                raise AssertionError(f"adapter: {ch.shape} {ch.dtype}")
+            log(f"[factory] adapter ({tag}): channels {ch.shape} "
+                f"{ch.dtype} ({ch.nbytes / 1e9:.2f} GB on the host, delays "
+                f"{dl.nbytes / 1e6:.1f} MB); peak device memory "
+                f"{peak / 2 ** 30:.3f} GiB above the "
+                f"{base / 2 ** 30:.3f} GiB held; no fused launch")
+            return a
+
+        def first_yields(a):
+            got, taus = [], []
+            for i, (x, tau) in enumerate(a()):
+                if i == N_ORACLE:
+                    break
+                got.append(x[0, :, 0, :, :, 0])
+                taus.append(tau[0, 0])
+            return np.stack(got), np.stack(taus)
+
+        ad = adapter("no FoV")
+        n = 0
+        t0 = time.perf_counter()
+        for x, tau in ad():
+            n += 1
+        dt = time.perf_counter() - t0
+        if n != CHUNK:
+            raise AssertionError(f"adapter yielded {n} samples")
+        log(f"[factory] adapter: {n} yields of {x.shape} {x.dtype} + "
+            f"{tau.shape} in {dt:.3f} s (host), {n / dt:.1f} users/s; none "
+            f"kept")
+        got, taus = first_yields(ad)
+        _check_oracle("factory", "adapter time-domain yields", got, _oracle(
+            ds, N_ORACLE, ds["power"], ds["phase"], freq_domain=False),
+            ORACLE_RTOL)
+        want = np.nan_to_num(np.asarray(ds["delay"])[:N_ORACLE, :MAX_PATHS])
+        if not np.array_equal(taus, want.astype(np.float32)):
+            raise AssertionError("adapter tau differs from the delays")
+        ref_ch, ref_tau = ad._channels[0], ad._delays[0]
+        del ad
+        ds.apply_fov(bs_fov=np.array(FACT_FOV))
+        fov = adapter(f"bs_fov {FACT_FOV}")
+        got, _ = first_yields(fov)
+        _check_oracle("factory", f"adapter under bs_fov {FACT_FOV}", got,
+                      _oracle(ds, N_ORACLE, ds["power"], ds["phase"],
+                              freq_domain=False,
+                              bs_fov=tuple(float(v) for v in FACT_FOV)),
+                      ORACLE_RTOL)
+        checked, failed, moved = timed("tau alignment check", lambda:
+                                       tau_alignment(
+                                           fov._channels[0], fov._delays[0],
+                                           ref_ch, ref_tau,
+                                           ORACLE_RTOL * float(np.abs(
+                                               ref_ch[:N_ORACLE]).max())))
+        if failed or not checked or not moved:
+            raise AssertionError(f"adapter under FoV: {failed} of {checked} "
+                                 f"columns with another path's delay; "
+                                 f"{moved} users with moved paths")
+        log(f"[factory] adapter under FoV: every one of {checked} kept "
+            f"columns carries its own path's delay, empty columns 0; "
+            f"{moved} users had a kept path moved forward (their raw delay "
+            f"matrix would misplace it)")
+        del fov, ref_ch, ref_tau
+        ds.apply_fov()
+
+        # (g) NR CDL export.
+        cdl = timed(f"export_cdl ({CHUNK} users)", lambda: export_cdl(
+            ds, CDLConfig()))
+        active = [u for u, x in enumerate(cdl) if x is not None]
+        power = np.asarray(ds["power"])
+        if len(cdl) != CHUNK or len(active) != int((n_valid > 0).sum()) or \
+                not np.array_equal(cdl[active[0]]["PathDelays"], np.asarray(
+                    ds["delay"], np.float64)[active[0]][~np.isnan(
+                        power[active[0]])]):
+            raise AssertionError("export_cdl: wrong users or delays")
+        mat = os.path.join(root, "cdl_users.mat")
+        n_mat = min(FACT_CDL_MAT_USERS, CHUNK)
+        timed(f"save_cdl_mat ({n_mat} users)",
+              lambda: save_cdl_mat(cdl[:n_mat], mat))
+        back = scipy.io.loadmat(mat, squeeze_me=True)["cdl_users"]
+        if back.shape != (n_mat,) or [
+                int(np.asarray(r["NumPaths"])) for r in back[:64]] != [
+                0 if x is None else len(x["PathDelays"]) for x in cdl[:64]]:
+            raise AssertionError("save_cdl_mat: wrong read-back")
+        t_cir = np.linspace(0, 1e-3, 8)
+        for u in active[:FACT_CIR_USERS]:
+            cir = synthesize_cdl_cir(cdl[u], t_cir)
+            amp = 10 ** (np.asarray(cdl[u]["AveragePathGains"]) / 20)
+            if cir.shape != (8, len(amp)) or not np.allclose(
+                    np.abs(cir), amp[None], rtol=1e-9):
+                raise AssertionError("synthesize_cdl_cir: wrong CIR")
+        log(f"[factory] export_cdl: {len(active)} of {CHUNK} users active; "
+            f"save_cdl_mat read back ({os.path.getsize(mat) / 2 ** 20:.1f} "
+            f"MB); {FACT_CIR_USERS} CIRs of constant |a_p|")
+        del cdl
+
+        # (h) Statistics of the scenario.
+        (rc, out) = timed("stats_cli --json", lambda: quiet(
+            lambda: stats_cli.main([row.name, "--json"])))
+        stats = json.loads(out[out.index("[\n"):])
+        cov = round(100.0 * float((n_valid > 0).mean()), 2)
+        if rc != 0 or len(stats) != 1 or stats[0]["n_ue"] != CHUNK or \
+                stats[0]["coverage_pct"] != cov or \
+                stats[0]["frequency_ghz"] != CONV_FREQ / 1e9:
+            raise AssertionError(f"stats_cli: rc {rc}, {stats}")
+        log(f"[factory] stats_cli: {json.dumps(stats[0])}")
+        del ds
+    finally:
+        for k, v in old.items():
+            dmt.config.set(k, v)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"[factory] phase 5k: {time.perf_counter() - t_phase:.1f} s (host "
+        f"wall, disk writes included); launches counted: render "
+        f"{counted.render}, beam gain {counted.beam_gain}")
+    return {"fused_render": counted.render,
+            "fused_beam_gain": counted.beam_gain}
+
+
 def kernel_bounds(fma=False):
     """Least card time (ms) of each kernel's work, in each mode, at its
     headline shapes, and what bounds it: bytes (each input read once, each
@@ -3089,6 +3508,7 @@ def main():
     scenarios = phase_scenarios(torch, dmt)
     surface = phase_surface(torch, dmt)
     converted = phase_convert(torch, dmt)
+    factory = phase_factory(torch, dmt)
     doppler = phase_doppler(torch, dmt)
     polar_render, polar_bg = phase_polar(torch, dmt)
     torch.cuda.empty_cache()
@@ -3101,21 +3521,23 @@ def main():
                      "fused_path_sum": pallas_launches,
                      "fused_beam_gain": bg_launches + polar_bg})
     for phase in (bf16_serving, angle_space, doppler, nonfused, train_bf16,
-                  scenarios, surface, converted):
+                  scenarios, surface, converted, factory):
         launches.update(phase)
     log(f"[launches] fused_render: serving {serve_launches} + dual-polar "
         f"{polar_render} + training {train_fwd} + angle space "
         f"{angle_space['fused_render']} + Doppler {doppler['fused_render']}"
         f" + scenarios from disk {scenarios['fused_render']} + public "
         f"surface {surface['fused_render']} + converted scenarios "
-        f"{converted['fused_render']}; "
+        f"{converted['fused_render']} + scenario factory "
+        f"{factory['fused_render']}; "
         f"fused_render_bwd: training {train_bwd}; fused_path_sum: pallas "
         f"training {pallas_launches}; fused_beam_gain: serving "
         f"{bg_launches} + dual-polar {polar_bg} + Doppler "
         f"{doppler['fused_beam_gain']} + scenarios from disk "
         f"{scenarios['fused_beam_gain']} + public surface "
         f"{surface['fused_beam_gain']} + converted scenarios "
-        f"{converted['fused_beam_gain']}; modes: complex128 beam gains "
+        f"{converted['fused_beam_gain']} + scenario factory "
+        f"{factory['fused_beam_gain']}; modes: complex128 beam gains "
         f"{nonfused}, bf16 serving {bf16_serving}, "
         f"bf16 training {train_bf16}")
     src = "deepmimo_tpu_torch/csrc/"

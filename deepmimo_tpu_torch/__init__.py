@@ -18,8 +18,13 @@ only), the scenario database client (``upload``, ``download``, ``search``;
 (``utils.profiling``). ``convert`` turns Wireless InSite (with a native
 C++ .p2m parser, built with g++ at first use), Sionna RT and AODT output
 folders into scenarios, and ``scripts.convert_cli`` converts a folder of
-runs in a loop. Still to come: ``DeepMIMOSionnaAdapter``. It imports
-torch and numpy/scipy, never jax.
+runs in a loop. Upstream of conversion, ``pipelines`` is the scenario
+factory (city sites, placements, InSite projects, the Blender OSM script,
+the gated ray-tracer runs, a resumable runner that converts and uploads);
+downstream, ``integrations`` hands channels to link-level simulators
+(``DeepMIMOSionnaAdapter`` for Sionna, the NR CDL export and the MATLAB
+generator files). ``scripts`` holds the CLIs (convert, pipeline, stats,
+csvgen, insite-ops). It imports torch and numpy/scipy, never jax.
 Tensors live on ``config['device']`` (default ``"cuda"``).
 """
 
@@ -42,7 +47,7 @@ from .txrx import (TxRxPair, TxRxSet, get_txrx_pairs, get_txrx_sets,
                    print_available_txrx_pair_ids)
 from .materials import Material, MaterialList
 from .scene import Face, PhysicalElement, PhysicalElementGroup, Scene
-from .integrations import export_matlab
+from .integrations import DeepMIMOSionnaAdapter, export_matlab
 from .converter import convert
 from .info import info
 from .summary import plot_summary, summary
@@ -64,7 +69,7 @@ __all__ = [
     "get_available_scenarios", "get_params_path", "get_scenario_folder",
     "load_dict_from_json", "zip", "unzip", "Face", "PhysicalElement",
     "PhysicalElementGroup", "Scene", "Material", "MaterialList",
-    "export_matlab", "convert", "summary", "plot_summary", "upload",
+    "DeepMIMOSionnaAdapter", "export_matlab", "convert", "summary", "plot_summary", "upload",
     "upload_rt_source", "upload_images", "download", "search", "consts",
     "config",
 ]

@@ -128,7 +128,10 @@ def upload(scenario_name: str, key: str,
     Args:
         scenario_name: name of a locally available scenario.
         key: user API key for the database.
-        include_images: also render and upload summary images.
+        include_images: also render and upload summary images; skipped
+            with a message when the image endpoint fails or matplotlib
+            is not installed (the scenario and its submission are sent
+            by then).
     """
     check_scen_name(scenario_name)
     folder = get_scenario_folder(scenario_name)
@@ -165,7 +168,7 @@ def upload(scenario_name: str, key: str,
     if include_images:
         try:
             upload_images(scenario_name, key)
-        except ApiError as e:
+        except (ApiError, ImportError) as e:
             print(f"Image upload skipped: {e}")
     return submission
 

@@ -14,8 +14,7 @@ import numpy as np
 import torch
 
 from .. import consts as c
-
-METERS_PER_DEG_LAT = 111_320.0     # the scenario pipelines' GPS convention
+from ..pipelines.geo_utils import cartesian_to_gps
 
 
 def _host(x, dtype=None) -> np.ndarray:
@@ -23,14 +22,6 @@ def _host(x, dtype=None) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
     return np.asarray(x, dtype=dtype)
-
-
-def _cartesian_to_gps(x, y, origin_lat: float, origin_lon: float):
-    """Local x (east) / y (north) metres -> (lat, lon) around an origin."""
-    lat = origin_lat + np.asarray(y, np.float64) / METERS_PER_DEG_LAT
-    lon = origin_lon + np.asarray(x, np.float64) / (
-        METERS_PER_DEG_LAT * np.cos(np.radians(origin_lat)))
-    return lat, lon
 
 
 def plot_coverage(rxs, cov_map, dpi: int = 100, figsize=(6, 4),
@@ -104,7 +95,7 @@ def transform_coordinates(pos: np.ndarray, origin_lat: float,
                           origin_lon: float) -> np.ndarray:
     """Local cartesian positions -> GPS (lat, lon, alt) rows (GIS export)."""
     pos = _host(pos, np.float64)
-    lat, lon = _cartesian_to_gps(pos[:, 0], pos[:, 1], origin_lat,
+    lat, lon = cartesian_to_gps(pos[:, 0], pos[:, 1], origin_lat,
                                 origin_lon)
     alt = pos[:, 2] if pos.shape[1] > 2 else np.zeros(len(pos))
     return np.column_stack([lat, lon, alt])

@@ -253,6 +253,19 @@ def _angle_stage(cfg: ChannelConfig, paths: PathData, bs: AntennaPanel,
     return (paths, valid, powers_lin, *angles)
 
 
+def td_path_delays(paths: PathData, bs: AntennaPanel, ue: AntennaPanel,
+                   cfg: ChannelConfig) -> torch.Tensor:
+    """[U, P] delay (s) of the path in each column of the time-domain
+    channel rendered for ``cfg`` (P = min(num_paths, the paths' slots)):
+    the columns as :func:`_angle_stage` orders them for the render (with
+    an FoV, each user's kept paths packed to the front in their order),
+    0 in the empty columns."""
+    paths = paths.trim_paths(cfg.num_paths)
+    paths, valid, *_ = _angle_stage(cfg.replace(freq_domain=False), paths,
+                                    bs, ue)
+    return torch.where(valid, paths.delay_s, torch.zeros_like(paths.delay_s))
+
+
 def _path_sum_planes_ri(arx, atx, gr, gi, mm_dtype: str = "float32"):
     """H = sum_p (a_rx a_tx) g via four real batched products -> (hr, hi),
     each [U, R, T, K]; accumulation in float32. For ``mm_dtype``

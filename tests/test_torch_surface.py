@@ -1,9 +1,9 @@
 """The port's public surface against the JAX package's.
 
 - Every name of ``deepmimo_tpu.__all__`` and the ``rt_params`` /
-  ``general_utils`` module attributes exist in the port, except the ones
-  still to port; the package imports without JAX, the JAX package and
-  matplotlib.
+  ``general_utils`` module attributes exist in the port (none is still
+  to port); the package, its pipelines, integrations and CLIs import
+  without JAX, the JAX package and matplotlib.
 - Host helpers fed the same inputs give the same results: ``steering_vec``
   (within 1e-12), ``watt2dbw``, ``get_idxs_with_limits`` (and its
   ValueErrors), ``LinearPath`` in every ``filter_repeated`` mode,
@@ -34,7 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from scenario_utils import write_synthetic_scenario  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-STILL_TO_PORT = {"DeepMIMOSionnaAdapter"}
+STILL_TO_PORT = set()
 
 
 @pytest.fixture
@@ -105,6 +105,12 @@ def test_every_public_name_is_ported(dm):
     assert callable(ops.array_response)
     for name in ("plot_coverage", "plot_rays", "info"):
         assert callable(getattr(dmt.Dataset, name))
+    from deepmimo_tpu_torch.integrations import sionna_adapter
+    assert dmt.DeepMIMOSionnaAdapter is sionna_adapter.DeepMIMOSionnaAdapter
+    assert set(dmt.integrations.__all__) == set(dm.integrations.__all__)
+    import deepmimo_tpu.pipelines
+    import deepmimo_tpu_torch.pipelines
+    assert set(dmt.pipelines.__all__) == set(dm.pipelines.__all__)
 
 
 def test_imports_without_jax_or_matplotlib():
@@ -127,6 +133,12 @@ def test_imports_without_jax_or_matplotlib():
         "import deepmimo_tpu_torch.converter.aodt.aodt_converter\n"
         "import deepmimo_tpu_torch.native\n"
         "import deepmimo_tpu_torch.scripts.convert_cli\n"
+        "import deepmimo_tpu_torch.pipelines.blender_osm\n"
+        "import deepmimo_tpu_torch.pipelines.insite_project\n"
+        "import deepmimo_tpu_torch.pipelines.raytracers\n"
+        "from deepmimo_tpu_torch.scripts import (csv_gen_cli, "
+        "insite_ops_cli, pipeline_cli, stats_cli)\n"
+        "assert callable(dmt.DeepMIMOSionnaAdapter)\n"
         "assert callable(dmt.convert)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'deepmimo_tpu', 'matplotlib', 'pandas') and "
