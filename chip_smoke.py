@@ -166,6 +166,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    ``save_cdl_mat`` of 16,384 read back, ``synthesize_cdl_cir`` of 4;
    (h) ``stats_cli --json``. Host seconds of each step; everything in a
    temporary directory removed at the end.
+5l. Multi-device, on a one-rank NCCL mesh (``parallel.make_mesh()``
+   with no process group: one rank on an in-process store): at the
+   headline width (seed 30) ``shard_paths`` and
+   ``render_channels_sharded`` with ``backend="pallas"`` (one path-sum
+   launch per call), ``render_beam_gains_sharded`` with phase 5b's
+   codebook (one beam-gain launch), each ``.full_tensor()`` equal to the
+   unsharded call bit for bit and to the oracle on 64 users;
+   ``load_paths_sharded`` of a 131,072-user ``Dataset`` equal to its
+   unsharded PathData; 3 steps of ``make_sharded_training_step`` (the
+   pallas calibration cell) with each loss within 1e-5 of the unsharded
+   ``training_step``'s, two NCCL all-reduces per step (loss sums and the
+   panel gradients) and the BS rotation within rtol 1e-4; the sharded
+   dual-polar render and beam gains on 32,768 users (one render and one
+   beam-gain launch) equal to the unsharded calls and to the oracle;
+   CUDA-event ms of every sharded call beside its unsharded call, in
+   turns, and of the NCCL all-reduce; ``dryrun_multichip`` on one CUDA
+   rank and on two gloo ranks (spawned processes); the worked examples
+   (``quickstart``, ``serve_channels``, ``learn_beam_codebook`` with 20
+   steps) in this process, their launches counted.
 6. Training path: the calibration step ``training_step_planes`` with the
    fused backend at the headline width (BS rotated 10 degrees in the
    target, calibration from 0): the first step's gradients of every
@@ -195,6 +214,7 @@ The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
 the script exits non-zero before printing any result.
 """
 
+import dataclasses
 import json
 import math
 import multiprocessing
@@ -3226,6 +3246,334 @@ def phase_factory(torch, dmt):
             "fused_beam_gain": counted.beam_gain}
 
 
+MD_SEED = 30                 # paths of the multi-device phase
+MD_POLAR_USERS = 32_768      # users of its dual-polar cells (17.2 GB at CHUNK)
+MD_STEPS = 3                 # sharded and unsharded calibration steps
+MD_CODEBOOK_STEPS = 20       # steps of learn_beam_codebook on the card
+
+
+def _md_counted(torch, tag, fn, count, **want):
+    """``fn()``, failing unless it launched each kernel entry of ``want``
+    (``fused_render``, ``fused_path_sum``, ``fused_beam_gain``) that many
+    times and no other fused kernel; the launches go into ``count`` (a
+    Counter) unless it is None."""
+    names = ("fused_render", "fused_render_bwd", "fused_path_sum",
+             "fused_beam_gain")
+    before = _kernel_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(zip(names, (a - b for a, b in zip(_kernel_launches(),
+                                                 before))))
+    expect = {name: want.get(name, 0) for name in names}
+    if got != expect:
+        raise AssertionError(f"{tag}: launches {got}, expected {expect}")
+    if count is not None:
+        count.update({k: v for k, v in got.items() if v})
+    return out
+
+
+def _md_same(tag, got, want):
+    """Bit-for-bit equality of a sharded result's global value and the
+    unsharded call's."""
+    if tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype \
+            or not bool((got == want).all()):
+        raise AssertionError(f"{tag}: sharded result differs from the "
+                             f"unsharded call")
+
+
+def _md_times(torch, tag, sharded, unsharded, reps=5):
+    """CUDA-event ms (and host wall) per call of a sharded call and of its
+    unsharded call, in turns: unsharded, sharded, sharded, unsharded."""
+    u1, s1, s2, u2 = (timed_sweep(torch, [f], reps) for f in (
+        unsharded, sharded, sharded, unsharded))
+    log(f"[multidevice] {tag}: sharded {s1[0]:.4f} / {s2[0]:.4f} ms per "
+        f"call (host wall {s1[1]:.4f} / {s2[1]:.4f}); unsharded "
+        f"{u1[0]:.4f} / {u2[0]:.4f} ms (host wall {u1[1]:.4f} / "
+        f"{u2[1]:.4f}); ratio {(s1[0] + s2[0]) / (u1[0] + u2[0]):.4f}")
+
+
+def phase_multidevice(torch, dmt):
+    """Multi-device on the card (phase 5l): a one-rank NCCL mesh from
+    ``make_mesh()``; at the headline width the sharded render
+    (``backend="pallas"``, the path-sum kernel), the sharded beam gains,
+    ``load_paths_sharded`` and 3 sharded calibration steps, each equal to
+    its unsharded call (the steps' losses within 1e-5 relative), with one
+    kernel launch per call; the sharded dual-polar render and beam gains
+    at MD_POLAR_USERS; ``dryrun_multichip`` on one CUDA rank and on two
+    gloo ranks; the worked examples on the card. Returns the main-path
+    launches of the sharded calls and the examples by kernel entry."""
+    import contextlib
+    import io
+    import torch.distributed as dist
+    from deepmimo_tpu_torch import parallel as par
+    from deepmimo_tpu_torch.examples import (learn_beam_codebook,
+                                             quickstart, serve_channels)
+    from deepmimo_tpu_torch.generator.dataset import POLS
+    from deepmimo_tpu_torch.ops.channel import (render_beam_gains,
+                                                render_beam_gains_polar,
+                                                render_channels,
+                                                render_channels_planes_polar,
+                                                unpack_polar_planes_np)
+    from deepmimo_tpu_torch.parallel import sharded as sh
+    from deepmimo_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    count = Counter()
+    dev_type = torch.device(DEV).type
+    backend = "nccl" if dev_type == "cuda" else "gloo"
+    if dist.is_initialized():
+        raise AssertionError("a process group exists before make_mesh")
+    mesh = par.make_mesh()
+    if mesh.device_type != dev_type or tuple(mesh.shape) != (1, 1) or \
+            dist.get_backend() != backend:
+        raise AssertionError(f"make_mesh: {mesh}, backend "
+                             f"{dist.get_backend()}")
+    log(f"[multidevice] make_mesh(): {mesh} on a one-rank "
+        f"{dist.get_backend()} group; torch {torch.__version__}")
+    try:
+        # (a) The sharded render at the headline width: the path sum.
+        d = make_data(CHUNK, MAX_PATHS, seed=MD_SEED)
+        paths = dmt.PathData.from_numpy(
+            d["power"], d["phase"], d["delay"], d["aoa_az"], d["aoa_el"],
+            d["aod_az"], d["aod_el"], device=DEV)
+        bs = dmt.AntennaPanel.make(device=DEV)
+        ue = dmt.AntennaPanel.make(device=DEV)
+        cfg = _train_config(dmt, "pallas")
+        sp = par.shard_paths(paths, mesh)
+        ref = _md_counted(torch, "render_channels", lambda: render_channels(
+            paths, bs, ue, cfg), None, fused_path_sum=1)
+        out = _md_counted(
+            torch, "render_channels_sharded", lambda:
+            par.render_channels_sharded(sp, bs, ue, cfg, mesh), count,
+            fused_path_sum=1)
+        full = out.full_tensor()
+        _md_same("render_channels_sharded", full, ref)
+        h_or = _oracle(d, N_ORACLE, d["power"], d["phase"])
+        _check_oracle("multidevice", "render_channels_sharded",
+                      full[:N_ORACLE].cpu().numpy(), h_or, ORACLE_RTOL)
+        log(f"[multidevice] render_channels_sharded: DTensor "
+            f"{tuple(out.shape)} {out.placements}, local "
+            f"{tuple(out.to_local().shape)}; equal to render_channels bit "
+            f"for bit; 1 fused_path_sum launch")
+        del ref, full, out
+        _md_times(torch, "render_channels (pallas)",
+                  lambda: par.render_channels_sharded(sp, bs, ue, cfg, mesh),
+                  lambda: render_channels(paths, bs, ue, cfg))
+
+        # (b) Sharded beam gains, phase 5b's codebook.
+        w = codebook(BG_BEAMS, BS_SHAPE[0] * BS_SHAPE[1], seed=75)
+        wr, wi = _planes_on_card(torch, w)
+        ref = _md_counted(torch, "render_beam_gains", lambda:
+                          render_beam_gains(paths, bs, ue, cfg, wr, wi),
+                          None, fused_beam_gain=1)
+        out = _md_counted(
+            torch, "render_beam_gains_sharded", lambda:
+            par.render_beam_gains_sharded(sp, bs, ue, cfg, wr, wi, mesh),
+            count, fused_beam_gain=1)
+        full = out.full_tensor()
+        _md_same("render_beam_gains_sharded", full, ref)
+        _check_oracle("multidevice", "render_beam_gains_sharded",
+                      full[:N_ORACLE].cpu().numpy(), _beam_oracle(w, h_or),
+                      BG_ORACLE_RTOL)
+        del ref, full, out
+        _md_times(torch, "render_beam_gains",
+                  lambda: par.render_beam_gains_sharded(sp, bs, ue, cfg, wr,
+                                                        wi, mesh),
+                  lambda: render_beam_gains(paths, bs, ue, cfg, wr, wi))
+
+        # (c) load_paths_sharded from a Dataset vs its unsharded PathData.
+        ds = dmt.Dataset(dict(d, rx_pos=np.zeros((CHUNK, 3), np.float32),
+                              tx_pos=np.zeros((1, 3), np.float32)))
+        t0 = time.perf_counter()
+        pd = par.load_paths_sharded(ds, mesh)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        whole = ds._path_data()
+        torch.cuda.synchronize()
+        t_whole = time.perf_counter() - t0
+        for f in dataclasses.fields(whole):
+            a, b = getattr(pd, f.name), getattr(whole, f.name)
+            if (a is None) != (b is None) or (
+                    b is not None and not torch.equal(a.full_tensor(), b)):
+                raise AssertionError(f"load_paths_sharded: {f.name} "
+                                     f"differs from the unsharded PathData")
+        log(f"[multidevice] load_paths_sharded: {CHUNK} users, every leaf "
+            f"equal to the unsharded PathData; {t_load:.3f} s (host) vs "
+            f"{t_whole:.3f} s unsharded")
+        del pd, whole, ds
+
+        # (d) 3 sharded calibration steps vs 3 unsharded (the pallas cell).
+        with torch.no_grad():
+            target = render_channels(
+                paths, dmt.AntennaPanel.make((0.0, 0.0, 10.0), device=DEV),
+                ue, cfg)
+        params0 = sh.init_calib_params(
+            paths, dmt.AntennaPanel.make((0.0, 0.0, 0.0), device=DEV), ue)
+        last = {}
+
+        def keep(tag, out):
+            last[tag] = out[0]
+            return out
+
+        ref_losses, ref_ms, ref_peak = run_steps(
+            torch, lambda p: keep("ref", sh.training_step(
+                p, paths, target, cfg, lr=LR)),
+            params0, MD_STEPS, per_step=(0, 0, 1))
+        step, place = par.make_sharded_training_step(mesh, cfg, lr=LR)
+        s_params, s_paths, s_target = place(params0, paths, target)
+        reduces = []
+        all_reduce = dist.all_reduce
+
+        def counted_all_reduce(tensor, *a, group=None, **kw):
+            reduces.append((dist.get_backend(group), tensor.numel(),
+                            tensor.device.type))
+            return all_reduce(tensor, *a, group=group, **kw)
+
+        dist.all_reduce = counted_all_reduce
+        try:
+            losses, s_ms, s_peak = run_steps(
+                torch, lambda p: keep("sharded", step(p, s_paths,
+                                                      s_target)),
+                s_params, MD_STEPS, per_step=(0, 0, 1))
+        finally:
+            dist.all_reduce = all_reduce
+        count.update({"fused_path_sum": MD_STEPS})
+        rels = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+        log(f"[multidevice] {MD_STEPS} sharded steps: losses "
+            f"{['%.7f' % x for x in losses]} vs unsharded "
+            f"{['%.7f' % x for x in ref_losses]}: rel "
+            f"{', '.join('%.2e' % r for r in rels)} (limit 1e-5); ms per "
+            f"step {', '.join('%.4f' % x for x in s_ms)} vs "
+            f"{', '.join('%.4f' % x for x in ref_ms)}; peak "
+            f"{s_peak / 2**30:.3f} vs {ref_peak / 2**30:.3f} GiB; "
+            f"all-reduces {reduces}")
+        if not all(r <= 1e-5 for r in rels):
+            raise AssertionError("sharded step losses differ from the "
+                                 "unsharded step's")
+        if len(reduces) != 2 * MD_STEPS or any(
+                b != backend or dev != dev_type for b, _, dev in reduces):
+            raise AssertionError(f"sharded step all-reduces {reduces}: "
+                                 f"expected 2 NCCL all-reduces per step")
+        # The all-reduced panel gradient: the BS rotation after the steps.
+        got = last["sharded"].bs.rotation_deg.full_tensor().cpu().numpy()
+        want = last["ref"].bs.rotation_deg.cpu().numpy()
+        if not np.allclose(got, want, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"sharded BS rotation {got} vs unsharded "
+                                 f"{want}")
+        log(f"[multidevice] BS rotation after {MD_STEPS} steps: sharded "
+            f"{got} vs unsharded {want} (rtol 1e-4)")
+        flat = torch.zeros(reduces[0][1], device=DEV)
+        ar_ms = event_ms(torch, lambda: dist.all_reduce(
+            flat, group=mesh.get_group(0)), 20)
+        log(f"[multidevice] {backend} all-reduce of the step's {flat.numel()} "
+            f"floats (loss sums + panel gradients) on the users group: "
+            f"{ar_ms:.4f} ms (CUDA events, 20 calls)")
+        del target, s_target, last, params0, s_params
+        torch.cuda.empty_cache()
+
+        # (e) Dual-polar render and beam gains at MD_POLAR_USERS users.
+        n = MD_POLAR_USERS
+        dp = {k: v[:n] for k, v in d.items()}
+        dp.update(make_pol_data(dp))
+        pol_p = torch.from_numpy(np.stack(
+            [dp[f"power_{p.lower()}"] for p in POLS])).to(DEV)
+        pol_ph = torch.from_numpy(np.stack(
+            [dp[f"phase_{p.lower()}"] for p in POLS])).to(DEV)
+        params = make_params(dmt)
+        params[dmt.consts.PARAMSET_POLAR_EN] = 1
+        pcfg, pbs, pue = params.to_config(n)
+        ppaths = paths.slice_users(0, n)
+        psp = par.shard_paths(ppaths, mesh)
+        ref = _md_counted(
+            torch, "render_channels_planes_polar", lambda:
+            render_channels_planes_polar(ppaths, pbs, pue, pcfg, pol_p,
+                                         pol_ph), None, fused_render=1)
+        out = _md_counted(
+            torch, "render_polar_sharded", lambda: par.render_polar_sharded(
+                psp, pbs, pue, pcfg, pol_p, pol_ph, mesh), count,
+            fused_render=1)
+        full = out.full_tensor()
+        _md_same("render_polar_sharded", full, ref)
+        got = unpack_polar_planes_np(full[:N_ORACLE].cpu().numpy(), pcfg)
+        h_pol = [_oracle(dp, N_ORACLE, dp[f"power_{p.lower()}"],
+                         dp[f"phase_{p.lower()}"]) for p in POLS]
+        for ip, p in enumerate(POLS):
+            _check_oracle("multidevice", f"render_polar_sharded {p}",
+                          got[ip], h_pol[ip], ORACLE_RTOL)
+        log(f"[multidevice] render_polar_sharded: {tuple(out.shape)} "
+            f"({full.numel() * 4 / 1e9:.2f} GB) equal to "
+            f"render_channels_planes_polar; 1 fused_render launch")
+        del ref, full, out
+        _md_times(torch, f"dual-polar render ({n} users)",
+                  lambda: par.render_polar_sharded(psp, pbs, pue, pcfg,
+                                                   pol_p, pol_ph, mesh),
+                  lambda: render_channels_planes_polar(
+                      ppaths, pbs, pue, pcfg, pol_p, pol_ph))
+        ref = _md_counted(
+            torch, "render_beam_gains_polar", lambda:
+            render_beam_gains_polar(ppaths, pbs, pue, pcfg, pol_p, pol_ph,
+                                    wr, wi), None, fused_beam_gain=1)
+        out = _md_counted(
+            torch, "render_beam_gains_polar_sharded", lambda:
+            par.render_beam_gains_polar_sharded(psp, pbs, pue, pcfg, pol_p,
+                                                pol_ph, wr, wi, mesh),
+            count, fused_beam_gain=1)
+        full = out.full_tensor()
+        _md_same("render_beam_gains_polar_sharded", full, ref)
+        g = full[:N_ORACLE].cpu().numpy()
+        for ip, p in enumerate(POLS):
+            _check_oracle("multidevice", f"beam gains polar {p}",
+                          g[..., ip * N_SC:(ip + 1) * N_SC],
+                          _beam_oracle(w, h_pol[ip]), BG_ORACLE_RTOL)
+        del ref, full, out
+        _md_times(torch, f"dual-polar beam gains ({n} users)",
+                  lambda: par.render_beam_gains_polar_sharded(
+                      psp, pbs, pue, pcfg, pol_p, pol_ph, wr, wi, mesh),
+                  lambda: render_beam_gains_polar(ppaths, pbs, pue, pcfg,
+                                                  pol_p, pol_ph, wr, wi))
+        del paths, sp, ppaths, psp, pol_p, pol_ph
+        torch.cuda.empty_cache()
+
+        # (f) The dry run on one CUDA rank and on two gloo ranks.
+        for n_dev, device in ((1, dev_type), (2, "cpu")):
+            t0 = time.perf_counter()
+            res = dryrun_multichip(n_dev, device=device)
+            log(f"[multidevice] dryrun_multichip({n_dev}, {device!r}): "
+                f"mesh {res['mesh']}, {time.perf_counter() - t0:.1f} s "
+                f"(host, spawned ranks)")
+
+        # (g) The worked examples on the card, in this process.
+        for tag, fn in (
+                ("quickstart", lambda: quickstart.main([])),
+                ("serve_channels", lambda: serve_channels.main([])),
+                ("learn_beam_codebook", lambda: learn_beam_codebook.main(
+                    ["--steps", str(MD_CODEBOOK_STEPS)]))):
+            before = Counter(dict(zip(
+                ("fused_render", "fused_render_bwd", "fused_path_sum",
+                 "fused_beam_gain"), _kernel_launches())))
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                rc = fn()
+            torch.cuda.synchronize()
+            made = Counter(dict(zip(before, _kernel_launches()))) - before
+            lines = text.getvalue().strip().splitlines()
+            log(f"[multidevice] example {tag}: rc {rc}, "
+                f"{time.perf_counter() - t0:.1f} s, launches "
+                f"{dict(made)}; last lines: {lines[-2:]}")
+            if rc != 0 or not made:
+                raise AssertionError(f"example {tag} failed or launched "
+                                     f"no kernel")
+            count.update(made)
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    log(f"[multidevice] phase 5l: {time.perf_counter() - t_phase:.1f} s "
+        f"(host wall); launches counted: {dict(count)}")
+    return count
+
+
 def kernel_bounds(fma=False):
     """Least card time (ms) of each kernel's work, in each mode, at its
     headline shapes, and what bounds it: bytes (each input read once, each
@@ -3509,6 +3857,7 @@ def main():
     surface = phase_surface(torch, dmt)
     converted = phase_convert(torch, dmt)
     factory = phase_factory(torch, dmt)
+    multidevice = phase_multidevice(torch, dmt)
     doppler = phase_doppler(torch, dmt)
     polar_render, polar_bg = phase_polar(torch, dmt)
     torch.cuda.empty_cache()
@@ -3521,7 +3870,7 @@ def main():
                      "fused_path_sum": pallas_launches,
                      "fused_beam_gain": bg_launches + polar_bg})
     for phase in (bf16_serving, angle_space, doppler, nonfused, train_bf16,
-                  scenarios, surface, converted, factory):
+                  scenarios, surface, converted, factory, multidevice):
         launches.update(phase)
     log(f"[launches] fused_render: serving {serve_launches} + dual-polar "
         f"{polar_render} + training {train_fwd} + angle space "
@@ -3529,15 +3878,18 @@ def main():
         f" + scenarios from disk {scenarios['fused_render']} + public "
         f"surface {surface['fused_render']} + converted scenarios "
         f"{converted['fused_render']} + scenario factory "
-        f"{factory['fused_render']}; "
+        f"{factory['fused_render']} + multi-device "
+        f"{multidevice['fused_render']}; "
         f"fused_render_bwd: training {train_bwd}; fused_path_sum: pallas "
-        f"training {pallas_launches}; fused_beam_gain: serving "
+        f"training {pallas_launches} + multi-device "
+        f"{multidevice['fused_path_sum']}; fused_beam_gain: serving "
         f"{bg_launches} + dual-polar {polar_bg} + Doppler "
         f"{doppler['fused_beam_gain']} + scenarios from disk "
         f"{scenarios['fused_beam_gain']} + public surface "
         f"{surface['fused_beam_gain']} + converted scenarios "
         f"{converted['fused_beam_gain']} + scenario factory "
-        f"{factory['fused_beam_gain']}; modes: complex128 beam gains "
+        f"{factory['fused_beam_gain']} + multi-device "
+        f"{multidevice['fused_beam_gain']}; modes: complex128 beam gains "
         f"{nonfused}, bf16 serving {bf16_serving}, "
         f"bf16 training {train_bf16}")
     src = "deepmimo_tpu_torch/csrc/"

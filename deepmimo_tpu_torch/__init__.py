@@ -24,7 +24,11 @@ the gated ray-tracer runs, a resumable runner that converts and uploads);
 downstream, ``integrations`` hands channels to link-level simulators
 (``DeepMIMOSionnaAdapter`` for Sionna, the NR CDL export and the MATLAB
 generator files). ``scripts`` holds the CLIs (convert, pipeline, stats,
-csvgen, insite-ops). It imports torch and numpy/scipy, never jax.
+csvgen, insite-ops). ``parallel`` spreads renders and the calibration
+step over devices: a (users, tile) ``DeviceMesh`` over
+``torch.distributed`` ranks, one device each, with sharded results as
+DTensors. ``examples`` holds the worked examples and ``docs`` the
+documentation. It imports torch and numpy/scipy, never jax.
 Tensors live on ``config['device']`` (default ``"cuda"``).
 """
 

@@ -61,6 +61,9 @@ class DeepMIMOConfig:
         # O(users x antennas^2 x paths); above this it raises MemoryError
         # with guidance).
         "max_array_product_bytes": 4 << 30,
+        # Dimension names of parallel.make_mesh's (users, tile) mesh
+        "mesh_axis_users": "users",
+        "mesh_axis_tile": "tile",
         # Scenario database (api.py: upload, download, search)
         "api_endpoint": "https://dev.deepmimo.net",
     }
