@@ -124,6 +124,38 @@ def _check_sharded(out, ref, users_dim=0):
 
 # ---------------------------------------------------------------- meshes
 
+def test_exports_the_jax_names():
+    from deepmimo_tpu import parallel as jpar
+    assert set(jpar.__all__) <= set(par.__all__)
+    for name in par.__all__:
+        assert callable(getattr(par, name)), name
+
+
+def test_port_imports_no_jax():
+    """No module of the port, nor chip_smoke.py, imports JAX or the JAX
+    package (the card's machine has neither)."""
+    import ast
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    files = [os.path.join(root, "chip_smoke.py")]
+    for base, _, names in os.walk(os.path.join(root, "deepmimo_tpu_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                top = mod.split(".")[0]
+                assert top not in ("jax", "jaxlib", "deepmimo_tpu"), \
+                    (path, mod)
+
+
 @pytest.mark.parametrize("n, tile", [(8, 1), (8, 2), (8, 4), (6, 3), (1, 1),
                                      (4, 4)])
 def test_default_mesh_shape_matches_jax(n, tile):
