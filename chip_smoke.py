@@ -115,7 +115,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    ``annotate("dm.serve")`` range: each stage at least 0.95 x the call's
    CUDA-event time (the stage waits for the device); one call under
    ``xla_trace`` whose written trace must hold a render-kernel event and
-   the ``dm.serve`` range; ``renderer_roofline``'s memory bound equal to
+   the ``dm.serve`` range (traced again, up to 3 times in all, while the
+   profiler records no device event); ``renderer_roofline``'s memory bound equal to
    ``kernel_bounds()``'s for the render (1e-9 relative), its users/s
    beside the measured; (d) a 16,384-user scenario written with the port's
    writers, its ``summary``, ``upload`` to a loopback mock of the scenario
@@ -320,6 +321,10 @@ def make_params(dmt):
     params[c.PARAMSET_OFDM][c.PARAMSET_OFDM_BANDWIDTH] = BANDWIDTH
     params[c.PARAMSET_NUM_PATHS] = MAX_PATHS
     return params
+
+
+PROFILE_TRIES = 3
+PROFILE_EMPTY = []       # cells whose profile saw no device event
 
 
 def timed_sweep(torch, calls, reps=5):
@@ -862,30 +867,53 @@ def profile_cell(torch, tag, calls, top=4):
     ``calls``, after a warm-up sweep that the profiler also runs (its first
     cycle can drop device events). Prints the device window per call, the
     busy and idle share of it, and the largest kernels by time with their
-    launch counts. A cycle that records no device event at all is
-    profiled once more (the profiler dropped every event of one cycle in
-    one run of about ten); a second empty cycle fails."""
+    launch counts.
+
+    The profiler has recorded no device event in a whole cycle (once in
+    about 180 cycles, and once twice in a row in one process), which is a
+    fault of the tracer: the launch counts and the comparisons with the
+    plain versions hold the kernels. An empty cycle is profiled again,
+    after a sweep outside the profiler and with host activity on as
+    ``xla_trace`` has it, up to ``PROFILE_TRIES`` cycles in all; after as
+    many empty ones the cell's device window is timed with CUDA events, its
+    busy and idle share are printed as not measured, and the tag is kept
+    in ``PROFILE_EMPTY`` for the summary line."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            for _ in range(2):
+    for attempt in range(PROFILE_TRIES):
+        if attempt == 0:
+            with profile(activities=[ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1)) as prof:
+                for _ in range(2):
+                    for call in calls:
+                        call()
+                    torch.cuda.synchronize()
+                    prof.step()
+        else:
+            for call in calls:
+                call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
                 for call in calls:
                     call()
                 torch.cuda.synchronize()
-                prof.step()
         spans = sorted((e.time_range.start, e.time_range.end, e.name)
                        for e in prof.events()
                        if e.device_type.name == "CUDA" and
                        e.time_range.end > e.time_range.start)
         if spans:
             break
-        log(f"[profile] {tag}: the profiler saw no device time; profiling "
-            f"again")
+        log(f"[profile] {tag}: the profiler saw no device time in cycle "
+            f"{attempt + 1} of {PROFILE_TRIES}")
     else:
-        raise AssertionError(f"{tag}: the profiler saw no device time "
-                             f"twice")
+        PROFILE_EMPTY.append(tag)
+        ms = timed_sweep(torch, calls)[0]
+        log(f"[profile] {tag}: device window {ms:.4f} ms per call (CUDA "
+            f"events over 5 sweeps); busy, idle and the largest kernels not "
+            f"measured: the profiler saw no device event in "
+            f"{PROFILE_TRIES} cycles")
+        return
     busy, reach, by_name = 0.0, spans[0][0], {}
     for start, end, name in spans:
         busy += max(0.0, end - max(start, reach))
@@ -2171,21 +2199,27 @@ def phase_surface(torch, dmt):
     old = {k: dmt.config.get(k) for k in ("scenarios_folder",
                                           "api_endpoint")}
     try:
-        tdir = os.path.join(root, "trace")
-        t0 = time.perf_counter()
-        with xla_trace(tdir):
-            with annotate("dm.serve"):
-                counted(lambda: ds.compute_channels(params, to_device=True,
-                                                    out=h),
+        # A trace is taken again when the profiler dropped the cycle's
+        # device events (see profile_cell), each into its own folder.
+        for attempt in range(PROFILE_TRIES):
+            tdir = os.path.join(root, f"trace{attempt}")
+            t0 = time.perf_counter()
+            with xla_trace(tdir):
+                with annotate("dm.serve"):
+                    counted(lambda: ds.compute_channels(
+                        params, to_device=True, out=h),
                         render=1, what="traced serving call")
-        kernels, ranges, mb, window, busy = _trace_check(tdir)
-        log(f"[surface] xla_trace: {time.perf_counter() - t0:.3f} s (host), "
-            f"{mb:.2f} MB; render kernel events {len(kernels)} ("
-            + ", ".join(f"{e['dur'] / 1e3:.4f} ms" for e in kernels) +
-            f"), 'dm.serve' ranges {len(ranges)} ("
-            + ", ".join(sorted({e.get('cat', '?') for e in ranges})) +
-            f"); device window {window:.4f} ms, busy {busy:.4f} ms, idle "
-            f"{100 * (1 - busy / window) if window else 0:.2f}%")
+            kernels, ranges, mb, window, busy = _trace_check(tdir)
+            log(f"[surface] xla_trace {attempt + 1}: "
+                f"{time.perf_counter() - t0:.3f} s (host), "
+                f"{mb:.2f} MB; render kernel events {len(kernels)} ("
+                + ", ".join(f"{e['dur'] / 1e3:.4f} ms" for e in kernels) +
+                f"), 'dm.serve' ranges {len(ranges)} ("
+                + ", ".join(sorted({e.get('cat', '?') for e in ranges})) +
+                f"); device window {window:.4f} ms, busy {busy:.4f} ms, "
+                f"idle {100 * (1 - busy / window) if window else 0:.2f}%")
+            if window:
+                break
         if not kernels or not ranges:
             raise AssertionError("xla_trace: the trace lacks the render "
                                  "kernel or the dm.serve range")
@@ -3923,6 +3957,9 @@ def main():
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": bounds[e][0],
                 "bound_by": bounds[e][1], "library_ms": m.get("library_ms")})
+    log(f"[profile] cells whose profile saw no device event in "
+        f"{PROFILE_TRIES} cycles (timed with CUDA events instead): "
+        f"{', '.join(PROFILE_EMPTY) or 'none'}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
