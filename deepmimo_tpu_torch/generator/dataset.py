@@ -44,6 +44,7 @@ from ..ops.kernels.render import out_torch_dtype
 from ..ops.patterns import pattern_gain
 from ..ops.types import AntennaPanel, PathData, _small_tensor
 from ..utils import DotDict
+from ..utils.profiling import span
 from .checkpoint import ChunkStore
 from .params import ChannelGenParameters
 from .sampling import dbw2watt, get_uniform_idxs
@@ -168,35 +169,39 @@ class Dataset(DotDict):
         raw polar planes (``ops.channel.render_channels_planes_polar``;
         unpack with ``ops.channel.unpack_polar_planes_np``).
         """
-        params, cfg, bs_panel, ue_panel = self._channel_config(params)
-
-        if cfg.freq_domain:
-            # Memoized per (n_fft, bandwidth): serving loops re-call
-            # compute_channels back-to-back.
-            cache = self.get("_clip_report_cache") or {}
-            ck = (cfg.subcarriers, cfg.bandwidth)
-            if ck not in cache:
-                cache[ck] = delay_clipping_report(
-                    np.asarray(self[c.DELAY_PARAM_NAME]),
-                    np.asarray(self[c.POWER_PARAM_NAME]),
-                    cfg.subcarriers, cfg.bandwidth)
-                self["_clip_report_cache"] = cache
-                if cache[ck] is not None:
-                    _print_delay_clipping_warning(cache[ck])
-            if cache[ck] is not None:
-                self["clipping_report"] = cache[ck]
-
-        if params.get(c.PARAMSET_POLAR_EN, 0):
+        with span("dm.entry"):
+            params, cfg, bs_panel, ue_panel = self._channel_config(params)
+            if cfg.freq_domain:
+                self._clipping_report(cfg)
+            polar = bool(params.get(c.PARAMSET_POLAR_EN, 0))
+            pd = None if polar else self._path_data()
+        if polar:
             channel = self._compute_dual_polar(cfg, bs_panel, ue_panel,
                                                to_device=to_device, out=out)
         else:
-            channel = _render_streamed(self._path_data(), bs_panel,
-                                       ue_panel, cfg, to_device=to_device,
-                                       out=out)
+            channel = _render_streamed(pd, bs_panel, ue_panel, cfg,
+                                       to_device=to_device, out=out)
         if to_device:
             return channel
         self[c.CHANNEL_PARAM_NAME] = channel
         return channel
+
+    def _clipping_report(self, cfg):
+        """Sets ``clipping_report`` (and warns once) where paths arrive
+        past the cyclic prefix; memoized per (n_fft, bandwidth): serving
+        loops re-call compute_channels back-to-back."""
+        cache = self.get("_clip_report_cache") or {}
+        ck = (cfg.subcarriers, cfg.bandwidth)
+        if ck not in cache:
+            cache[ck] = delay_clipping_report(
+                np.asarray(self[c.DELAY_PARAM_NAME]),
+                np.asarray(self[c.POWER_PARAM_NAME]),
+                cfg.subcarriers, cfg.bandwidth)
+            self["_clip_report_cache"] = cache
+            if cache[ck] is not None:
+                _print_delay_clipping_warning(cache[ck])
+        if cache[ck] is not None:
+            self["clipping_report"] = cache[ck]
 
     def _channel_config(self, params):
         """(params, cfg, bs panel, ue panel) for a render: the stored
@@ -304,14 +309,16 @@ class Dataset(DotDict):
             raise ValueError("compute_beam_gains requires a codebook "
                              "([n_beams, n_tx_ant] complex, or an "
                              "(wr, wi) tuple)")
-        params, cfg, bs_panel, ue_panel = self._channel_config(params)
-        w = _codebook_planes(codebook, cfg, self._path_data().valid.device)
-        polar = bool(params.get(c.PARAMSET_POLAR_EN, 0))
-        if polar:
-            self._check_pols()
-        return _beam_gain_maps(self._path_data(), bs_panel, ue_panel, cfg, w,
-                               to_device, out,
-                               self._polar_stacks() if polar else None)
+        with span("dm.entry"):
+            params, cfg, bs_panel, ue_panel = self._channel_config(params)
+            pd = self._path_data()
+            w = _codebook_planes(codebook, cfg, pd.valid.device)
+            polar = bool(params.get(c.PARAMSET_POLAR_EN, 0))
+            if polar:
+                self._check_pols()
+            stacks = self._polar_stacks() if polar else None
+        return _beam_gain_maps(pd, bs_panel, ue_panel, cfg, w, to_device,
+                               out, stacks)
 
     def _device_dtype(self):
         dev = torch.device(config.get("device"))
@@ -857,10 +864,14 @@ def _beam_gain_maps(pd: PathData, bs_panel, ue_panel, cfg, w,
         g = render_beam_gains(pd, bs_panel, ue_panel, cfg, *w, out=out)
     if to_device:
         return g
-    arr = g.cpu().numpy().reshape(n_ue, cfg.n_rx_ant, n_b, n_pol, n_s, n_k)
-    # [U, R, B, S, K] per polarization -> time axis last
-    maps = [arr[:, :, :, i].transpose(0, 1, 2, 4, 3) if n_s > 1
-            else arr[:, :, :, i, 0] for i in range(n_pol)]
+    if g.is_cuda:
+        with span("dm.d2h"):
+            g = g.cpu()
+    with span("dm.unpack"):
+        arr = g.numpy().reshape(n_ue, cfg.n_rx_ant, n_b, n_pol, n_s, n_k)
+        # [U, R, B, S, K] per polarization -> time axis last
+        maps = [arr[:, :, :, i].transpose(0, 1, 2, 4, 3) if n_s > 1
+                else arr[:, :, :, i, 0] for i in range(n_pol)]
     return dict(zip(POLS, maps)) if pol_stacks is not None else maps[0]
 
 
@@ -991,7 +1002,8 @@ def _stream_blocks(path_data: PathData, bs_panel, ue_panel, render_block,
     def collect(entry):
         idx, start, host, done = entry
         if done is not None:
-            done.synchronize()
+            with span("dm.d2h"):
+                done.synchronize()
         chunks[idx] = unpack(host)
         if store is not None:
             store.save_block(start, chunks[idx])
@@ -1006,13 +1018,14 @@ def _stream_blocks(path_data: PathData, bs_panel, ue_panel, render_block,
                                     per_user_rot, start, size)
         h = render_block(pd, bsp, uep, start, size)
         if cuda:
-            host = torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
-            copy_stream.wait_stream(torch.cuda.current_stream(h.device))
-            with torch.cuda.stream(copy_stream):
-                host.copy_(h, non_blocking=True)
-                h.record_stream(copy_stream)
-                done = torch.cuda.Event()
-                done.record(copy_stream)
+            with span("dm.d2h"):
+                host = torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
+                copy_stream.wait_stream(torch.cuda.current_stream(h.device))
+                with torch.cuda.stream(copy_stream):
+                    host.copy_(h, non_blocking=True)
+                    h.record_stream(copy_stream)
+                    done = torch.cuda.Event()
+                    done.record(copy_stream)
         else:
             host, done = h, None
         inflight.append((len(chunks) - 1, start, host, done))

@@ -65,6 +65,7 @@ from .kernels import render as _render
 from .kernels.pathsum import fused_path_sum
 from .patterns import pattern_gain
 from .types import AntennaPanel, ChannelConfig, PathData
+from ..utils.profiling import span
 
 
 def planes_dtype(cfg: ChannelConfig) -> torch.dtype:
@@ -458,24 +459,35 @@ def _wavevec_inputs(cfg: ChannelConfig, paths: PathData, bs: AntennaPanel,
             *steps)
 
 
-def _render_fused_planes(cfg: ChannelConfig, paths: PathData, valid,
-                         powers_lin, gry, grz, gty, gtz,
+def _fused_inputs(cfg: ChannelConfig, paths: PathData, bs: AntennaPanel,
+                  ue: AntennaPanel):
+    """The prologue of the fused render and beam-gain kernels: their seven
+    per-path inputs (gry, grz, gty, gtz, amp, psi, omega [U, P]), the
+    RX/TX wave-vector phase steps kd*y', kd*z' in the rotated frame zeroed
+    on invalid paths and :func:`_fused_path_scalars`. The scalars come
+    first: with the masked steps first more memory is live at the peak."""
+    with span("dm.prologue"):
+        valid, powers_lin, *steps = _wavevec_inputs(cfg, paths, bs, ue)
+        u, p = paths.delay_s.shape
+        valid_f = valid.reshape(-1)
+
+        def z(x):
+            x = x.reshape(-1)
+            return torch.where(valid_f, x, torch.zeros_like(x)).reshape(u, p)
+
+        amp, psi, omega = _fused_path_scalars(cfg, paths, valid, powers_lin)
+        return (*(z(x) for x in steps), amp, psi, omega)
+
+
+def _render_fused_planes(cfg: ChannelConfig, paths: PathData, args,
                          out: Optional[torch.Tensor] = None):
-    """Fully fused OFDM render: per-path scalars -> H planes, one kernel
-    launch with every Doppler snapshot on its slot axis. ``gry..gtz`` are
-    the RX/TX wave-vector phase steps kd*y', kd*z' in the rotated frame;
-    invalid paths are zeroed here. Returns the kernel's layout viewed as
-    [U, R, T, 2*S*K] (packed) or [2, U, R, T, S, K] (stacked) in
+    """Fully fused OFDM render: the seven per-path inputs ``args``
+    (:func:`_fused_inputs`) -> H planes, one kernel launch with every
+    Doppler snapshot on its slot axis. Returns the kernel's layout viewed
+    as [U, R, T, 2*S*K] (packed) or [2, U, R, T, S, K] (stacked) in
     ``cfg.out_dtype``; ``out`` (that shape) is written in place.
     """
-    u, p = paths.delay_s.shape
-    valid_f = valid.reshape(-1)
-
-    def z(x):
-        x = x.reshape(-1)
-        return torch.where(valid_f, x, torch.zeros_like(x)).reshape(u, p)
-
-    amp, psi, omega = _fused_path_scalars(cfg, paths, valid, powers_lin)
+    u = paths.n_ue
     n_k = len(cfg.selected_subcarriers)
     n_s = _fused_n_snap(cfg)
     packed = _packed_layout(cfg)
@@ -485,8 +497,7 @@ def _render_fused_planes(cfg: ChannelConfig, paths: PathData, valid,
     if out is not None:
         kout = out.view(u, r * t, 2 * n_s * n_k) if packed else \
             out.view(2, u, r * t, n_s * n_k)
-    h = _render.fused_render(z(gry), z(grz), z(gty), z(gtz), amp, psi,
-                             omega, cfg.ue_shape, cfg.bs_shape, n_k,
+    h = _render.fused_render(*args, cfg.ue_shape, cfg.bs_shape, n_k,
                              packed, out=kout, mm_dtype=cfg.matmul_dtype,
                              out_dtype=cfg.out_dtype)
     if packed:
@@ -572,7 +583,7 @@ def render_channels_planes(paths: PathData, bs: AntennaPanel,
         # it (_wavevec_steps).
         several = _fused_n_snap(cfg) > 1 and not packed
         h = _render_fused_planes(cfg, paths,
-                                 *_wavevec_inputs(cfg, paths, bs, ue),
+                                 _fused_inputs(cfg, paths, bs, ue),
                                  out=None if several else out)
         if packed:
             return h
@@ -712,7 +723,9 @@ def planes_to_numpy(x) -> np.ndarray:
     lies; bfloat16 planes (half the bytes over the bus) are widened to
     float32 there, since numpy has no bfloat16."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu()
+        if x.is_cuda:
+            with span("dm.d2h"):
+                x = x.detach().cpu()
         return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return np.asarray(x)
 
@@ -726,24 +739,25 @@ def unpack_planes_np(arr, cfg: ChannelConfig) -> np.ndarray:
     float64), with a trailing time axis for multi-snapshot Doppler.
     """
     arr = planes_to_numpy(arr)
-    cdt = np.complex128 if arr.dtype == np.float64 else np.complex64
-    if arr.dtype not in (np.float32, np.float64):
-        arr = arr.astype(np.float32)
-    if _packed_layout(cfg):
-        n_s = _fused_n_snap(cfg)
-        n_k = len(cfg.selected_subcarriers)
-        sk = n_s * n_k
-        h = np.empty(arr.shape[:-1] + (sk,), dtype=cdt)
-        h.real = arr[..., :sk]
-        h.imag = arr[..., sk:]
-        if n_s > 1:                      # snapshot-major -> time axis last
-            u, r, t = h.shape[:3]
-            h = np.moveaxis(h.reshape(u, r, t, n_s, n_k), 3, 4)
+    with span("dm.unpack"):
+        cdt = np.complex128 if arr.dtype == np.float64 else np.complex64
+        if arr.dtype not in (np.float32, np.float64):
+            arr = arr.astype(np.float32)
+        if _packed_layout(cfg):
+            n_s = _fused_n_snap(cfg)
+            n_k = len(cfg.selected_subcarriers)
+            sk = n_s * n_k
+            h = np.empty(arr.shape[:-1] + (sk,), dtype=cdt)
+            h.real = arr[..., :sk]
+            h.imag = arr[..., sk:]
+            if n_s > 1:                  # snapshot-major -> time axis last
+                u, r, t = h.shape[:3]
+                h = np.moveaxis(h.reshape(u, r, t, n_s, n_k), 3, 4)
+            return h
+        h = np.empty(arr.shape[1:], dtype=cdt)
+        h.real = arr[0]
+        h.imag = arr[1]
         return h
-    h = np.empty(arr.shape[1:], dtype=cdt)
-    h.real = arr[0]
-    h.imag = arr[1]
-    return h
 
 
 # ============================================================================
@@ -862,17 +876,7 @@ def render_beam_gains(paths: PathData, bs: AntennaPanel, ue: AntennaPanel,
     """
     _check_beam_gain_cfg(cfg, "render_beam_gains")
     paths = paths.trim_paths(cfg.num_paths)
-    valid, powers_lin, *steps = _wavevec_inputs(cfg, paths, bs, ue)
-    u, p = paths.delay_s.shape
-    valid_f = valid.reshape(-1)
-
-    def z(x):
-        x = x.reshape(-1)
-        return torch.where(valid_f, x, torch.zeros_like(x)).reshape(u, p)
-
-    args = (*(z(x) for x in steps),
-            *_fused_path_scalars(cfg, paths, valid, powers_lin))
-    return _beam_gains(cfg, args, wr, wi, out)
+    return _beam_gains(cfg, _fused_inputs(cfg, paths, bs, ue), wr, wi, out)
 
 
 def polar_fused_eligible(cfg: ChannelConfig, n_pol: int = 4) -> bool:
@@ -904,23 +908,24 @@ def _polar_fused_inputs(cfg: ChannelConfig, paths: PathData,
     NaN-padded from the loader, so both amp and psi are masked: a NaN psi
     would poison the kernel's trig even at amp = 0.
     """
-    paths = paths.trim_paths(cfg.num_paths)
-    pol_power_dbw = pol_power_dbw[..., :cfg.num_paths]
-    pol_phase_deg = pol_phase_deg[..., :cfg.num_paths]
-    valid, gain, *steps = _wavevec_steps(cfg, paths, bs, ue)
-    zero = torch.zeros((), dtype=paths.delay_s.dtype,
-                       device=paths.delay_s.device)
+    with span("dm.prologue"):
+        paths = paths.trim_paths(cfg.num_paths)
+        pol_power_dbw = pol_power_dbw[..., :cfg.num_paths]
+        pol_phase_deg = pol_phase_deg[..., :cfg.num_paths]
+        valid, gain, *steps = _wavevec_steps(cfg, paths, bs, ue)
+        zero = torch.zeros((), dtype=paths.delay_s.dtype,
+                           device=paths.delay_s.device)
 
-    def z(x):
-        return torch.where(valid, x, zero)
+        def z(x):
+            return torch.where(valid, x, zero)
 
-    p_lin = torch.pow(10.0, pol_power_dbw / 10.0)
-    if gain is not None:
-        p_lin = p_lin * gain
-    u, p = paths.delay_s.shape          # the steps may be flat [U*P] views
-    return (*(z(x.reshape(u, p)) for x in steps),
-            *_fused_path_scalars(cfg, paths, valid, z(p_lin),
-                                 z(pol_phase_deg)))
+        p_lin = torch.pow(10.0, pol_power_dbw / 10.0)
+        if gain is not None:
+            p_lin = p_lin * gain
+        u, p = paths.delay_s.shape          # the steps may be flat [U*P] views
+        return (*(z(x.reshape(u, p)) for x in steps),
+                *_fused_path_scalars(cfg, paths, valid, z(p_lin),
+                                     z(pol_phase_deg)))
 
 
 def render_channels_planes_polar(paths: PathData, bs: AntennaPanel,
@@ -987,26 +992,27 @@ def unpack_polar_planes_np(arr, cfg: ChannelConfig, n_pol: int = 4):
     :func:`render_channels`.
     """
     arr = planes_to_numpy(arr)
-    cdt = np.complex128 if arr.dtype == np.float64 else np.complex64
-    if arr.dtype not in (np.float32, np.float64):
-        arr = arr.astype(np.float32)
-    n_s = _fused_n_snap(cfg)
-    n_k = len(cfg.selected_subcarriers)
-    if _packed_layout(cfg, n_pol):
-        sk = n_pol * n_s * n_k
-        u, r, t = arr.shape[:3]
-        h = np.empty((u, r, t, sk), dtype=cdt)
-        h.real = arr[..., :sk]
-        h.imag = arr[..., sk:]
-        h = np.moveaxis(h.reshape(u, r, t, n_pol, n_s, n_k), 3, 0)
-    else:
-        h = np.empty(arr.shape[1:], dtype=cdt)       # [U, R, T, NP, S, K]
-        h.real = arr[0]
-        h.imag = arr[1]
-        h = np.moveaxis(h, 3, 0)                     # [NP, U, R, T, S, K]
-    if n_s > 1:
-        return np.moveaxis(h, 4, 5)                  # time axis last
-    return h[:, :, :, :, 0, :]
+    with span("dm.unpack"):
+        cdt = np.complex128 if arr.dtype == np.float64 else np.complex64
+        if arr.dtype not in (np.float32, np.float64):
+            arr = arr.astype(np.float32)
+        n_s = _fused_n_snap(cfg)
+        n_k = len(cfg.selected_subcarriers)
+        if _packed_layout(cfg, n_pol):
+            sk = n_pol * n_s * n_k
+            u, r, t = arr.shape[:3]
+            h = np.empty((u, r, t, sk), dtype=cdt)
+            h.real = arr[..., :sk]
+            h.imag = arr[..., sk:]
+            h = np.moveaxis(h.reshape(u, r, t, n_pol, n_s, n_k), 3, 0)
+        else:
+            h = np.empty(arr.shape[1:], dtype=cdt)       # [U, R, T, NP, S, K]
+            h.real = arr[0]
+            h.imag = arr[1]
+            h = np.moveaxis(h, 3, 0)                     # [NP, U, R, T, S, K]
+        if n_s > 1:
+            return np.moveaxis(h, 4, 5)                  # time axis last
+        return h[:, :, :, :, 0, :]
 
 
 def render_beam_gains_polar(paths: PathData, bs: AntennaPanel,

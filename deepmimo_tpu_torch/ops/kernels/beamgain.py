@@ -58,6 +58,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ...utils.profiling import span
 from .render import (SMEM_LIMIT, _check_inputs, _check_layout, _count,
                      mm_passes, mode_key, ofdm_gains, operand_rounding,
                      response)
@@ -231,8 +232,8 @@ def _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out,
     if out is None:
         out = torch.empty(shape, dtype=dtype, device=dev)
     cw = torch.stack((wr.t(), wi.t().neg()), -1)    # conj(W), [T, B, 2]
-    launch = _build.launcher("beamgain", 9, 11)
-    with torch.cuda.device(dev):
+    with span("dm.kernel.beam_gain"), torch.cuda.device(dev):
+        launch = _build.launcher("beamgain", 9, 11)
         rc = launch(*(x.data_ptr() for x in args), cw.data_ptr(),
                     out.data_ptr(), u, p, r1, r2, t1, t2, n_b, n_k, n_s,
                     n_sa, {"f32": 0, "bf16_mm": 1, "f64": 2}[mode],

@@ -37,6 +37,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from ...utils.profiling import span
 from .render import INDEX_LIMIT
 
 #: Number of CUDA kernel launches made by :func:`fused_path_sum`.
@@ -151,8 +152,8 @@ def _path_sum(args):
                          f"{INDEX_LIMIT})")
     hr = torch.empty((u, r * t, k), dtype=torch.float32, device=dev)
     hi = torch.empty_like(hr)
-    fn = _build.launcher("pathsum", 10, 5)
-    with torch.cuda.device(dev):
+    with span("dm.kernel.pathsum"), torch.cuda.device(dev):
+        fn = _build.launcher("pathsum", 10, 5)
         rc = fn(*(x.data_ptr() for x in args), hr.data_ptr(), hi.data_ptr(),
                 u, p, r, t, k, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

@@ -66,6 +66,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from ...utils.profiling import span
 
 #: Number of forward kernel launches (``csrc/render_fwd.cu``).
 LAUNCHES = 0
@@ -340,8 +341,8 @@ def _render(args, rx_shape, tx_shape, n_k, packed, out, mm_dtype="float32",
     _check_cuda(dev, (r1, r2), (t1, t2), p, n_k, n_s, "fused_render")
     if out is None:
         out = torch.empty(shape, dtype=dtype, device=dev)
-    launch = _build.launcher("render_fwd", 8, 12)
-    with torch.cuda.device(dev):
+    with span("dm.kernel.render_fwd"), torch.cuda.device(dev):
+        launch = _build.launcher("render_fwd", 8, 12)
         rc = launch(*(x.data_ptr() for x in args), out.data_ptr(), u, p,
                     r1, r2, t1, t2, n_k, n_s, n_sa, int(bool(packed)),
                     passes, int(dtype == torch.bfloat16),
@@ -445,8 +446,8 @@ def fused_render_bwd(gry, grz, gty, gtz, amp, psi, omega, ct,
         return fused_render_bwd_reference(*args, ct, (r1, r2), (t1, t2),
                                           n_k, packed, mm_dtype)
     grads = [torch.empty_like(x) for x in args]
-    launch = _build.launcher("render_bwd", 15, 11)
-    with torch.cuda.device(dev):
+    with span("dm.kernel.render_bwd"), torch.cuda.device(dev):
+        launch = _build.launcher("render_bwd", 15, 11)
         rc = launch(*(x.data_ptr() for x in args), ct.data_ptr(),
                     *(g.data_ptr() for g in grads), u, p, r1, r2, t1, t2,
                     n_k, n_s, n_sa, int(bool(packed)), passes,

@@ -11,11 +11,14 @@ JAX pytrees, and every constructor takes an explicit ``device``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from ..utils.profiling import span
 
 
 def _device(device) -> torch.device:
@@ -31,7 +34,8 @@ def _small_tensor(x, dtype, dev: torch.device) -> torch.Tensor:
     goes through pinned memory and is not waited for."""
     t = torch.as_tensor(np.asarray(x, np.float64), dtype=dtype)
     if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
+        with span("dm.h2d"):
+            return t.pin_memory().to(dev, non_blocking=True)
     return t.to(dev)
 
 
@@ -76,18 +80,23 @@ class PathData:
             x = np.where(valid, np.nan_to_num(np.asarray(x, np.float64)), 0.0)
             return torch.as_tensor(x, dtype=dtype, device=dev)
 
-        return cls(
-            power_dbw=clean(power),
-            phase_deg=clean(phase),
-            delay_s=clean(delay),
-            aoa_az_deg=clean(aoa_az),
-            aoa_el_deg=clean(aoa_el),
-            aod_az_deg=clean(aod_az),
-            aod_el_deg=clean(aod_el),
-            valid=torch.as_tensor(valid, device=dev),
-            doppler_vel=None if doppler_vel is None else clean(doppler_vel),
-            doppler_acc=None if doppler_acc is None else clean(doppler_acc),
-        )
+        # A dm.h2d span where the arrays go to a card.
+        with span("dm.h2d") if dev.type == "cuda" else \
+                contextlib.nullcontext():
+            return cls(
+                power_dbw=clean(power),
+                phase_deg=clean(phase),
+                delay_s=clean(delay),
+                aoa_az_deg=clean(aoa_az),
+                aoa_el_deg=clean(aoa_el),
+                aod_az_deg=clean(aod_az),
+                aod_el_deg=clean(aod_el),
+                valid=torch.as_tensor(valid, device=dev),
+                doppler_vel=None if doppler_vel is None
+                else clean(doppler_vel),
+                doppler_acc=None if doppler_acc is None
+                else clean(doppler_acc),
+            )
 
     def _map(self, fn) -> "PathData":
         return PathData(**{f.name: None if getattr(self, f.name) is None

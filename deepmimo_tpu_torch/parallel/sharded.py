@@ -37,6 +37,7 @@ from ..ops.channel import (render_beam_gains, render_beam_gains_polar,
                            render_channels, render_channels_planes,
                            render_channels_planes_polar)
 from ..ops.types import AntennaPanel, ChannelConfig, PathData
+from ..utils.profiling import span
 from .mesh import (DTensor, DeviceMesh, Replicate, Shard, block,
                    channel_sharding, replicated, user_sharding)
 
@@ -333,10 +334,11 @@ def calib_loss(params: CalibParams, paths: PathData, target: torch.Tensor,
     """
     h = render_channels(_apply_calib(paths, params), params.bs, params.ue,
                         cfg)
-    err = h - target
-    num = torch.mean((err * err.conj()).real)
-    den = torch.mean((target * target.conj()).real) + 1e-30
-    return num / den
+    with span("dm.calib.loss"):
+        err = h - target
+        num = torch.mean((err * err.conj()).real)
+        den = torch.mean((target * target.conj()).real) + 1e-30
+        return num / den
 
 
 def calib_loss_planes(params: CalibParams, paths: PathData,
@@ -358,9 +360,10 @@ def calib_loss_planes(params: CalibParams, paths: PathData,
     """
     h = render_channels_planes(_apply_calib(paths, params), params.bs,
                                params.ue, cfg)
-    den = torch.linalg.vector_norm(target, dim=-1).square().mean() / \
-        target.shape[-1]
-    return torch.nn.functional.mse_loss(h, target) / (den + 1e-30)
+    with span("dm.calib.loss"):
+        den = torch.linalg.vector_norm(target, dim=-1).square().mean() / \
+            target.shape[-1]
+        return torch.nn.functional.mse_loss(h, target) / (den + 1e-30)
 
 
 def calib_value_and_grad(loss_fn: Callable, params: CalibParams,
@@ -372,15 +375,19 @@ def calib_value_and_grad(loss_fn: Callable, params: CalibParams,
     reach."""
     leaves = [x.detach().requires_grad_(True) for x in params.leaves()]
     with torch.enable_grad():
-        loss = loss_fn(CalibParams.from_leaves(leaves), paths, target, cfg)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with span("dm.calib.forward"):
+            loss = loss_fn(CalibParams.from_leaves(leaves), paths, target,
+                           cfg)
+        with span("dm.calib.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return loss.detach(), CalibParams.from_leaves(grads)
 
 
 def _sgd_step(loss_fn, params, paths, target, cfg, lr):
     loss, grads = calib_value_and_grad(loss_fn, params, paths, target, cfg)
-    new = [p if g is None else p.detach() - lr * g
-           for p, g in zip(params.leaves(), grads.leaves())]
+    with span("dm.calib.update"):
+        new = [p if g is None else p.detach() - lr * g
+               for p, g in zip(params.leaves(), grads.leaves())]
     return CalibParams.from_leaves(new), loss
 
 

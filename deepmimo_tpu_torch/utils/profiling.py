@@ -7,6 +7,28 @@ is initialised in the process), ``xla_trace`` writes a TensorBoard-readable
 ``torch.profiler`` trace of host and CUDA activity, ``annotate`` is a named
 range in it (``torch.profiler.record_function``), and
 ``renderer_roofline`` defaults to the H100's peaks.
+
+``annotate`` records only while a ``torch.profiler`` runs (``xla_trace``,
+or any other profiler), into the same trace and on the same clock as the
+CUDA kernels and copies; otherwise it is one shared null context: no
+allocation, no torch op, no device sync. The port marks its own layer
+boundaries with it, under the name ``span``:
+
+- ``dm.entry``: ``Dataset.compute_channels`` / ``compute_beam_gains``
+  from entry to the render call (validation, ``to_config``, the cached
+  path data, the codebook);
+- ``dm.h2d``: one host-to-device upload (a small tensor, or a whole
+  ``PathData``);
+- ``dm.prologue``: the fused kernels' per-path inputs (the ~100 small ops
+  enqueued before a launch);
+- ``dm.kernel.<name>``: the host side of one launch of a hand-written
+  kernel (``render_fwd``, ``render_bwd``, ``beam_gain``, ``pathsum``);
+- ``dm.d2h``: the copy of a result from a card to the host, its wait for
+  the device included (streamed: each block's copy enqueued, and the wait
+  for it);
+- ``dm.unpack``: the host unpack of planes or gains into numpy;
+- ``dm.calib.forward`` (with ``dm.calib.loss`` inside it),
+  ``dm.calib.backward``, ``dm.calib.update``: a calibration step's stages.
 """
 
 from __future__ import annotations
@@ -92,11 +114,20 @@ def xla_trace(logdir: str):
         yield
 
 
-@contextlib.contextmanager
+_NO_RANGE = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named range visible in ``xla_trace`` traces (``record_function``)."""
-    with torch.profiler.record_function(name):
-        yield
+    """Named range visible in ``xla_trace`` traces: ``record_function``
+    while a profiler records (``torch.autograd._profiler_enabled()``), else
+    one shared null context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_RANGE
+
+
+#: The port's name for :func:`annotate` at its own layer boundaries.
+span = annotate
 
 
 def renderer_roofline(n_ue: int, n_rx_ant: int, n_tx_ant: int, n_sc: int,
