@@ -17,8 +17,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    old kernel's shared memory: a 16 x 16 BS at 1,024 subcarriers, and 300
    paths), the render's backward within
    3e-4 * max|g| for each of its 7 gradients, the beam-gain kernel within
-   3e-5 * max|G| at 6 shapes, from 5 users to 131,072 and up to 100 paths,
-   256 subcarriers and 64 beams of a 16 x 16 panel (and, for context, the
+   3e-5 * max|G| at 7 shapes, from 5 users to 131,072 and up to 100 paths,
+   256 subcarriers and 64 beams of a 16 x 16 panel, timed at the headline
+   with 16 beams and with 64 (its tensor-core design; each line names the
+   design that ran) (and, for context, the
    forward render plus an einsum fold at the headline width). The path
    sum's yardstick is timed beside it: one complex64 ``torch.einsum`` over
    the same planes with g given (its ``library_ms``). Every mode is held
@@ -250,6 +252,7 @@ DEV = "cuda"
 ORACLE_RTOL = 5e-5       # main path vs float64 oracle, relative to max|H|
 N_ORACLE = 64            # users per dataset checked against the oracle
 BG_BEAMS = 16            # codebook beams of the beam-gain paths
+BG_TC_BEAMS = 64         # beams of the tensor-core design's serving calls
 BG_RTOL = 3e-5           # beam-gain kernel vs plain, relative to max|G|
 BG_ORACLE_RTOL = 1e-4    # beam gains vs the float64 oracle, rel. max|G|
 POLAR_STREAM_USERS = 16_384
@@ -646,6 +649,9 @@ def _planes_on_card(torch, w):
 BG_CASES = [
     # name, U, rx_shape, tx_shape, B, K, P, S, n_sa
     ("headline", CHUNK, UE_SHAPE, BS_SHAPE, BG_BEAMS, N_SC, MAX_PATHS, 1, 1),
+    # 64 beams: the tensor-core design in f32 (TC_LAUNCHES), timed too
+    ("headline64", CHUNK, UE_SHAPE, BS_SHAPE, BG_TC_BEAMS, N_SC, MAX_PATHS,
+     1, 1),
     ("multi_rx", 4099, (2, 1), (4, 2), 8, 16, MAX_PATHS, 1, 1),
     ("polar_slots", 4096, UE_SHAPE, BS_SHAPE, BG_BEAMS, N_SC, MAX_PATHS, 4,
      4),
@@ -658,7 +664,9 @@ BG_CASES = [
 
 
 def phase_bg_kernels(torch):
-    """The beam-gain kernel vs its plain version at the BG_CASES shapes."""
+    """The beam-gain kernel vs its plain version at the BG_CASES shapes.
+    Returns the headline's numbers by mode, and under "tc" those of the
+    tensor-core design at ``headline64``."""
     from deepmimo_tpu_torch.ops.kernels import beamgain as kb
     from deepmimo_tpu_torch.ops.kernels import render as kr
     headline = {}
@@ -677,27 +685,33 @@ def phase_bg_kernels(torch):
             tol = BG_TOL[key]
             args = [x.to(dtype) for x in args32]
             wr, wi = (x.to(dtype) for x in w32)
+            tc_before = kb.TC_LAUNCHES
             got = kb.fused_beam_gain(*args, wr, wi, rx, tx, k, mm_dtype=mm)
+            design = "tensor cores" if kb.TC_LAUNCHES > tc_before else "SIMT"
             want = kb.beam_gain_reference(*args, wr, wi, rx, tx, k, mm)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             scale = float(want.max())
             log(f"[kernel] {entry('fused_beam_gain', key)} {name}: U={u} "
                 f"P={p} rx={rx} tx={tx} B={b} K={k} S={s} n_sa={n_sa} "
-                f"out={tuple(got.shape)} max_abs_err={err:.3e} "
+                f"{design} out={tuple(got.shape)} max_abs_err={err:.3e} "
                 f"max|G|={scale:.3e} rel={err / scale:.3e} (limit {tol:g})")
             if not (math.isfinite(err) and err <= tol * scale):
                 raise AssertionError(f"fused_beam_gain {name} {key}: kernel "
                                      f"disagrees with its plain version")
             del want
-            if name == "headline":
+            if name in ("headline", "headline64"):
                 ms = event_ms(torch, lambda: kb.fused_beam_gain(
                     *args, wr, wi, rx, tx, k, out=got, mm_dtype=mm), reps=20)
                 plain_ms = event_ms(torch, lambda: kb.beam_gain_reference(
                     *args, wr, wi, rx, tx, k, mm), reps=3)
-                log(f"[kernel] {entry('fused_beam_gain', key)} headline: "
-                    f"kernel {ms:.4f} ms ({u / ms * 1e3:.1f} users/s), "
-                    f"plain {plain_ms:.4f} ms")
+                log(f"[kernel] {entry('fused_beam_gain', key)} {name}: "
+                    f"{design} kernel {ms:.4f} ms "
+                    f"({u / ms * 1e3:.1f} users/s), plain {plain_ms:.4f} ms")
+            if name == "headline64" and design == "tensor cores":
+                headline["tc"] = dict(max_abs_err=err, ms=ms,
+                                      plain_ms=plain_ms)
+            if name == "headline":
                 headline[key] = dict(max_abs_err=err, ms=ms,
                                      plain_ms=plain_ms)
                 if key == "f32":
@@ -930,15 +944,12 @@ def profile_cell(torch, tag, calls, top=4):
                   for name, (t, count) in largest))
 
 
-def phase_beamgain(torch, datasets, params):
-    """Beam-gain serving on the four headline datasets, counted: one
-    beam-gain launch and no render launch per call."""
-    from deepmimo_tpu_torch.ops.kernels import beamgain as kb
-    from deepmimo_tpu_torch.ops.kernels import render as kr
-
-    w = codebook(BG_BEAMS, BS_SHAPE[0] * BS_SHAPE[1], seed=75)
-    expected = (CHUNK, BG_BEAMS, N_SC)
-    kb.LAUNCHES = kr.LAUNCHES = 0
+def _serve_beam_gains(torch, datasets, params, n_beams, seed):
+    """``compute_beam_gains`` on the four headline datasets with an
+    ``n_beams``-beam codebook, each call writing into the previous result,
+    held to the oracle. Returns the codebook and the last result."""
+    w = codebook(n_beams, BS_SHAPE[0] * BS_SHAPE[1], seed=seed)
+    expected = (CHUNK, n_beams, N_SC)
     g = None
     for i, ds in enumerate(datasets):
         prev = g
@@ -953,18 +964,33 @@ def phase_beamgain(torch, datasets, params):
             raise AssertionError(f"beam gains {i}: non-finite")
         h = _oracle(ds, N_ORACLE, ds["power"], ds["phase"])
         want = (np.abs(np.einsum("bt,urtk->urbk", w.conj(), h)) ** 2
-                ).reshape(N_ORACLE, BG_BEAMS, N_SC)
+                ).reshape(N_ORACLE, n_beams, N_SC)
         err = float(np.abs(g[:N_ORACLE].cpu().numpy() - want).max())
         scale = float(want.max())
-        log(f"[beamgain] dataset {i}: {tuple(g.shape)} finite; oracle "
-            f"{N_ORACLE} users max_abs_err={err:.3e} max|G|={scale:.3e} "
-            f"rel={err / scale:.3e} (limit {BG_ORACLE_RTOL:g})")
+        log(f"[beamgain] {n_beams} beams, dataset {i}: {tuple(g.shape)} "
+            f"finite; oracle {N_ORACLE} users max_abs_err={err:.3e} "
+            f"max|G|={scale:.3e} rel={err / scale:.3e} (limit "
+            f"{BG_ORACLE_RTOL:g})")
         if not err <= BG_ORACLE_RTOL * scale:
             raise AssertionError(f"beam gains {i}: disagree with the oracle")
-    launches = (kb.LAUNCHES, kr.LAUNCHES)
-    if launches != (len(datasets), 0):
-        raise AssertionError(f"(beam-gain, render) launches {launches} for "
-                             f"{len(datasets)} compute_beam_gains calls")
+    return w, g
+
+
+def phase_beamgain(torch, datasets, params):
+    """Beam-gain serving on the four headline datasets, counted: one
+    beam-gain launch and no render launch per call; with 16 beams the SIMT
+    design, timed and profiled, then with ``BG_TC_BEAMS`` the tensor-core
+    design. Returns the launches of each."""
+    from deepmimo_tpu_torch.ops.kernels import beamgain as kb
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+
+    kb.LAUNCHES = kr.LAUNCHES = kb.TC_LAUNCHES = 0
+    w, g = _serve_beam_gains(torch, datasets, params, BG_BEAMS, 75)
+    launches = (kb.LAUNCHES, kr.LAUNCHES, kb.TC_LAUNCHES)
+    if launches != (len(datasets), 0, 0):
+        raise AssertionError(f"(beam-gain, render, tensor-core) launches "
+                             f"{launches} for {len(datasets)} "
+                             f"compute_beam_gains calls")
     log(f"[beamgain] launches in the serving path: beam gain {launches[0]}, "
         f"render {launches[1]}")
 
@@ -976,7 +1002,16 @@ def phase_beamgain(torch, datasets, params):
         f"{CHUNK}-user call (CUDA events), {CHUNK / ms * 1e3:.1f} users/s; "
         f"host wall {wall:.4f} ms per call")
     profile_cell(torch, "beam-gain serving", calls)
-    return launches[0]
+    kb.TC_LAUNCHES = 0
+    before = kb.LAUNCHES
+    _serve_beam_gains(torch, datasets, params, BG_TC_BEAMS, 78)
+    tc = (kb.LAUNCHES - before, kb.TC_LAUNCHES)
+    if tc != (len(datasets),) * 2:
+        raise AssertionError(f"(beam-gain, tensor-core) launches {tc} for "
+                             f"{len(datasets)} {BG_TC_BEAMS}-beam calls")
+    log(f"[beamgain] {BG_TC_BEAMS} beams: {tc[1]} tensor-core launches")
+    torch.cuda.empty_cache()
+    return launches[0], tc[1]
 
 
 def make_pol_data(data, seed=8):
@@ -3620,15 +3655,20 @@ def kernel_bounds(fma=False):
     counted."""
     u, p, k = CHUNK, MAX_PATHS, N_SC
     r, t = UE_SHAPE[0] * UE_SHAPE[1], BS_SHAPE[0] * BS_SHAPE[1]
-    q, b = r * t, BG_BEAMS
+    q = r * t
     per_path = 4 * 7 * u * p                       # the 7 [U, P] inputs
     h_planes = u * q * 2 * k                       # values of H's planes
     fwd = 8 * u * q * k * p        # H = E g^T: 8 flops per complex MAC
     bwd = 16 * u * q * k * p       # dE = ct g and dG = ct^T E
-    fold = 8 * u * b * t * p       # eb = conj(W) a_tx, B*T*P MACs
-    bg_sum = 8 * u * r * b * k * p     # the path sum, R*B*K*P MACs
-    bg_pow = 3 * u * r * b * k         # |y|^2
-    bg_bytes = per_path + 4 * 2 * b * t + 4 * u * r * b * k
+
+    def beam_gain(b):
+        """Bytes, and flops of the fold (eb = conj(W) a_tx, B*T*P MACs),
+        the path sum (R*B*K*P MACs) and |y|^2, with ``b`` beams."""
+        return (per_path + 4 * 2 * b * t + 4 * u * r * b * k,
+                8 * u * b * t * p, 8 * u * r * b * k * p, 3 * u * r * b * k)
+
+    bg_bytes, fold, bg_sum, bg_pow = beam_gain(BG_BEAMS)
+    tc_bytes, tc_fold, tc_sum, tc_pow = beam_gain(BG_TC_BEAMS)
     work = {   # name: (bytes, flops at f32 grade, flops of one bf16 pass)
         "fused_render": (per_path + 4 * h_planes, fwd, 0),
         "fused_render[bf16_out]": (per_path + 2 * h_planes, fwd, 0),
@@ -3644,6 +3684,8 @@ def kernel_bounds(fma=False):
         # the fold stays f32 grade in every mode
         "fused_beam_gain": (bg_bytes, fold + bg_sum + bg_pow, 0),
         "fused_beam_gain[bf16_mm]": (bg_bytes, fold + bg_pow, bg_sum),
+        # the tensor-core design at BG_TC_BEAMS beams
+        "fused_beam_gain[tc]": (tc_bytes, tc_fold + tc_sum + tc_pow, 0),
         # every value and product in float64 (its flops counted apart)
         "fused_beam_gain[f64]": (2 * bg_bytes, 0, 0),
     }
@@ -3881,7 +3923,7 @@ def main():
     launches = Counter()                 # main-path launches by entry
     datasets, params, serve_launches = phase_main(torch, dmt)
     phase_streamed(torch, dmt, datasets, params)
-    bg_launches = phase_beamgain(torch, datasets, params)
+    bg_launches, bg_tc_launches = phase_beamgain(torch, datasets, params)
     bf16_serving = phase_bf16_serving(torch, dmt, datasets)
     angle_space = phase_angle_space(torch, dmt, datasets)
     del datasets
@@ -3902,7 +3944,8 @@ def main():
     launches.update({"fused_render": serve_launches + polar_render +
                      train_fwd, "fused_render_bwd": train_bwd,
                      "fused_path_sum": pallas_launches,
-                     "fused_beam_gain": bg_launches + polar_bg})
+                     "fused_beam_gain": bg_launches + polar_bg,
+                     "fused_beam_gain[tc]": bg_tc_launches})
     for phase in (bf16_serving, angle_space, doppler, nonfused, train_bf16,
                   scenarios, surface, converted, factory, multidevice):
         launches.update(phase)
@@ -3923,7 +3966,9 @@ def main():
         f"{surface['fused_beam_gain']} + converted scenarios "
         f"{converted['fused_beam_gain']} + scenario factory "
         f"{factory['fused_beam_gain']} + multi-device "
-        f"{multidevice['fused_beam_gain']}; modes: complex128 beam gains "
+        f"{multidevice['fused_beam_gain']}; fused_beam_gain[tc]: serving "
+        f"{bg_tc_launches} ({BG_TC_BEAMS} beams); modes: complex128 beam "
+        f"gains "
         f"{nonfused}, bf16 serving {bf16_serving}, "
         f"bf16 training {train_bf16}")
     src = "deepmimo_tpu_torch/csrc/"

@@ -16,18 +16,37 @@
 // which is beamgain.py::beam_gain_reference: y = conj(W) . H with
 // H = (a_rx (x) a_tx) g, so G matches np.abs(H @ W.conj().T)**2.
 //
-// What bounds it on an H100: at the headline (131,072 users, P = 25,
-// T = 64, B = 16, R = 1, K = 64) a user does B*T*P complex MACs in the fold
-// and R*B*S*K*P in the path sum, 2 x 102,400 FP32 FMA: 0.81 ms at the FP32
-// rate of 67 TFLOP/s, 0.33 ms if the card ran them at 3xTF32 on its tensor
-// cores at the nominal 495 TFLOP/s. Its output is 0.54 GB, 0.16 ms at
-// 3.35 TB/s. So it is bound by operations, and at these shapes by the
-// instructions the SMs issue around them: the products are small (a user's
-// fold is [P x T] . [T x B]) and mma.sync TF32 runs at half its nominal rate
-// here (PERF.md), so the products run as FP32 FMA on the SIMT pipes and the
-// design cuts everything else that is issued beside them.
+// What bounds it on an H100: operations. A user does B*T*P complex MACs in
+// the fold and R*B*S*K*P in the path sum. At the headline (131,072 users,
+// P = 25, T = 64, R = 1, K = 64) with B = 16 beams that is 2 x 102,400
+// FP32 FMA a user: 0.81 ms at the FP32 rate of 67 TFLOP/s, 0.33 ms at
+// 3xTF32 on the tensor cores' nominal 495 TFLOP/s, beside 0.54 GB of output
+// (0.16 ms at 3.35 TB/s). With B = 64 each product is 102,400 complex MACs
+// a user: 3.2 ms as FP32 FMA, and 8.25e11 flops a call as the real-block
+// GEMMs below at 3xTF32 over P padded to 32, 1.67 ms at 495 TFLOP/s. Two
+// designs share the launcher; the wrapper picks one from dtype, mode and
+// shape (ops/kernels/beamgain.py tensor_core_route):
 //
-// Design:
+//   - SIMT (beamgain_kernel): float64, the one-pass bf16 mode, codebooks
+//     under the wrapper's threshold of beams, panels past 64 elements and
+//     the shapes at which the wrapper's cost models give it the smaller
+//     time (small panels or few paths with few beams).
+//     Small products (a user's fold is [P x T] . [T x B]) on which
+//     mma.sync TF32 runs at half its nominal rate here (PERF.md), so FP32
+//     FMA on the SIMT pipes, bound by the instructions the SMs issue: the
+//     design cuts everything issued beside the FMA. At B = 64 it issues at
+//     ~72% of the SMs' rate, 11x its least time;
+//   - tensor cores (tc::beamgain_kernel_tc): float32 at f32 grade, from
+//     32 beams, T <= 64, where it is the faster. Two chained warpgroup
+//     GEMMs per user on wgmma at 3xTF32 take the products off the issue
+//     slots. What bounds it then is the SM itself: run without their
+//     hand-over, the producers' trig, splits and shared stores and the
+//     products take as long together as with it, so the two contend for
+//     the SM rather than wait on each other; the design cuts the
+//     producers' instructions per operand value and the products' count of
+//     small wgmma (PERF.md).
+//
+// SIMT design:
 //   - persistent blocks of up to 8 warps, sized by the occupancy calculator;
 //     a warp takes one user at a time (u = warp, warp + warps in the grid,
 //     ...) and synchronises only with __syncwarp. Ragged U and U below the
@@ -74,13 +93,62 @@
 // F, so conj(W) and the warps' buffers take twice the shared memory, and
 // with twice the registers per accumulator the float64 instantiations run
 // one block of 8 warps per SM. No bf16 mode in float64.
+//
+// Tensor-core design (namespace tc), for one user and a tile of 64 beams
+// (the rows of every product), in path chunks of 32 and tiles of 64
+// subcarriers:
+//   - the fold as two real GEMMs, D1 = Re conj(W) . X and D2 = Im conj(W) .
+//     X on wgmma m64n64k8, with X = [Re a_tx | Im a_tx] (T x 64, columns
+//     interleaved by path): eb = D1(re) - D2(im) + j (D1(im) + D2(re)), two
+//     accumulators in place of one product against the doubled block
+//     [[Ar, Ai], [Ai, -Ar]], so the producers write X once. conj(W) of the
+//     tile, the same for every user, is split into tf32 hi and lo once per
+//     block and beam tile into shared memory (64 KB at T = 64), the A
+//     operand from shared memory;
+//   - the path sum likewise as D3 = Er . G and D4 = Ei . G on wgmma
+//     m64n128k8, G = [gr | gi] (32 x 128) with g scaled by a_rx[r] when
+//     R > 1 (as pathsum.cu builds its B): y = D3(re) - D4(im) + j (D3(im) +
+//     D4(re)), so g is written once, without the doubled block. Its A
+//     operands are Er and Ei straight from the fold's accumulators, split
+//     hi and lo in registers: a thread's accumulators of column blocks
+//     2 ks and 2 ks + 1 are the A fragment of path-sum k-step ks (depths t
+//     and t + 4: paths 8 ks + t and 8 ks + 4 + t), so G's rows are the
+//     chunk's paths in order, as attention kernels feed S as P. G's columns
+//     interleave re and im and run so that a thread holds both parts of
+//     four adjacent subcarriers: the epilogue forms |y|^2 in registers and
+//     leaves as 16-byte streaming stores into the [U, R*B, S*K] layout;
+//   - 3xTF32 throughout (lo.hi + hi.lo + hi.hi, FP32 accumulation, the
+//     split of render_tables.cuh), f32 grade like the SIMT design;
+//   - persistent warp-specialised blocks, one per SM (196,608 bytes of
+//     shared memory for every shape): one consumer warpgroup stages the
+//     codebook and runs the products and the stores; 4 producer warps
+//     build X and G into two stages, handed over by named barriers (full,
+//     empty), so that their work runs beside the products. No product
+//     register is written on a branch, so ptxas keeps the products in
+//     flight together (the first product of a sum starts it, acc 0);
+//   - the producers' trig is separable, as the SIMT design's: a_tx =
+//     ey[m] ez[n] (8 x 8 panels; others take one sincos per entry) and g =
+//     fine[k % 8] coarse[k / 8], each lane computing one entry of each
+//     table of its two paths and taking the rest from the lanes of its path
+//     by shuffle; the phases rounded as the plain version rounds them,
+//     batches of branchless sincos in flight. Their stores fill core
+//     matrices without bank conflicts, half of a quarter warp writing the
+//     second column of each pair first, from swap(z) = (Im z, Re z), so no
+//     value is selected per lane;
+//   - with one path chunk (P <= 32) E is folded once per user and beam tile
+//     and kept for every RX element, slot and 64-column tile; with more,
+//     y sums over the chunks and E is folded again per output tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 #include <initializer_list>
 #include <type_traits>
+
+#include "render_tables.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -502,6 +570,526 @@ Args<F> make_args(const void* gry, const void* grz, const void* gty,
                  0};
 }
 
+
+// ---------------------------------------------------------------------------
+// The tensor-core design: float32 at f32 grade, codebooks of 32 beams or
+// more where it is the faster (the wrapper routes;
+// ops/kernels/beamgain.py tensor_core_route)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using render::Split;
+
+constexpr int kConsumers = 128;      // one warpgroup: codebook, wgmma, stores
+constexpr int kProducers = 128;      // 4 warps: the a_tx and g operands
+constexpr int kThreads = kConsumers + kProducers;
+constexpr int kM = 64;               // beams per tile: the products' rows
+constexpr int kPc = 32;              // paths per chunk: the path sum's depth
+constexpr int kKt = 64;              // subcarriers per column tile
+constexpr int kTMax = 64;            // TX elements the staged codebook holds
+constexpr int kNX = 2 * kPc;         // fold columns: (re, im) of kPc paths
+constexpr int kNG = 2 * kKt;         // path-sum columns: (re, im) of kKt
+constexpr int kWPlane = kM * kTMax;  // floats of one codebook plane
+constexpr int kXPlane = kTMax * kNX; // floats of one a_tx plane
+constexpr int kGPlane = kPc * kNG;   // floats of one g plane
+// conj(W) as 4 planes (re hi, re lo, im hi, im lo), then 2 stages of a_tx
+// (hi, lo) and 2 of g (hi, lo): 196,608 bytes, one block per SM.
+constexpr size_t kSmemBytes =
+    sizeof(float) * (4 * kWPlane + 2 * 2 * (kXPlane + kGPlane));
+// Named barriers: stage s full (producers arrive, consumers wait) and
+// empty (the reverse), the consumers' own.
+constexpr int kFull = 1, kEmpty = 3, kConsBar = 5;
+static_assert(kProducers == 4 * 32 && kPc == 32, "a producer warp per 8 "
+              "paths of a chunk");
+
+struct Args {
+  const float *gry, *grz, *gty, *gtz, *amp, *psi, *omega;
+  const float2* cw;         // conj(W) [T][B]
+  float* out;               // [U, R*B, S*K]
+  int U, P, r1, r2, t1, t2, T, B, K, S, n_sa;
+  int n_items;              // beam tiles x users
+  int n_ch, n_kt, n_steps;  // path chunks, column tiles, steps per item
+  int vec;                  // 16-byte stores: K % 4 == 0, aligned out
+};
+
+// Step st of an item (one user and beam tile): output tile (r, s, column
+// tile) and path chunk. With one chunk, E is folded at the item's first
+// step and kept for every tile; with more, every step folds its chunk and
+// the tile's sum runs over its n_ch steps.
+struct Step {
+  int chunk, r, s, k0;
+  bool fold;
+};
+
+__device__ __forceinline__ Step step_at(const Args& a, int st) {
+  Step x;
+  int tile = st;
+  x.chunk = 0;
+  if (a.n_ch > 1) {
+    tile = st / a.n_ch;
+    x.chunk = st - tile * a.n_ch;
+  }
+  x.fold = a.n_ch > 1 || st == 0;
+  const int rs = tile / a.n_kt;
+  x.k0 = (tile - rs * a.n_kt) * kKt;
+  x.r = rs / a.S;
+  x.s = rs - x.r * a.S;
+  return x;
+}
+
+// The bank-conflict-free stores of build_x and build_g: a quarter warp's
+// lanes jh = 0 and 1 write the two columns of a pair in turn, lanes jh = 1
+// the second first. So that no value is selected per lane, lanes jh = 1
+// build swap(z) = (Im z, Re z) = j conj(z) for each entry z, and every
+// lane writes its value's x first, at `first`, and y at `second`.
+__device__ __forceinline__ void store_split(float* h, float* l, int first,
+                                            int second, float2 v) {
+  const Split x = render::split(v.x), y = render::split(v.y);
+  h[first] = __uint_as_float(x.hi);
+  h[second] = __uint_as_float(y.hi);
+  l[first] = __uint_as_float(x.lo);
+  l[second] = __uint_as_float(y.lo);
+}
+
+// Producers: a_tx of the chunk as the fold's B operand [8 kKF x kNX] in
+// hi and lo planes: column 8 J + 2 e + h at depth t holds the real (h = 0)
+// or imaginary (h = 1) part of a_tx[t, path 4 J + e]. Warp w, lane
+// e + 4 q + 16 jh writes column blocks J = 2 w + h2 (its paths
+// 8 w + 4 h2 + e, h2 < 2) at depths t = 8 i + r, r = 4 jh + q
+// (m[i] = t % t1, n[i] = t / t1). Depths past T and paths past P are
+// zeros.
+template <int kKF>
+__device__ __forceinline__ void build_x(const Args& a, const bool (&ok)[2],
+                                        const float (&gty)[2],
+                                        const float (&gtz)[2],
+                                        const float (&m)[kKF],
+                                        const float (&n)[kKF], int w, int e,
+                                        int q, int jh, float* xh) {
+  const int r = 4 * jh + q;
+  float2 v[2][kKF];
+  if (a.t1 == 8) {
+    // Separable: depth 8 i + r is element (m, n) = (r, i), a_tx = ey[r]
+    // ez[i]. Lane (e, r) computes ey[r] and ez[r] of its paths and takes
+    // ez[i] from lane (e, i); lanes jh = 1 build swap(ey) conj(ez[i]).
+    const float rf = static_cast<float>(r);
+    const float ph[4] = {__fmul_rn(rf, gty[0]), __fmul_rn(rf, gtz[0]),
+                         __fmul_rn(rf, gty[1]), __fmul_rn(rf, gtz[1])};
+    float2 yz[4];
+    render::phasors(ph, yz);
+    const float sz = jh ? -1.f : 1.f;
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const float2 y = yz[2 * h2], z = yz[2 * h2 + 1];
+      const float2 ey = jh ? make_float2(y.y, y.x) : y;
+#pragma unroll
+      for (int i = 0; i < kKF; ++i) {
+        const int src = e + 4 * (i & 3) + 16 * (i >> 2);
+        v[h2][i] = render::cmul(ey, make_float2(
+                                        __shfl_sync(~0u, z.x, src),
+                                        sz * __shfl_sync(~0u, z.y, src)));
+      }
+    }
+  } else {
+    // Lanes jh = 1 take exp(j (pi / 2 - theta)) = swap(exp(j theta)).
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      float ph[kKF];
+#pragma unroll
+      for (int i = 0; i < kKF; ++i) {
+        const float th = __fadd_rn(__fmul_rn(m[i], gty[h2]),
+                                   __fmul_rn(n[i], gtz[h2]));
+        ph[i] = jh ? -th : th;
+      }
+      render::phasors(ph, v[h2], jh);
+    }
+  }
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+#pragma unroll
+    for (int i = 0; i < kKF; ++i) {
+      const int t = 8 * i + r;
+      const int o = wg::offset(8 * (2 * w + h2) + 2 * e, t, kNX);
+      store_split(xh, xh + kXPlane, jh ? o + 4 : o, jh ? o : o + 4,
+                 ok[h2] && t < a.T ? v[h2][i] : make_float2(0.f, 0.f));
+    }
+  }
+}
+
+// Producers: g of the step's slot and columns k0 .. k0 + kKt - 1 as the
+// path sum's B operand [kPc x kNG] in hi and lo planes: depth p is path p
+// of the chunk (the order in which the fold's accumulators lie as A
+// fragments), column 8 j + 2 t + c the real (c = 0) or imaginary (c = 1)
+// part of g at subcarrier 16 (j / 4) + 4 t + j % 4 of the tile, so that a
+// consumer lane's sums hold four adjacent subcarriers. Separable:
+// subcarrier k0 + 8 a + b has g = coarse[a] fine[b], fine[b] =
+// exp(-j omega b) and coarse[a] = ca exp(j (psi - omega (k0 + 8 a))),
+// ca = amp a_rx[r], a, b < 8. Warp w, lane e + 4 t + 16 jh (paths
+// 8 w + 4 h2 + e, h2 < 2) computes fine and coarse of entry r = t + 4 jh;
+// its value i, column block j = 2 i + jh, takes b = 4 (t % 2) + 2 (i % 2)
+// + jh and a = 2 (i / 2) + t / 2 from the lanes of its path that hold
+// them (lanes jh = 1: swap(coarse) conj(fine)). Columns past K hold values
+// that are never stored.
+__device__ __forceinline__ void build_g(const float (&om)[2],
+                                        const float (&ps)[2],
+                                        const float2 (&ca)[2], int k0, int w,
+                                        int e, int t, int jh, float* gh) {
+  const int r = t + 4 * jh;
+  float ph[4];
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    ph[2 * h2] = -__fmul_rn(om[h2], static_cast<float>(r));
+    ph[2 * h2 + 1] = __fsub_rn(ps[h2], __fmul_rn(
+                                           om[h2],
+                                           static_cast<float>(k0 + 8 * r)));
+  }
+  float2 fc[4];
+  render::phasors(ph, fc);
+  const float sf = jh ? -1.f : 1.f;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const float2 cr = render::cmul(ca[h2], fc[2 * h2 + 1]);
+    float2 fine[2], coarse[4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int b = 4 * (t & 1) + 2 * i + jh;
+      const int src = e + 4 * (b & 3) + 16 * (b >> 2);
+      fine[i] = make_float2(__shfl_sync(~0u, fc[2 * h2].x, src),
+                            sf * __shfl_sync(~0u, fc[2 * h2].y, src));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int aa = 2 * i + (t >> 1);
+      const int src = e + 4 * (aa & 3) + 16 * (aa >> 2);
+      const float2 c = make_float2(__shfl_sync(~0u, cr.x, src),
+                                   __shfl_sync(~0u, cr.y, src));
+      coarse[i] = jh ? make_float2(c.y, c.x) : c;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int o = wg::offset(8 * (2 * i + jh) + 2 * t,
+                               8 * w + 4 * h2 + e, kNG);
+      store_split(gh, gh + kGPlane, jh ? o + 4 : o, jh ? o : o + 4,
+                 render::cmul(coarse[i >> 1], fine[i & 1]));
+    }
+  }
+}
+
+template <int kKF>
+__device__ __forceinline__ void produce(const Args& a, float* x_st,
+                                        float* g_st) {
+  const int id = threadIdx.x - kConsumers;
+  const int w = id >> 5, lane = id & 31;
+  const int e = lane & 3, q = (lane >> 2) & 3, jh = lane >> 4;
+  const int R = a.r1 * a.r2;
+  float m[kKF], n[kKF];              // panel indices of the lane's depths
+#pragma unroll
+  for (int i = 0; i < kKF; ++i) {
+    const int t = 8 * i + 4 * jh + q;
+    const int nn = t / a.t1;
+    m[i] = static_cast<float>(t - nn * a.t1);
+    n[i] = static_cast<float>(nn);
+  }
+  int k = 0;
+  for (int it = blockIdx.x; it < a.n_items; it += gridDim.x) {
+    const size_t u = static_cast<size_t>(it % a.U);
+    for (int st = 0; st < a.n_steps; ++st, ++k) {
+      const Step x = step_at(a, st);
+      const int sg = k & 1;
+      bool ok[2];
+      float gty[2] = {0.f, 0.f}, gtz[2] = {0.f, 0.f}, om[2] = {0.f, 0.f},
+            ps[2] = {0.f, 0.f};
+      float2 ca[2];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {   // the lane's two paths
+        const int p = x.chunk * kPc + 8 * w + 4 * h2 + e;
+        ok[h2] = p < a.P;
+        float am = 0.f;
+        float2 rx = make_float2(1.f, 0.f);
+        if (ok[h2]) {
+          const size_t row = u * a.P + p;
+          if (x.fold) {
+            gty[h2] = __ldg(a.gty + row);
+            gtz[h2] = __ldg(a.gtz + row);
+          }
+          om[h2] = __ldg(a.omega + row);
+          ps[h2] = __ldg(a.psi + (u * a.S + x.s) * a.P + p);
+          am = __ldg(a.amp + (u * a.n_sa + (a.n_sa > 1 ? x.s : 0)) * a.P +
+                     p);
+          if (R > 1) {
+            const int nr = x.r / a.r1;
+            rx = render::phasor(__fadd_rn(
+                __fmul_rn(static_cast<float>(x.r - nr * a.r1),
+                          __ldg(a.gry + row)),
+                __fmul_rn(static_cast<float>(nr), __ldg(a.grz + row))));
+          }
+        }
+        ca[h2] = make_float2(am * rx.x, am * rx.y);
+      }
+      if (k >= 2) render::bar_sync(kEmpty + sg, kThreads);  // stage drained
+      if (x.fold)
+        build_x<kKF>(a, ok, gty, gtz, m, n, w, e, q, jh,
+                     x_st + sg * 2 * kXPlane);
+      build_g(om, ps, ca, x.k0, w, e, q, jh, g_st + sg * 2 * kGPlane);
+      // Written through the generic proxy, read by wgmma through the async
+      // proxy.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      render::bar_arrive(kFull + sg, kThreads);
+    }
+  }
+  // The consumers release the last two stages too.
+  for (int j = k < 2 ? 0 : k - 2; j < k; ++j)
+    render::bar_sync(kEmpty + (j & 1), kThreads);
+}
+
+// Consumers: conj(W) of beams b0 .. b0 + kM - 1 as the fold's A operand
+// [kM x 8 kKF], split into re hi, re lo, im hi and im lo planes; zeros
+// past B and T.
+template <int kKF>
+__device__ __forceinline__ void stage_codebook(const Args& a, int b0,
+                                               float* w) {
+  for (int idx = threadIdx.x; idx < kM * 8 * kKF; idx += kConsumers) {
+    const int mm = idx & (kM - 1), t = idx / kM;
+    float2 c = make_float2(0.f, 0.f);
+    if (b0 + mm < a.B && t < a.T) c = a.cw[static_cast<size_t>(t) * a.B +
+                                           b0 + mm];
+    const Split re = render::split(c.x), im = render::split(c.y);
+    const int o = wg::offset(mm, t, kM);
+    w[o] = __uint_as_float(re.hi);
+    w[kWPlane + o] = __uint_as_float(re.lo);
+    w[2 * kWPlane + o] = __uint_as_float(im.hi);
+    w[3 * kWPlane + o] = __uint_as_float(im.lo);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  render::bar_sync(kConsBar, kConsumers);
+}
+
+// E of the chunk as the path sum's A fragments, split hi and lo: rh, rl of
+// its real part, ih, il of its imaginary part, one [4] per k-step.
+struct EFrags {
+  uint32_t rh[4][4], rl[4][4], ih[4][4], il[4][4];
+};
+
+__device__ __forceinline__ void fence_frags(EFrags& f) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    wg::fence_regs(f.rh[ks]);
+    wg::fence_regs(f.rl[ks]);
+    wg::fence_regs(f.ih[ks]);
+    wg::fence_regs(f.il[ks]);
+  }
+}
+
+// Consumers: the fold of the stage's a_tx, D1 = Re conj(W) . X and D2 =
+// Im conj(W) . X at 3xTF32, then E = eb of the chunk: this thread's
+// accumulators of column block J hold, for rows ra and ra + 8, path
+// 4 J + t as Er = D1(re) - D2(im) and Ei = D1(im) + D2(re), and blocks
+// 2 ks and 2 ks + 1 are the A fragment of path-sum k-step ks (depths t and
+// t + 4: paths 8 ks + t and 8 ks + 4 + t). The first products start the
+// sums (acc 0): no register of a product is written outside the products
+// on any branch, so that ptxas keeps them in flight together.
+template <int kKF>
+__device__ __forceinline__ void fold(const uint64_t (&dw)[4], const float* x,
+                                     EFrags& f) {
+  float d1[32], d2[32];
+  const uint64_t xh = wg::desc(x, kNX), xl = wg::desc(x + kXPlane, kNX);
+  wg::fence_regs(d1);
+  wg::fence_regs(d2);
+  wg::fence();
+#pragma unroll
+  for (int ks = 0; ks < kKF; ++ks) {
+    const uint64_t bh = wg::step(xh, ks, kNX), bl = wg::step(xl, ks, kNX);
+    wg::mma_n64_ss(d1, wg::step(dw[1], ks, kM), bh, ks);     // lo . hi
+    wg::mma_n64_ss(d2, wg::step(dw[3], ks, kM), bh, ks);
+    wg::mma_n64_ss(d1, wg::step(dw[0], ks, kM), bl);         // hi . lo
+    wg::mma_n64_ss(d2, wg::step(dw[2], ks, kM), bl);
+    wg::mma_n64_ss(d1, wg::step(dw[0], ks, kM), bh);         // hi . hi
+    wg::mma_n64_ss(d2, wg::step(dw[2], ks, kM), bh);
+  }
+  wg::commit();
+  wg::wait_all();
+  wg::fence_regs(d1);
+  wg::fence_regs(d2);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {    // a[i]: block 2 ks + i / 2, row i % 2
+      const int o = 4 * (2 * ks + i / 2) + 2 * (i % 2);
+      const Split re = render::split(d1[o] - d2[o + 1]);
+      const Split im = render::split(d1[o + 1] + d2[o]);
+      f.rh[ks][i] = re.hi;
+      f.rl[ks][i] = re.lo;
+      f.ih[ks][i] = im.hi;
+      f.il[ks][i] = im.lo;
+    }
+  }
+}
+
+// Consumers: D3 = Er . G and D4 = Ei . G of the stage at 3xTF32, plus
+// D3 and D4 unless `acc` is 0: y = D3(re) - D4(im) + j (D3(im) + D4(re)).
+__device__ __forceinline__ void path_sum(float (&d3)[64], float (&d4)[64],
+                                         EFrags& f, const float* g,
+                                         int acc) {
+  const uint64_t gh = wg::desc(g, kNG), gl = wg::desc(g + kGPlane, kNG);
+  wg::fence_regs(d3);
+  wg::fence_regs(d4);
+  fence_frags(f);
+  wg::fence();
+#pragma unroll
+  for (int ks = 0; ks < kPc / 8; ++ks) {
+    const uint64_t bh = wg::step(gh, ks, kNG), bl = wg::step(gl, ks, kNG);
+    wg::mma_n128_rs(d3, f.rl[ks], bh, ks ? 1 : acc);          // lo . hi
+    wg::mma_n128_rs(d4, f.il[ks], bh, ks ? 1 : acc);
+    wg::mma_n128_rs(d3, f.rh[ks], bl);                        // hi . lo
+    wg::mma_n128_rs(d4, f.ih[ks], bl);
+    wg::mma_n128_rs(d3, f.rh[ks], bh);                        // hi . hi
+    wg::mma_n128_rs(d4, f.ih[ks], bh);
+  }
+  wg::commit();
+  wg::wait_all();
+  wg::fence_regs(d3);
+  wg::fence_regs(d4);
+  fence_frags(f);
+}
+
+// Consumers: G = |y|^2 of rows ra and ra + 8 of the beam tile and the
+// step's 64 columns, as float4 streaming stores of four adjacent
+// subcarriers; rows past B and columns past K skipped.
+__device__ __forceinline__ void store_power(const Args& a, size_t u, int b0,
+                                            const Step& x, int ra, int t,
+                                            const float (&d3)[64],
+                                            const float (&d4)[64]) {
+  const size_t sk = static_cast<size_t>(a.S) * a.K;
+  const int R = a.r1 * a.r2;
+  const int cols = render::imin(kKt, a.K - x.k0);
+  float* base = a.out + ((u * R + x.r) * a.B + b0) * sk +
+                static_cast<size_t>(x.s) * a.K + x.k0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int b = ra + 8 * h;
+    if (b0 + b >= a.B) continue;
+    float* o = base + static_cast<size_t>(b) * sk;
+#pragma unroll
+    for (int J = 0; J < 4; ++J) {
+      const int kl = 16 * J + 4 * t;
+      if (kl >= cols) continue;
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 4 * (4 * J + i) + 2 * h;
+        const float yr = d3[c] - d4[c + 1], yi = d3[c + 1] + d4[c];
+        v[i] = yr * yr + yi * yi;
+      }
+      if (a.vec) {                   // cols is a multiple of 4 here
+        __stcs(reinterpret_cast<float4*>(o + kl),
+               make_float4(v[0], v[1], v[2], v[3]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (kl + i < cols) __stcs(o + kl + i, v[i]);
+      }
+    }
+  }
+}
+
+// kKF: the fold's k-steps (4 for T <= 32, else 8), X and conj(W) zero past
+// T. kOneChunk: P <= kPc, E folded once per item (user and beam tile) and
+// kept for every output tile; else every step folds its chunk and the
+// output tile sums over n_ch steps.
+template <int kKF, bool kOneChunk>
+__global__ void __launch_bounds__(kThreads, 1)
+beamgain_kernel_tc(Args a) {
+  extern __shared__ float4 smem4[];
+  float* w = reinterpret_cast<float*>(smem4);        // [4][kWPlane]
+  float* x_st = w + 4 * kWPlane;                     // [2][hi, lo][kXPlane]
+  float* g_st = x_st + 2 * 2 * kXPlane;              // [2][hi, lo][kGPlane]
+  if (threadIdx.x >= kConsumers) {
+    produce<kKF>(a, x_st, g_st);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int ra = 16 * (threadIdx.x >> 5) + (lane >> 2), t = lane & 3;
+  const uint64_t dw[4] = {wg::desc(w, kM), wg::desc(w + kWPlane, kM),
+                          wg::desc(w + 2 * kWPlane, kM),
+                          wg::desc(w + 3 * kWPlane, kM)};
+  EFrags f;                          // E of the chunk
+  float d3[64], d4[64];              // column block j: d[4 j .. 4 j + 3]
+  int k = 0, staged = -1;            // k: the step, over the block's items
+  for (int it = blockIdx.x; it < a.n_items; it += gridDim.x) {
+    const int bt = it / a.U, b0 = bt * kM;
+    const size_t u = static_cast<size_t>(it - bt * a.U);
+    if (bt != staged) {              // every earlier product has completed
+      if (staged >= 0) render::bar_sync(kConsBar, kConsumers);
+      stage_codebook<kKF>(a, b0, w);
+      staged = bt;
+    }
+    if (kOneChunk) {
+      render::bar_sync(kFull + (k & 1), kThreads);   // a_tx, g of step k
+      fold<kKF>(dw, x_st + (k & 1) * 2 * kXPlane, f);
+      for (int st = 0;;) {
+        const int sg = k & 1;
+        path_sum(d3, d4, f, g_st + sg * 2 * kGPlane, 0);
+        render::bar_arrive(kEmpty + sg, kThreads);   // may be rebuilt
+        store_power(a, u, b0, step_at(a, st), ra, t, d3, d4);
+        ++k;
+        if (++st == a.n_steps) break;
+        render::bar_sync(kFull + (k & 1), kThreads);  // g of step k
+      }
+    } else {
+      for (int st = 0; st < a.n_steps; st += a.n_ch) {
+        for (int c = 0; c < a.n_ch; ++c, ++k) {
+          const int sg = k & 1;
+          render::bar_sync(kFull + sg, kThreads);    // a_tx, g of step k
+          fold<kKF>(dw, x_st + sg * 2 * kXPlane, f);
+          path_sum(d3, d4, f, g_st + sg * 2 * kGPlane, c);
+          render::bar_arrive(kEmpty + sg, kThreads);
+        }
+        store_power(a, u, b0, step_at(a, st), ra, t, d3, d4);
+      }
+    }
+  }
+}
+
+cudaError_t launch(const ::Args<float>& s, const void* cw,
+                   cudaStream_t stream) {
+  Args a{s.gry, s.grz, s.gty, s.gtz, s.amp, s.psi, s.omega,
+         static_cast<const float2*>(cw), s.out, s.U, s.P, s.r1, s.r2, s.t1,
+         s.t2, s.t1 * s.t2, s.B, s.K, s.S, s.n_sa, 0, 0, 0, 0, 0};
+  if (a.T > kTMax) return cudaErrorInvalidValue;
+  a.n_ch = (a.P + kPc - 1) / kPc;
+  a.n_kt = (a.K + kKt - 1) / kKt;
+  const long long items = static_cast<long long>((a.B + kM - 1) / kM) * a.U;
+  const long long tiles = static_cast<long long>(a.r1) * a.r2 * a.S * a.n_kt;
+  const long long steps = a.n_ch > 1 ? tiles * a.n_ch : tiles;
+  if (items > 0x3fffffff || steps > 0x3fffffff) return cudaErrorInvalidValue;
+  a.n_items = static_cast<int>(items);
+  a.n_steps = static_cast<int>(steps);
+  a.vec = a.K % 4 == 0 && reinterpret_cast<uintptr_t>(a.out) % 16 == 0;
+  const bool one = a.n_ch == 1;
+  const auto kernel = a.T <= 32 ? (one ? beamgain_kernel_tc<4, true>
+                                       : beamgain_kernel_tc<4, false>)
+                                : (one ? beamgain_kernel_tc<8, true>
+                                       : beamgain_kernel_tc<8, false>);
+  const int smem = static_cast<int>(kSmemBytes);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long full = static_cast<long long>(per_sm) * n_sm;
+  const int grid = static_cast<int>(items < full ? items : full);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Dynamic shared memory of the kernel's block at T TX elements and B beams,
@@ -517,7 +1105,8 @@ extern "C" long long beamgain_smem_bytes(int n_tx, int n_beams, int f64) {
 // contiguous arrays, all float32 (mode 0 or 1) or all float64 (mode 2):
 // gry..gtz and omega [U, P], amp [U, n_sa*P], psi [U, n_s*P], cw [T, B, 2]
 // (conj(W) transposed, real and imaginary parts interleaved),
-// out [U, R*B, n_s*n_k]. Mode 1 rounds the path sum's operands to bf16.
+// out [U, R*B, n_s*n_k]. Mode 1 rounds the path sum's operands to bf16;
+// mode 3 runs the tensor-core design (float32, T <= 64).
 // Returns the cudaError_t of the setup and the launch (0 on success); the
 // kernel is not waited for.
 extern "C" int beamgain_launch(const void* gry, const void* grz,
@@ -538,6 +1127,7 @@ extern "C" int beamgain_launch(const void* gry, const void* grz,
   const Args<float> a =
       make_args<float>(gry, grz, gty, gtz, amp, psi, omega, out, n_users,
                        n_paths, r1, r2, t1, t2, n_beams, n_k, n_s, n_sa);
+  if (mode == 3) return tc::launch(a, cw, st);
   return mode == 1 ? launch<float, true>(a, cw, n_users, st)
                    : launch<float, false>(a, cw, n_users, st);
 }

@@ -1,0 +1,131 @@
+// Warpgroup products on Hopper's tensor cores (pathsum.cu, beamgain.cu):
+// tf32 wgmma.mma_async with f32 accumulators, operands in shared memory in
+// the K-major layout without swizzle.
+//
+// That layout, for an operand of R rows (the M rows of A or the N columns
+// of B) and a depth of K: core matrices of 8 rows x 4 depths, 128
+// contiguous bytes (row r % 8 at 16 (r % 8), depth k % 4 at 4 (k % 4));
+// core (r / 8, k / 4) at ((k / 4) (R / 8) + r / 8) 128 bytes, so that the
+// next 8 rows lie 128 bytes (SBO) on and the next 4 depths (R / 8) 128
+// bytes (LBO) on. A k-step of 8 depths moves the descriptor 2 LBO on.
+//
+// The register layouts (PTX ISA, wgmma .tf32), for lane 4 g + t of warp w
+// of the warpgroup:
+//   - A from registers, one k-step: a[0] (row 16 w + g, depth t), a[1]
+//     (row 16 w + g + 8, depth t), a[2] (row 16 w + g, depth t + 4), a[3]
+//     (row 16 w + g + 8, depth t + 4);
+//   - the accumulator of an N-column product: d[4 j + 2 h + c] at row
+//     16 w + g + 8 h, column 8 j + 2 t + c.
+// Every product here is asynchronous: its registers and shared memory stay
+// untouched from the issue to wgmma.wait_group.
+
+#pragma once
+
+#include <cstdint>
+
+namespace wg {
+
+// Offset in floats of (row r, depth k) in a K-major operand of `rows` rows.
+__host__ __device__ constexpr int offset(int r, int k, int rows) {
+  return ((k >> 2) * (rows / 8) + (r >> 3)) * 32 + (r & 7) * 4 + (k & 3);
+}
+
+// The descriptor of a K-major operand of `rows` rows at shared address `p`.
+__device__ __forceinline__ uint64_t desc(const float* p, int rows) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  const uint32_t lbo = rows / 8 * 128;
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(128 >> 4) << 32);
+}
+
+// The descriptor `d` of an operand of `rows` rows moved `ks` k-steps on.
+__device__ __forceinline__ uint64_t step(uint64_t d, int ks, int rows) {
+  return d + static_cast<uint64_t>(ks * 2 * (rows / 8) * 128 >> 4);
+}
+
+__device__ __forceinline__ void fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of x across the
+// asynchronous products.
+__device__ __forceinline__ void fence_reg(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+__device__ __forceinline__ void fence_reg(uint32_t& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+template <typename T, int N>
+__device__ __forceinline__ void fence_regs(T (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_reg(x[i]);
+}
+
+// d (64 x 128) = A (64 x 8; this thread's fragment a) . B (8 x 128,
+// descriptor b), plus d unless `acc` is 0 (then d's inputs are not read).
+__device__ __forceinline__ void mma_n128_rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b, int acc = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// d (64 x 64) = A (64 x 8, descriptor a) . B (8 x 64, descriptor b), plus
+// d unless `acc` is 0.
+__device__ __forceinline__ void mma_n64_ss(float (&d)[32], uint64_t a,
+                                           uint64_t b, int acc = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+}  // namespace wg

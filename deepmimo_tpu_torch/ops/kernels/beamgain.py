@@ -13,22 +13,46 @@ Source note.
   eb [R*B, P], and G = |E g^T|^2 [R*B, S*K] per user, rows r-major
   (q = r*B + b).
 - What bounds it on an H100: operations. At the headline (131,072 users,
-  P = 25, T = 64, B = 16, R = 1, K = 64) the fold and the path sum are
-  2 x 102,400 FP32 FMA per user: 0.81 ms at 67 TFLOP/s, 0.33 ms at 3xTF32
-  on the tensor cores' nominal 495 TFLOP/s; the output is 0.54 GB, 0.16 ms
-  at 3.35 TB/s. The products are small per user and mma.sync TF32 runs at
-  half its nominal rate on these shapes, so they run as FP32 FMA, and the
-  instructions issued beside them are what the design cuts.
-- What the design does about it: persistent blocks of up to 8 warps, one
-  warp per user at a time and no block barrier after conj(W) is staged
-  once per block (the wrapper interleaves it as [T, B, 2], one small op per
-  call); paths in chunks of 32, lane = path, so shared memory does not grow
-  with P; separable trig tables (a_tx from 8 + T2 sincosf, g from 8 fine
-  and 8 coarse per slot), 32 sincosf per path at the headline; register
-  tiles in which each 16-byte shared load feeds 8 or more FMA. The TPU's
-  lane packing, hi/lo split, ``pltpu.roll`` reassembly and VMEM budget
-  (``pick_user_tile_bg``, ``vmem_estimate_bg``, ``pad_store``) are not
-  carried over; :func:`beam_gain_fits` is the kernel's shared-memory bound.
+  P = 25, T = 64, R = 1, K = 64) with 16 beams the fold and the path sum
+  are 2 x 102,400 FP32 FMA per user: 0.81 ms at 67 TFLOP/s, 0.33 ms at
+  3xTF32 on the tensor cores' nominal 495 TFLOP/s; the output is 0.54 GB,
+  0.16 ms at 3.35 TB/s. With 64 beams each product is four times that:
+  3.2 ms as FP32 FMA, 1.67 ms at 3xTF32 (P padded to 32).
+- What the design does about it: two designs, one launcher, picked by
+  :func:`tensor_core_route` from dtype, mode and shape alone.
+
+  - SIMT (float64, the bf16 mode, codebooks under :data:`TC_MIN_BEAMS`
+    beams, panels past :data:`TC_MAX_TX` elements, and the shapes at which
+    it is the faster: small panels or few paths with few beams, as the
+    quickstart's 8 x 1 panel at 32 beams): the products are small
+    per user and mma.sync TF32 runs at half its nominal rate on these
+    shapes, so they run as FP32 FMA, and the instructions issued beside
+    them are what the design cuts. Persistent blocks of up to 8 warps, one
+    warp per user at a time and no block barrier after conj(W) is staged
+    once per block (the wrapper interleaves it as [T, B, 2], one small op
+    per call); paths in chunks of 32, lane = path, so shared memory does
+    not grow with P; separable trig tables (a_tx from 8 + T2 sincosf, g
+    from 8 fine and 8 coarse per slot), 32 sincosf per path at the
+    headline; register tiles in which each 16-byte shared load feeds 8 or
+    more FMA.
+  - Tensor cores (float32 at f32 grade, from :data:`TC_MIN_BEAMS` beams,
+    where the two designs' cost models, fitted on an H100, give it the
+    smaller time):
+    per user and 64-beam tile, the fold and the path sum as chained real
+    GEMMs on ``wgmma`` at 3xTF32, conj(W) split once per block into shared
+    memory, a_tx and g built by producer warps from separable trig tables,
+    E passed from the fold's accumulators to the path sum's A operands in
+    registers, |y|^2 formed in registers; one block per SM.
+    ``TC_LAUNCHES`` counts its launches. At the headline with 64 beams it
+    takes 3.3 ms to the SIMT design's 7.4 ms; with the products on the
+    tensor cores, the producers' work and the products contend for the
+    SM.
+
+  The TPU's lane packing, hi/lo split, ``pltpu.roll`` reassembly and VMEM
+  budget (``pick_user_tile_bg``, ``vmem_estimate_bg``, ``pad_store``) are
+  not carried over; :func:`beam_gain_fits` is the SIMT design's
+  shared-memory bound, and the tensor-core design takes a subset of what
+  it admits.
 - Modes, as the TPU kernel's ``mm_dtype``: "float32" and "highest" keep
   every product f32 grade; "bfloat16" and "default" round the path sum's
   operands, E = a_rx (x) eb and g, to bf16 (RNE) before its FP32 FMAs,
@@ -48,7 +72,8 @@ tensors launch the kernel or raise, CPU tensors take the plain version
 :func:`beam_gain_reference`. Its backward is the VJP of the plain version,
 recomputed, as in the JAX package (which has no backward kernel here).
 ``LAUNCHES`` counts kernel launches, ``MODE_LAUNCHES`` those of each mode
-(:func:`beam_gain_mode`: "f32", "bf16_mm" or "f64").
+(:func:`beam_gain_mode`: "f32", "bf16_mm" or "f64", whichever design ran)
+and ``TC_LAUNCHES`` those of the tensor-core design.
 """
 
 from __future__ import annotations
@@ -67,6 +92,14 @@ from .render import (SMEM_LIMIT, _check_inputs, _check_layout, _count,
 LAUNCHES = 0
 #: Launches of each mode, keyed by ``render.mode_key``.
 MODE_LAUNCHES: dict = {}
+#: Launches that took the tensor-core design (:func:`tensor_core_route`).
+TC_LAUNCHES = 0
+
+#: Fewest beams that take the tensor-core design: 16 beams fill a quarter
+#: of its 64-row tile.
+TC_MIN_BEAMS = 32
+#: Most TX elements (T) whose codebook tile the tensor-core design stages.
+TC_MAX_TX = 64
 
 _MAX_WARPS = 8          # warps per block
 _PITCH = 18             # complex entries per row of a warp's two buffers
@@ -108,6 +141,59 @@ def beam_gain_fits(rx_shape, tx_shape, n_beams: int, n_paths: int,
         return False
     return smem_bytes(rx_shape, tx_shape, n_beams, n_paths, n_k,
                       f64) <= SMEM_LIMIT
+
+
+def _simt_ns(r, t, b, k, p, s) -> float:
+    """The SIMT design's time per user on an H100, in ns, fitted to the
+    crossover (PERF.md): per 16-beam row tile of one RX element, the fold
+    (0.80 + 0.094 T) and per slot and 64-column tile the path sum
+    (1.23 + 0.224 P); past one chunk of 32 paths both for every chunk,
+    slot and column tile, 1.86 times slower."""
+    tiles, n_kt, n_ch = r * -(-b // 16), -(-k // 64), -(-p // 32)
+    fold = 0.80 + 0.094 * t
+    if n_ch == 1:
+        return tiles * (fold + s * n_kt * (1.23 + 0.224 * p))
+    return tiles * s * n_kt * n_ch * 1.86 * (fold + 1.23 + 0.224 * 32)
+
+
+def _tc_ns(r, tx_shape, b, k, p, s) -> float:
+    """The tensor-core design's time per user on an H100, in ns, fitted to
+    the crossover (PERF.md): per 64-beam tile, the fold (6.7 for T <= 32,
+    10.7 for 8-wide panels of more, else 14.2) and 13.6 per RX element,
+    slot and 64-column tile; past one chunk of 32 paths both for every
+    chunk, RX element, slot and column tile. The paths of a chunk cost the
+    same whatever their number."""
+    t = tx_shape[0] * tx_shape[1]
+    fold = 6.7 if t <= 32 else 10.7 if tx_shape[0] == 8 else 14.2
+    tiles, n_ch = -(-b // 64), -(-p // 32)
+    steps = r * s * -(-k // 64)
+    if n_ch == 1:
+        return tiles * (fold + steps * 13.6)
+    return tiles * steps * n_ch * (fold + 13.6)
+
+
+def tensor_core_route(rx_shape, tx_shape, n_beams: int, n_k: int,
+                      n_paths: int, n_s: int, mm_dtype: str = "float32",
+                      dtype: torch.dtype = torch.float32) -> bool:
+    """Does a shape that the kernel takes run its tensor-core design?
+
+    Float32 at f32 grade (``mm_dtype`` "float32"/"highest"), at least
+    :data:`TC_MIN_BEAMS` beams, at most :data:`TC_MAX_TX` TX elements, and
+    a shape at which the tensor-core design's time per user is the
+    smaller by the two designs' cost models (:func:`_tc_ns`,
+    :func:`_simt_ns`), fitted to both designs' times on an H100 at 80
+    points of 27 shapes. Everything else (float64, the one-pass bf16 mode,
+    small codebooks, wide panels, small panels with few beams or paths)
+    runs the SIMT design. :func:`beam_gain_fits` decides what the kernel
+    takes at all; this only picks the design.
+    """
+    if not (mm_passes(mm_dtype) == 3 and dtype == torch.float32 and
+            n_beams >= TC_MIN_BEAMS and
+            tx_shape[0] * tx_shape[1] <= TC_MAX_TX):
+        return False
+    r = rx_shape[0] * rx_shape[1]
+    return _tc_ns(r, tx_shape, n_beams, n_k, n_paths, n_s) < _simt_ns(
+        r, tx_shape[0] * tx_shape[1], n_beams, n_k, n_paths, n_s)
 
 
 def beam_gain_mode(mm_dtype: str = "float32",
@@ -203,7 +289,7 @@ def _check_codebook(wr, wi, tx_shape, dev, dtype):
 def _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out,
                mm_dtype="float32"):
     """The forward without autograd: kernel on CUDA, plain on the CPU."""
-    global LAUNCHES
+    global LAUNCHES, TC_LAUNCHES
     u, p, n_s, n_sa = _check_inputs(args, rx_shape, tx_shape, n_k,
                                     (torch.float32, torch.float64))
     dtype = args[-1].dtype
@@ -232,15 +318,18 @@ def _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out,
     if out is None:
         out = torch.empty(shape, dtype=dtype, device=dev)
     cw = torch.stack((wr.t(), wi.t().neg()), -1)    # conj(W), [T, B, 2]
+    tc = tensor_core_route((r1, r2), (t1, t2), n_b, n_k, p, n_s, mm_dtype,
+                           dtype)
+    design = 3 if tc else {"f32": 0, "bf16_mm": 1, "f64": 2}[mode]
     with span("dm.kernel.beam_gain"), torch.cuda.device(dev):
         launch = _build.launcher("beamgain", 9, 11)
         rc = launch(*(x.data_ptr() for x in args), cw.data_ptr(),
                     out.data_ptr(), u, p, r1, r2, t1, t2, n_b, n_k, n_s,
-                    n_sa, {"f32": 0, "bf16_mm": 1, "f64": 2}[mode],
-                    torch.cuda.current_stream(dev).cuda_stream)
+                    n_sa, design, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"beamgain launch failed with CUDA error {rc}")
     LAUNCHES += 1
+    TC_LAUNCHES += tc
     _count(MODE_LAUNCHES, mode)
     return out
 

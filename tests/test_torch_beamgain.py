@@ -3,8 +3,10 @@
 The plain version of the beam-gain kernel and its autograd Function against
 JAX's ``beam_gain_reference`` and its Pallas kernel in interpret mode,
 ``render_beam_gains`` on one state from ``state_from_numpy``,
-``Dataset.compute_beam_gains`` end to end, the refused receive filter, and
-— on a CUDA card only — the CUDA kernel vs its plain version.
+``Dataset.compute_beam_gains`` end to end, the refused receive filter, the
+route between the kernel's two designs and the tensor-core design's
+layouts emulated in float32, and — on a CUDA card only — both designs
+of the CUDA kernel vs its plain version.
 Tolerance 3e-5 * max|G| (tests/test_beamgain.py's kernel bound), 3e-4 *
 max|g| for gradients.
 
@@ -430,6 +432,245 @@ def test_factored_trig_holds_in_float32(tx, n_s):
 
 
 # ----------------------------------------------------------------------------
+# The tensor-core design: its route and its factoring, emulated
+# ----------------------------------------------------------------------------
+
+def _simt_smem_bytes(t, n_beams, f64):
+    """The SIMT plan's shared memory as it stood when the tensor-core design
+    came in (``plan`` in csrc/beamgain.cu): the route must not move it."""
+    ce = 16 if f64 else 8
+    cw = 16 * -(-t * n_beams * ce // 16)
+    for chunk in (32, 8):
+        per_warp = 2 * ce * chunk * 18
+        if cw + per_warp <= 232_448:
+            return cw + min(8, (232_448 - cw) // per_warp) * per_warp
+    return cw + 2 * ce * 8 * 18
+
+
+# Both designs' ms at 131,072 users on an H100 (NVIDIA H100 80GB HBM3,
+# 700 W; deepmimo_tpu_torch/tools/beamgain_crossover.py):
+# (rx_shape, tx_shape, K, P, S, B): (SIMT, tensor cores)
+CROSSOVER_MS = {
+    ((1, 1), (8, 8), 64, 25, 1, 16): (1.8362, 3.2694),
+    ((1, 1), (8, 8), 64, 25, 1, 32): (3.5873, 3.2503),
+    ((1, 1), (8, 8), 64, 25, 1, 64): (7.2729, 3.3208),
+    ((1, 1), (8, 8), 64, 25, 1, 128): (18.0126, 6.6450),
+    ((1, 1), (8, 1), 1, 25, 1, 32): (2.1450, 2.6376),
+    ((1, 1), (8, 1), 1, 25, 1, 64): (4.1769, 2.6630),
+    ((1, 1), (8, 1), 64, 25, 1, 32): (2.1524, 2.6372),
+    ((1, 1), (8, 1), 64, 25, 1, 64): (4.1683, 2.7519),
+    ((1, 1), (4, 4), 1, 25, 1, 32): (2.3569, 2.7334),
+    ((1, 1), (4, 4), 16, 25, 1, 32): (2.4167, 2.7516),
+    ((1, 1), (4, 4), 64, 25, 1, 32): (2.4297, 2.7438),
+    ((1, 1), (4, 4), 64, 25, 1, 64): (4.7912, 2.8406),
+    ((1, 1), (8, 4), 64, 25, 1, 32): (2.7858, 2.6546),
+    ((1, 1), (16, 4), 64, 25, 1, 32): (3.7247, 3.6432),
+    ((1, 1), (16, 4), 64, 25, 1, 64): (7.2893, 3.6461),
+    ((1, 1), (8, 8), 1, 25, 1, 32): (3.5899, 3.2672),
+    ((1, 1), (8, 8), 8, 25, 1, 32): (3.6677, 3.2722),
+    ((1, 1), (8, 8), 100, 25, 1, 32): (5.3216, 4.9375),
+    ((1, 1), (8, 8), 100, 25, 1, 64): (10.6874, 4.9704),
+    ((1, 1), (8, 8), 64, 10, 1, 32): (2.7593, 3.1913),
+    ((1, 1), (8, 8), 64, 10, 1, 64): (5.5983, 3.2038),
+    ((1, 1), (8, 8), 64, 40, 1, 32): (13.3831, 5.9771),
+    ((1, 1), (8, 8), 64, 40, 4, 32): (53.2652, 22.9438),
+    ((2, 2), (8, 8), 64, 25, 1, 32): (14.9919, 8.7145),
+    ((2, 1), (8, 1), 1, 25, 1, 32): (4.2642, 4.7804),
+    ((2, 1), (8, 1), 1, 25, 1, 64): (8.4546, 4.8126),
+    ((1, 1), (1, 1), 64, 25, 1, 32): (1.9630, 2.7482),
+    ((1, 1), (1, 1), 64, 25, 1, 64): (3.8535, 2.8291),
+    ((1, 1), (2, 2), 64, 5, 1, 64): (1.8354, 2.5832),
+    ((1, 1), (8, 1), 1, 10, 1, 32): (1.2977, 2.5149),
+    ((1, 1), (8, 1), 1, 10, 1, 96): (3.7679, 5.0536),
+    ((1, 1), (8, 1), 1, 40, 1, 32): (12.3595, 4.7960),
+    ((1, 1), (8, 1), 64, 25, 4, 64): (14.6332, 7.9288),
+    ((1, 1), (4, 4), 64, 25, 1, 40): (3.7580, 2.7602),
+    ((2, 2), (4, 4), 100, 9, 2, 32): (16.2464, 28.0757),
+    ((2, 2), (4, 4), 100, 9, 2, 64): (32.8432, 29.2434),
+    ((2, 2), (4, 4), 100, 9, 2, 128): (66.4077, 58.4409),
+    ((1, 1), (3, 5), 17, 37, 3, 32): (35.1556, 14.2919),
+    ((1, 1), (8, 1), 1, 25, 1, 48): (3.1217, 2.6004),
+    ((1, 1), (8, 1), 1, 25, 1, 96): (6.1980, 5.2742),
+}
+
+
+@pytest.mark.parametrize("dtype, mm", [
+    (torch.float32, "float32"), (torch.float32, "highest"),
+    (torch.float32, "bfloat16"), (torch.float32, "default"),
+    (torch.float64, "float32"), (torch.float64, "highest")])
+def test_tensor_core_route_sweep(dtype, mm):
+    """The route depends on dtype, mode and shape alone: only float32 at
+    f32 grade, B >= TC_MIN_BEAMS and T <= 64 may take the tensor cores, and
+    of those the shapes at which they are faster on the card: at every
+    shape of CROSSOVER_MS where one design is more than 10% faster, the
+    route picks it. beam_gain_fits and smem_bytes stay the SIMT plan's: the
+    route only picks the design of a shape that the kernel takes."""
+    f64 = dtype == torch.float64
+    f32_grade = dtype == torch.float32 and mm in ("float32", "highest")
+    n_routed = 0
+    for tx in [(1, 1), (3, 5), (4, 4), (8, 8), (16, 4), (9, 8), (16, 16)]:
+        t = tx[0] * tx[1]
+        for b in (1, 16, 48, kb.TC_MIN_BEAMS - 1, kb.TC_MIN_BEAMS, 65, 100,
+                  215, 449, 450):
+            gate = f32_grade and b >= kb.TC_MIN_BEAMS and t <= 64
+            for rx in [(1, 1), (2, 1), (2, 2)]:
+                for k in (1, 17, 64, 100):
+                    for p in (1, 16, 25, 40):
+                        for n_s in (1, 4):
+                            route = kb.tensor_core_route(rx, tx, b, k, p,
+                                                         n_s, mm, dtype)
+                            assert route in (False, True)
+                            assert gate or not route, (tx, b, rx, k, p, n_s)
+                            n_routed += route and kb.beam_gain_fits(
+                                rx, tx, b, p, k, f64)
+                        smem = kb.smem_bytes(rx, tx, b, p, k, f64)
+                        assert smem == _simt_smem_bytes(t, b, f64)
+                        fits = kb.beam_gain_fits(rx, tx, b, p, k, f64)
+                        assert fits == (smem <= 232_448)
+    assert (n_routed > 0) == f32_grade
+    assert kb.TC_MAX_TX == 64 and kb.TC_MIN_BEAMS == 32
+    for (rx, tx, k, p, n_s, b), (simt, tc) in CROSSOVER_MS.items():
+        route = kb.tensor_core_route(rx, tx, b, k, p, n_s, mm, dtype)
+        if not f32_grade or b < kb.TC_MIN_BEAMS:
+            assert not route
+        elif tc * 1.1 < simt:
+            assert route, (rx, tx, k, p, n_s, b)
+        elif simt * 1.1 < tc:
+            assert not route, (rx, tx, k, p, n_s, b)
+    with pytest.raises(ValueError, match="matmul_dtype"):
+        kb.tensor_core_route((1, 1), (8, 8), 64, 64, 25, 1, "half", dtype)
+
+
+def _tf32(x):
+    """rna(x) to tf32 on float32 bits (render_tables.cuh tf32_rna)."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm3(a, b):
+    """lo.hi + hi.lo + hi.hi in float32: the kernel's 3xTF32 product."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tensor_core_emulation(gry, grz, gty, gtz, amp, psi, omega, wr, wi,
+                           rx_shape, tx_shape, n_k, slip=None):
+    """The tensor-core design's factoring in plain float32 torch, laid out
+    as csrc/beamgain.cu lays it out: per 64-beam tile, chunk of 32 paths and
+    tile of 64 subcarriers, the fold as D1 = Re conj(W) . X and D2 =
+    Im conj(W) . X with X's columns 8 J + 2 e + h = part h of a_tx of path
+    4 J + e; Er and Ei gathered from each warpgroup thread's accumulators
+    into the path sum's A fragments (column blocks 2 ks and 2 ks + 1 make
+    k-step ks); D3 = Er . G and D4 = Ei . G with G's columns 8 j + 2 t + c
+    = part c of g at subcarrier 16 (j / 4) + 4 t + j % 4, so that a thread
+    holds four adjacent subcarriers; every product 3xTF32. ``slip`` plants
+    a fault: "depth" swaps the fragments' a[1] and a[2], "conj" folds W
+    instead of conj(W)."""
+    from deepmimo_tpu_torch.ops.kernels.render import response
+
+    u, p = omega.shape
+    n_s, n_sa = psi.shape[1] // p, amp.shape[1] // p
+    (r1, r2), (t1, t2) = rx_shape, tx_shape
+    t_, r_, b_ = t1 * t2, r1 * r2, wr.shape[0]
+    t8 = 8 * -(-t_ // 8)
+    atx_r, atx_i = response(gty, gtz, t1, t2)               # [u, T, p]
+    arx_r, arx_i = response(gry, grz, r1, r2)               # [u, R, p]
+    w_, g_, t4_ = torch.meshgrid(torch.arange(4), torch.arange(8),
+                                 torch.arange(4), indexing="ij")
+    ra, tt = (16 * w_ + g_).reshape(-1), t4_.reshape(-1)     # 128 threads
+    n = torch.arange(128)                  # path-sum columns 8 j + 2 t + c
+    kl_n = 16 * (n >> 5) + 4 * ((n & 7) >> 1) + ((n >> 3) & 3)
+    c_n = n & 1
+    out = torch.zeros(u, r_ * b_, n_s * n_k)
+    sign = 1.0 if slip == "conj" else -1.0
+
+    def acc(dd, j, h, c):                  # the thread's d[4 j + 2 h + c]
+        return dd[:, ra + 8 * h, 8 * j + 2 * tt + c]
+
+    for b0 in range(0, b_, 64):
+        nb = min(64, b_ - b0)
+        cr, ci = torch.zeros(64, t8), torch.zeros(64, t8)
+        cr[:nb, :t_] = wr[b0:b0 + nb]
+        ci[:nb, :t_] = sign * wi[b0:b0 + nb]
+        for r in range(r_):
+            for s in range(n_s):
+                for k0 in range(0, n_k, 64):
+                    d3 = d4 = 0
+                    for p0 in range(0, p, 32):
+                        ok = (p0 + torch.arange(32) < p).float()
+                        pc = torch.clamp(p0 + torch.arange(32), max=p - 1)
+                        x = torch.zeros(u, t8, 64)
+                        x[:, :t_, 0::2] = atx_r[:, :, pc] * ok
+                        x[:, :t_, 1::2] = atx_i[:, :, pc] * ok
+                        d1, d2 = _mm3(cr, x), _mm3(ci, x)    # [u, 64, 64]
+                        ar, ai = torch.zeros(u, 64, 32), torch.zeros(u, 64, 32)
+                        for ks in range(4):
+                            for i in range(4):
+                                src = 3 - i if slip == "depth" and \
+                                    i in (1, 2) else i
+                                j, h = 2 * ks + src // 2, src % 2
+                                rows = ra + 8 * (i % 2)
+                                cols = 8 * ks + tt + 4 * (i // 2)
+                                ar[:, rows, cols] = acc(d1, j, h, 0) - \
+                                    acc(d2, j, h, 1)
+                                ai[:, rows, cols] = acc(d1, j, h, 1) + \
+                                    acc(d2, j, h, 0)
+                        am = amp[:, (s if n_sa > 1 else 0) * p:][:, pc] * ok
+                        cre, cim = am * arx_r[:, r, pc], am * arx_i[:, r, pc]
+                        ph = psi[:, s * p:][:, pc, None] - \
+                            omega[:, pc, None] * \
+                            (k0 + torch.arange(64, dtype=torch.float32))
+                        vr, vi = torch.cos(ph), torch.sin(ph)
+                        gr = cre[..., None] * vr - cim[..., None] * vi
+                        gi = cre[..., None] * vi + cim[..., None] * vr
+                        gm = torch.where(c_n == 0, gr[:, :, kl_n],
+                                         gi[:, :, kl_n])     # [u, 32, 128]
+                        d3 = d3 + _mm3(ar, gm)
+                        d4 = d4 + _mm3(ai, gm)
+                    for h in range(2):
+                        rows = ra + 8 * h
+                        for j in range(16):
+                            kl = 16 * (j >> 2) + 4 * tt + (j & 3)
+                            yr = acc(d3, j, h, 0) - acc(d4, j, h, 1)
+                            yi = acc(d3, j, h, 1) + acc(d4, j, h, 0)
+                            keep = (b0 + rows < b_) & (k0 + kl < n_k)
+                            out[:, (r * b_ + b0 + rows)[keep],
+                                (s * n_k + k0 + kl)[keep]] = \
+                                (yr * yr + yi * yi)[:, keep]
+    return out
+
+
+# name: (rx_shape, tx_shape, B, K, U, P, S, per-slot amp)
+TC_EMU_CASES = {
+    "cell": ((1, 1), (8, 8), 64, 64, 3, 25, 1, False),
+    "ragged_odd_panel": ((1, 1), (3, 5), 70, 17, 2, 37, 1, False),
+    "two_rx_slots": ((2, 1), (4, 4), 64, 100, 2, 9, 2, True),
+    "two_chunks": ((1, 1), (8, 8), 64, 64, 2, 40, 1, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TC_EMU_CASES))
+def test_tensor_core_factoring_emulated(name):
+    """The tensor-core design's layouts and signs, emulated in float32 at
+    3xTF32, against the plain version in float64 within RTOL; a planted
+    slip of the depth order or of the conjugate misses it by far."""
+    rx, tx, b, k, u, p, s, per_slot = TC_EMU_CASES[name]
+    arrs = [torch.from_numpy(a) for a in _scalars(u, p, s, per_slot,
+                                                  seed=21)]
+    wr, wi = (torch.from_numpy(x) for x in _codebook(b, tx[0] * tx[1], 22))
+    want = kb.beam_gain_reference(*(x.double() for x in (*arrs, wr, wi)),
+                                  rx, tx, k)
+    scale = float(want.max())
+    got = _tensor_core_emulation(*arrs, wr, wi, rx, tx, k)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got.double() - want).abs().max()) <= RTOL * scale
+    for slip in ("depth", "conj"):
+        bad = _tensor_core_emulation(*arrs, wr, wi, rx, tx, k, slip=slip)
+        assert float((bad.double() - want).abs().max()) > 0.05 * scale
+
+
+# ----------------------------------------------------------------------------
 # render_beam_gains and the dataset entry point
 # ----------------------------------------------------------------------------
 
@@ -780,3 +1021,77 @@ def test_cuda_smem_bytes_is_the_kernels_own(cuda):
                 want = kb.smem_bytes((1, 1), tx, b, 25, 64, f64)
                 assert fn(t, b, int(f64)) == (
                     want if want <= 232_448 else 0), (tx, b, f64)
+
+
+# name: (rx_shape, tx_shape, B, K, U, P, S, per-slot amp): shapes that the
+# tensor-core design takes
+CUDA_TC_CASES = {
+    "cell": ((1, 1), (8, 8), 64, 64, 12 * 257, 25, 1, False),
+    "ragged_beams": ((1, 1), (8, 8), 100, 64, 1031, 25, 1, False),
+    "two_rx": ((2, 1), (8, 8), 64, 64, 1031, 25, 1, False),
+    "four_slots": ((1, 1), (8, 8), 64, 64, 1031, 25, 4, True),
+    "three_chunks": ((1, 1), (8, 8), 64, 64, 1031, 40, 1, False),
+    "ragged_cols": ((1, 1), (8, 8), 64, 100, 1031, 25, 1, False),
+    "one_user": ((1, 1), (8, 8), 64, 64, 1, 25, 1, False),
+    "ragged_users": ((1, 1), (8, 8), 64, 64, 132 * 16 + 13, 25, 1, False),
+    # T <= 32 (four fold k-steps), a panel that is not 8 wide, several
+    # chunks, scalar stores (K % 4 != 0), three slots
+    "odd_panel_chunks": ((1, 1), (3, 5), 70, 17, 1031, 37, 3, False),
+    # four RX elements, two slots with per-slot amp, a ragged column tile,
+    # 9 paths
+    "small_panel_rx_slots": ((2, 2), (4, 4), 64, 100, 1031, 9, 2, True),
+    # the quickstart panel (BS 8x1) and one subcarrier
+    "quickstart": ((1, 1), (8, 1), 64, 1, 1031, 25, 1, False),
+    # T = 64 on a panel that is not 8 wide
+    "wide_rows": ((1, 1), (16, 4), 64, 64, 1031, 25, 1, False),
+}
+
+
+def _cuda_run(cuda, shape, dtype=torch.float32):
+    """The kernel and its plain version on the card; the launch counters'
+    steps (LAUNCHES, TC_LAUNCHES)."""
+    rx, tx, b, k, u, p, s, per_slot = shape
+    arrs = _scalars(u, p, s, per_slot, seed=4)
+    w = _codebook(b, tx[0] * tx[1], seed=5)
+    args = [torch.from_numpy(a).to(dtype).to(cuda) for a in (*arrs, *w)]
+    before = kb.LAUNCHES, kb.TC_LAUNCHES
+    got = kb.fused_beam_gain(*args, rx, tx, k)
+    want = kb.beam_gain_reference(*args, rx, tx, k)
+    torch.cuda.synchronize()
+    steps = kb.LAUNCHES - before[0], kb.TC_LAUNCHES - before[1]
+    return got, want, steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CUDA_TC_CASES))
+def test_cuda_tensor_core_design_matches_plain_version(cuda, name):
+    """The tensor-core design (one launch, counted in TC_LAUNCHES) against
+    the plain version within RTOL * max|G|."""
+    got, want, steps = _cuda_run(cuda, CUDA_TC_CASES[name])
+    assert steps == (1, 1)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= RTOL * float(want.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, shape, dtype", [
+    ("below_threshold", ((1, 1), (8, 8), kb.TC_MIN_BEAMS - 1, 64, 1031, 25,
+                         1, False), torch.float32),
+    ("float64", ((1, 1), (8, 8), 64, 64, 1031, 25, 1, False),
+     torch.float64),
+    # T = 128, past the staged codebook; chunks of 8 paths in the SIMT plan
+    ("wide_panel", ((1, 1), (16, 8), 220, 64, 37, 20, 2, True),
+     torch.float32),
+    # the quickstart panel at 32 beams, and a small panel with few paths:
+    # the SIMT design is the faster there
+    ("quickstart_32", ((1, 1), (8, 1), 32, 1, 1031, 25, 1, False),
+     torch.float32),
+    ("few_paths", ((2, 2), (4, 4), 32, 100, 1031, 9, 2, True),
+     torch.float32)])
+def test_cuda_simt_design_keeps_other_shapes(cuda, name, shape, dtype):
+    """Shapes off the tensor-core route run the SIMT design: one launch,
+    TC_LAUNCHES unmoved, within its bound (1e-9 in float64)."""
+    got, want, steps = _cuda_run(cuda, shape, dtype)
+    assert steps == (1, 0)
+    tol = 1e-9 if dtype == torch.float64 else RTOL
+    assert float((got - want).abs().max()) <= tol * float(want.max())
