@@ -22,6 +22,7 @@ in the port's own torch geometry in float64 on ``config['device']``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 from typing import Any, Dict, List, Optional
@@ -268,12 +269,16 @@ class Dataset(DotDict):
         cached = self.get("_polar_data_cache")
         if cached is not None and cached[0] == (dev, dtype):
             return cached[1]
-        stacks = tuple(
-            torch.as_tensor(np.stack([np.asarray(x, np.float64)
-                                      for x in mats]), dtype=dtype,
-                            device=dev)
-            for mats in ([self[f"power_{p.lower()}"] for p in POLS],
-                         [self._pol_phase(p) for p in POLS]))
+
+        def upload(mats):
+            with span("dm.h2d") if dev.type == "cuda" else \
+                    contextlib.nullcontext():
+                return torch.as_tensor(np.stack([np.asarray(x, np.float64)
+                                                 for x in mats]),
+                                       dtype=dtype, device=dev)
+
+        stacks = (upload([self[f"power_{p.lower()}"] for p in POLS]),
+                  upload([self._pol_phase(p) for p in POLS]))
         self["_polar_data_cache"] = ((dev, dtype), stacks)
         return stacks
 

@@ -910,8 +910,6 @@ def _polar_fused_inputs(cfg: ChannelConfig, paths: PathData,
     """
     with span("dm.prologue"):
         paths = paths.trim_paths(cfg.num_paths)
-        pol_power_dbw = pol_power_dbw[..., :cfg.num_paths]
-        pol_phase_deg = pol_phase_deg[..., :cfg.num_paths]
         valid, gain, *steps = _wavevec_steps(cfg, paths, bs, ue)
         zero = torch.zeros((), dtype=paths.delay_s.dtype,
                            device=paths.delay_s.device)
@@ -919,13 +917,17 @@ def _polar_fused_inputs(cfg: ChannelConfig, paths: PathData,
         def z(x):
             return torch.where(valid, x, zero)
 
-        p_lin = torch.pow(10.0, pol_power_dbw / 10.0)
-        if gain is not None:
-            p_lin = p_lin * gain
         u, p = paths.delay_s.shape          # the steps may be flat [U*P] views
-        return (*(z(x.reshape(u, p)) for x in steps),
-                *_fused_path_scalars(cfg, paths, valid, z(p_lin),
-                                     z(pol_phase_deg)))
+        steps = [z(x.reshape(u, p)) for x in steps]
+        with span("dm.polar"):
+            pol_power_dbw = pol_power_dbw[..., :cfg.num_paths]
+            pol_phase_deg = pol_phase_deg[..., :cfg.num_paths]
+            p_lin = torch.pow(10.0, pol_power_dbw / 10.0)
+            if gain is not None:
+                p_lin = p_lin * gain
+            scalars = _fused_path_scalars(cfg, paths, valid, z(p_lin),
+                                          z(pol_phase_deg))
+        return (*steps, *scalars)
 
 
 def render_channels_planes_polar(paths: PathData, bs: AntennaPanel,

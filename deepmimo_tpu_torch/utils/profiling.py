@@ -17,10 +17,14 @@ boundaries with it, under the name ``span``:
 - ``dm.entry``: ``Dataset.compute_channels`` / ``compute_beam_gains``
   from entry to the render call (validation, ``to_config``, the cached
   path data, the codebook);
-- ``dm.h2d``: one host-to-device upload (a small tensor, or a whole
-  ``PathData``);
+- ``dm.h2d``: one host-to-device upload (a small tensor, a whole
+  ``PathData``, or one of a dual-polar dataset's two polarization
+  stacks);
 - ``dm.prologue``: the fused kernels' per-path inputs (the ~100 small ops
   enqueued before a launch);
+- ``dm.polar``: inside ``dm.prologue`` of a dual-polar render or beam
+  gain, the per-polarization part (the power and phase stacks trimmed,
+  made linear and masked, and laid pol-major on the kernel's slot axis);
 - ``dm.kernel.<name>``: the host side of one launch of a hand-written
   kernel (``render_fwd``, ``render_bwd``, ``beam_gain``, ``pathsum``);
 - ``dm.d2h``: the copy of a result from a card to the host, its wait for

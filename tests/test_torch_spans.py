@@ -10,10 +10,15 @@ the port's name for ``annotate``).
   over two user blocks, each block records its prologue and its unpack; a
   calibration step records ``dm.calib.forward`` (with ``dm.calib.loss``
   inside it), ``dm.calib.backward`` and ``dm.calib.update``.
+- A dual-polar serving call records ``dm.polar`` inside ``dm.prologue``
+  (between ``dm.entry`` and the unpack), and a single-polarization call
+  records none (its order above is unchanged).
 - Results are bit-identical with the profiler on and off.
 - On the card (``gpu``): one serving call's trace holds the program's
   spans and the device's operations on one clock, in one launch and
-  streamed over two blocks.
+  streamed over two blocks; a dual-polar dataset's two polarization
+  stacks are each uploaded inside a ``dm.h2d`` span on the first call,
+  and not again.
 
 No test here imports JAX, so the ``gpu`` tests run where JAX is not
 installed: ``python -m pytest -m gpu --noconftest tests/test_torch_spans.py``.
@@ -70,11 +75,24 @@ def _dataset(n_ue=48, max_paths=10, seed=3):
     return dmt.Dataset(d)
 
 
-def _params(bs=(4, 2), n_k=4):
+def _polar_dataset(n_ue=48, max_paths=10, seed=3):
+    """``_dataset`` with the four polarizations' powers and phases."""
+    ds = _dataset(n_ue, max_paths, seed)
+    r = np.random.default_rng(seed)
+    nan = np.isnan(ds["power"])
+    for pol in ("vv", "vh", "hh", "hv"):
+        for key, lo, hi in (("power", -130, -60), ("phase", -180, 180)):
+            ds[f"{key}_{pol}"] = np.where(
+                nan, np.nan, r.uniform(lo, hi, nan.shape)).astype(np.float32)
+    return ds
+
+
+def _params(bs=(4, 2), n_k=4, polar=False):
     c = dmt.consts
     params = dmt.ChannelGenParameters()
     params[c.PARAMSET_ANT_BS][c.PARAMSET_ANT_SHAPE] = np.array(bs)
     params[c.PARAMSET_OFDM][c.PARAMSET_OFDM_SC_SAMP] = np.arange(n_k)
+    params[c.PARAMSET_POLAR_EN] = int(polar)
     return params
 
 
@@ -146,6 +164,30 @@ def test_serving_call_records_its_stages_in_order(cpu, entry):
     assert names == list(SERVING), names
     for (_, end, _), (start, _, _) in zip(spans, spans[1:]):
         assert end <= start                 # one after another, none nested
+
+
+@pytest.mark.parametrize("entry", ["channels", "channels_device",
+                                   "beam_gains"])
+def test_dual_polar_call_records_polar_inside_prologue(cpu, entry):
+    ds, params = _polar_dataset(), _params(polar=True)
+    if entry == "beam_gains":
+        def call():
+            return ds.compute_beam_gains(params, codebook=_codebook())
+    else:
+        def call():
+            return ds.compute_channels(
+                params, to_device=entry == "channels_device")
+    call()                                  # the caches filled, as served
+    _, spans = _profiled(call)
+    names = [n for _, _, n in spans]
+    tail = [] if entry == "channels_device" else ["dm.unpack"]
+    assert names == ["dm.entry", "dm.prologue", "dm.polar"] + tail, names
+    by = {n: (s, e) for s, e, n in spans}
+    pro, pol = by["dm.prologue"], by["dm.polar"]
+    assert pro[0] <= pol[0] and pol[1] <= pro[1]
+    assert by["dm.entry"][1] <= pro[0]
+    if tail:
+        assert pro[1] <= by["dm.unpack"][0]
 
 
 def test_streamed_call_records_each_blocks_stages(cpu, streamed):
@@ -338,3 +380,17 @@ def test_card_streamed_copies_inside_d2h(cuda, tmp_path):
         on_clock += all(_interval(c)[1] <= w[1]
                         for (c, _), w in zip(copies, waits))
     assert on_clock >= ON_CLOCK
+
+
+@pytest.mark.gpu
+def test_card_polar_stacks_uploaded_once(cuda):
+    """A dual-polar dataset's power and phase stacks go to the card inside
+    one ``dm.h2d`` span each on the first call, and come from the cache
+    after: no span on the next call, the same tensors."""
+    ds = _polar_dataset(n_ue=256, max_paths=25)
+    first, spans = _profiled(ds._polar_stacks)
+    assert [n for _, _, n in spans] == ["dm.h2d", "dm.h2d"]
+    assert all(x.device.type == "cuda" and x.shape == (4, 256, 25)
+               for x in first)
+    again, spans = _profiled(ds._polar_stacks)
+    assert spans == [] and all(a is b for a, b in zip(first, again))
