@@ -12,7 +12,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    nvcc per source, all started together, and prints the ptxas report.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main paths' shapes (``KERNEL_CASES``, ``BG_CASES``), with
-   CUDA-event times of both at the headline width: the forward render and
+   CUDA-event times of both at the headline width: the forward render (in
+   f32 at the headline both designs, ``fused_render[tc]`` as the route
+   picks it and ``fused_render`` on ``mma.sync`` past the route) and
    the path sum within 3e-5 * max|H| (also at ``PS_WIDE_CASES``, past the
    old kernel's shared memory: a 16 x 16 BS at 1,024 subcarriers, and 300
    paths), the render's backward within
@@ -34,8 +36,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    through ``Dataset.compute_channels(params, to_device=True, out=prev)``
    — one kernel launch per call — checked for shape and finiteness and on
    64 users per dataset against the float64 oracle ``tests/oracle.py``;
-   then a timed sweep and a ``torch.profiler`` breakdown (device window,
-   busy and idle share, largest kernels), as in phases 5b, 5c and 5f.
+   then the four served on the quickstart's 8 x 1 BS panel at one
+   subcarrier, which the route keeps on ``mma.sync``, counted and against
+   the oracle; then a timed sweep and a ``torch.profiler`` breakdown
+   (device window, busy and idle share, largest kernels), as in phases
+   5b, 5c and 5f.
 5. Streamed path: ``to_device=False`` over 3 user blocks must equal the
    single-dispatch result exactly.
 5b. Beam-gain serving: ``Dataset.compute_beam_gains(params, codebook=W,
@@ -205,8 +210,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    1e-4.
 
 The line before the last is a JSON object describing every kernel in each
-of its modes (``fused_render[bf16_out]``, ...; each launched on a main
-path, counted by mode), with ``bound_ms``: the larger of its bytes (each
+of its modes and designs (``fused_render[bf16_out]``, ...; the forward's
+f32 launches apart by design, ``fused_render[tc]`` on the tensor cores
+and ``fused_render`` on ``mma.sync``; each launched on a main path,
+counted in the checked calls of each phase), with ``bound_ms``: the larger of its bytes (each
 input read once, each output written once) over 3.35 TB/s and its flops
 at f32 grade on the tensor cores (3 TF32 passes at 495 TFLOP/s), or for
 one-pass bf16 products at 989 TFLOP/s, or the float64 beam gain's
@@ -238,6 +245,7 @@ N_DATASETS = 4
 MAX_PATHS = 25
 BS_SHAPE = (8, 8)
 UE_SHAPE = (1, 1)
+SMALL_BS_SHAPE = (8, 1)      # the quickstart's BS panel: the mma.sync route
 N_FFT = 512
 N_SC = 64
 BANDWIDTH = 10e6
@@ -412,10 +420,30 @@ KERNEL_CASES = [
 ]
 
 
+def _render_design(torch, args, rx, tx, k, packed, out, tensor_cores):
+    """One launch of the forward kernel in float32 at f32 grade into
+    ``out``, on its tensor-core design if ``tensor_cores`` else on
+    ``mma.sync``, whatever ``tensor_core_route`` picks."""
+    from deepmimo_tpu_torch.ops.kernels import _build
+    u, p = args[-1].shape
+    n_s, n_sa = args[5].shape[1] // p, args[4].shape[1] // p
+    rc = _build.launcher("render_fwd", 8, 13)(
+        *(x.data_ptr() for x in args), out.data_ptr(), u, p, *rx, *tx, k,
+        n_s, n_sa, int(packed), 3, 0, int(tensor_cores),
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"render_fwd (tensor_cores={int(tensor_cores)}) "
+                           f"failed with CUDA error {rc}")
+    return out
+
+
 def phase_kernels(torch):
     """The forward kernel in each of FWD_MODES against its plain version in
-    the same mode at every KERNEL_CASES shape; at the headline, times of
-    both. Returns the headline's metrics by mode."""
+    the same mode at every KERNEL_CASES shape, the design the route picks
+    named; at the headline, times of both. Returns the headline's metrics
+    by mode: in f32 those of the ``mma.sync`` design, launched past the
+    route, and under "tc" those of the tensor-core design, which the
+    route picks there."""
     from deepmimo_tpu_torch.ops.kernels import render as kr
     headline = {}
     for name, u, p, rx, tx, k, s, per_slot, packed in KERNEL_CASES:
@@ -423,18 +451,20 @@ def phase_kernels(torch):
                               seed=len(name))
         for mm, out_dtype, tol in FWD_MODES:
             key = kr.mode_key(mm, out_dtype)
+            tc_before = kr.TC_LAUNCHES
             h = kr.fused_render(*args, rx, tx, k, packed, mm_dtype=mm,
                                 out_dtype=out_dtype)
+            design = "tc" if kr.TC_LAUNCHES > tc_before else key
             ref = kr.fused_render_reference(*args, rx, tx, k, packed, mm)
             torch.cuda.synchronize()
             err = float((h.float() - ref).abs().max())
             scale = float(ref.abs().max())
-            log(f"[kernel] {entry('fused_render', key)} {name}: U={u} P={p} "
-                f"rx={rx} tx={tx} K={k} S={s} packed={packed} "
+            log(f"[kernel] {entry('fused_render', design)} {name}: U={u} "
+                f"P={p} rx={rx} tx={tx} K={k} S={s} packed={packed} "
                 f"out={tuple(h.shape)} {h.dtype} max_abs_err={err:.3e} "
                 f"max|H|={scale:.3e} rel={err / scale:.3e} (limit {tol:g})")
             if not (math.isfinite(err) and err <= tol * scale):
-                raise AssertionError(f"fused_render {name} {key}: kernel "
+                raise AssertionError(f"fused_render {name} {design}: kernel "
                                      f"disagrees with its plain version")
             if name == "headline":
                 out = torch.empty_like(h)
@@ -444,11 +474,27 @@ def phase_kernels(torch):
                 plain_ms = event_ms(torch, lambda: kr.fused_render_reference(
                     *args, rx, tx, k, packed, mm).to(h.dtype), reps=3)
                 gbps = h.numel() * h.element_size() / (ms * 1e-3) / 1e9
-                log(f"[kernel] {entry('fused_render', key)} headline: kernel "
-                    f"{ms:.4f} ms ({gbps:.1f} GB/s of H written), plain "
-                    f"{plain_ms:.4f} ms")
-                headline[key] = dict(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms)
+                log(f"[kernel] {entry('fused_render', design)} headline: "
+                    f"kernel {ms:.4f} ms ({gbps:.1f} GB/s of H written), "
+                    f"plain {plain_ms:.4f} ms")
+                headline[design] = dict(max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms)
+                if design != key:        # the mma.sync design, past the route
+                    h = _render_design(torch, args, rx, tx, k, packed, out,
+                                       False)
+                    torch.cuda.synchronize()
+                    err = float((h - ref).abs().max())
+                    if not (math.isfinite(err) and err <= tol * scale):
+                        raise AssertionError(f"fused_render {name} {key} "
+                                             f"(mma.sync): kernel disagrees "
+                                             f"with its plain version")
+                    ms = event_ms(torch, lambda: _render_design(
+                        torch, args, rx, tx, k, packed, out, False), reps=20)
+                    log(f"[kernel] {entry('fused_render', key)} headline "
+                        f"(mma.sync, past the route): kernel {ms:.4f} ms, "
+                        f"max_abs_err={err:.3e} rel={err / scale:.3e}")
+                    headline[key] = dict(max_abs_err=err, ms=ms,
+                                         plain_ms=plain_ms)
                 del out
             del h, ref
         del args
@@ -748,7 +794,7 @@ def phase_main(torch, dmt):
     # The main path, counted: one kernel launch per compute_channels call.
     expected = (CHUNK, UE_SHAPE[0] * UE_SHAPE[1],
                 BS_SHAPE[0] * BS_SHAPE[1], 2 * N_SC)
-    kr.LAUNCHES = 0
+    kr.LAUNCHES = kr.TC_LAUNCHES = 0
     h = None
     for i, ds in enumerate(datasets):
         prev = h
@@ -773,7 +819,10 @@ def phase_main(torch, dmt):
     if launches != N_DATASETS:
         raise AssertionError(f"fused_render launched {launches} times for "
                              f"{N_DATASETS} compute_channels calls")
-    log(f"[main] fused_render launches in the main path: {launches}")
+    log(f"[main] fused_render launches in the main path: {launches}, "
+        f"{kr.TC_LAUNCHES} of them on the tensor-core design")
+    designs = Counter(_by_design(launches, kr.TC_LAUNCHES))
+    designs.update(_serve_small_panel(torch, dmt, datasets))
 
     calls = [lambda ds=ds: ds.compute_channels(params, to_device=True, out=h)
              for ds in datasets]
@@ -782,7 +831,36 @@ def phase_main(torch, dmt):
         f"{CHUNK}-user dataset (CUDA events), {CHUNK / ms * 1e3:.1f} "
         f"users/s; host wall {wall:.4f} ms per dataset")
     profile_cell(torch, "serving", calls)
-    return datasets, params, launches
+    return datasets, params, designs
+
+
+def _serve_small_panel(torch, dmt, datasets):
+    """The four datasets served on the quickstart's BS panel at one
+    subcarrier, counted (the route keeps it on ``mma.sync``) and against
+    the oracle. Returns the render launches by design."""
+    from deepmimo_tpu_torch.ops.channel import unpack_planes_np
+    from deepmimo_tpu_torch.ops.kernels import render as kr
+    c = dmt.consts
+    params = make_params(dmt)
+    params[c.PARAMSET_ANT_BS][c.PARAMSET_ANT_SHAPE] = np.array(SMALL_BS_SHAPE)
+    params[c.PARAMSET_OFDM][c.PARAMSET_OFDM_SC_SAMP] = np.arange(1)
+    cfg, _, _ = params.to_config(CHUNK)
+    kr.LAUNCHES = kr.TC_LAUNCHES = 0
+    for i, ds in enumerate(datasets):
+        h = ds.compute_channels(params, to_device=True)
+        _check_oracle("main", f"{SMALL_BS_SHAPE} BS panel, dataset {i}",
+                      unpack_planes_np(h.cpu().numpy(), cfg)[:N_ORACLE],
+                      _oracle(ds, N_ORACLE, ds["power"], ds["phase"],
+                              bs_shape=SMALL_BS_SHAPE,
+                              selected_subcarriers=(0,)), ORACLE_RTOL)
+    launches = (kr.LAUNCHES, kr.TC_LAUNCHES)
+    if launches != (len(datasets), 0):
+        raise AssertionError(f"{SMALL_BS_SHAPE} BS panel: (render, "
+                             f"tensor-core) launches {launches} for "
+                             f"{len(datasets)} calls")
+    log(f"[main] {SMALL_BS_SHAPE} BS panel: {launches[0]} fused_render "
+        f"launches, none on the tensor-core design")
+    return _by_design(*launches)
 
 
 def phase_streamed(torch, dmt, datasets, params):
@@ -864,6 +942,13 @@ def _counted_calls(torch, tag, call, n, shape, dtype):
         if not bool(torch.isfinite(h).all()):
             raise AssertionError(f"{tag} {i}: non-finite values")
     return h
+
+
+def _by_design(launches, tc):
+    """Of ``launches`` float32 forward renders at f32 grade, ``tc`` on the
+    tensor-core design: the launches of each design under its kernels-line
+    name."""
+    return {"fused_render": launches - tc, "fused_render[tc]": tc}
 
 
 def _modes(counts, name, want):
@@ -1049,7 +1134,7 @@ def phase_polar(torch, dmt):
     n_pol, t = len(POLS), BS_SHAPE[0] * BS_SHAPE[1]
     expected = (CHUNK, 1, t, 2 * n_pol * N_SC)
 
-    kr.LAUNCHES = kb.LAUNCHES = 0
+    kr.LAUNCHES = kr.TC_LAUNCHES = kb.LAUNCHES = 0
     h = None
     for i in range(2):
         prev = h
@@ -1060,6 +1145,7 @@ def phase_polar(torch, dmt):
         if prev is not None and h.data_ptr() != prev.data_ptr():
             raise AssertionError(f"dual-polar call {i}: out= not reused")
     ch_launches = (kr.LAUNCHES, kb.LAUNCHES)
+    ch_designs = _by_design(kr.LAUNCHES, kr.TC_LAUNCHES)
     if ch_launches != (2, 0):
         raise AssertionError(f"dual-polar compute_channels: (render, beam "
                              f"gain) launches {ch_launches} for 2 calls")
@@ -1152,7 +1238,7 @@ def phase_polar(torch, dmt):
     log(f"[polar] streamed: {blocks} blocks of <= {block} users, each "
         f"polarization {streamed['VV'].shape} equals the single launch "
         f"exactly")
-    return ch_launches[0], bg_launches[0]
+    return ch_designs, bg_launches[0]
 
 
 def phase_bf16_serving(torch, dmt, datasets):
@@ -1272,7 +1358,7 @@ def phase_doppler(torch, dmt):
         lambda i, prev: ds.compute_channels(params, to_device=True,
                                             out=prev), 2,
         (CHUNK, 1, t, 2 * n_s * N_SC), torch.float32)
-    launches = _modes(kr.MODE_LAUNCHES, "fused_render", {"f32": 2})
+    launches = _modes(kr.MODE_LAUNCHES, "fused_render", {"tc": 2})
     got = unpack_planes_np(h[:N_ORACLE], cfg)            # [..., K, S]
     for i, ts in enumerate(DOPPLER_TIMES):
         _check_oracle("doppler", f"channels t={ts:g} s", got[..., i],
@@ -1336,7 +1422,7 @@ def phase_angle_space(torch, dmt, datasets):
         lambda i, prev: datasets[i].compute_channels(params, to_device=True,
                                                      out=prev), n, shape,
         torch.float32)
-    launches = _modes(kr.MODE_LAUNCHES, "fused_render", {"f32": n})
+    launches = _modes(kr.MODE_LAUNCHES, "fused_render", {"tc": n})
     ds = datasets[-1]
     _check_oracle("angle-space", f"dipole dataset {n - 1}",
                   unpack_planes_np(h[:N_ORACLE], cfg),
@@ -1362,9 +1448,8 @@ def phase_angle_space(torch, dmt, datasets):
         lambda i, prev: render_channels_planes(paths, bs, ue, fov_cfg,
                                                out=buf), 1, shape,
         torch.float32)
-    launches["fused_render"] += _modes(kr.MODE_LAUNCHES,
-                                       "fused_render", {"f32": 1})[
-        "fused_render"]
+    launches["fused_render[tc]"] += _modes(
+        kr.MODE_LAUNCHES, "fused_render", {"tc": 1})["fused_render[tc]"]
     _check_oracle("angle-space", "bs_fov=(120, 180)",
                   unpack_planes_np(h[:N_ORACLE], fov_cfg),
                   _oracle(ds, N_ORACLE, ds["power"], ds["phase"],
@@ -1668,7 +1753,7 @@ class _Launches:
     (timing loops are not counted)."""
 
     def __init__(self):
-        self.render = self.beam_gain = 0
+        self.render = self.render_tc = self.beam_gain = 0
 
     def __call__(self, fn, render=0, beam_gain=0, what=""):
         """``fn()``, failing unless it launched the render kernel
@@ -1676,7 +1761,7 @@ class _Launches:
         from deepmimo_tpu_torch.ops.kernels import beamgain as kb
         from deepmimo_tpu_torch.ops.kernels import render as kr
         import torch
-        before = (kr.LAUNCHES, kb.LAUNCHES)
+        before = (kr.LAUNCHES, kb.LAUNCHES, kr.TC_LAUNCHES)
         out = fn()
         torch.cuda.synchronize()
         got = (kr.LAUNCHES - before[0], kb.LAUNCHES - before[1])
@@ -1684,8 +1769,14 @@ class _Launches:
             raise AssertionError(f"{what}: (render, beam-gain) launches "
                                  f"{got}, expected {(render, beam_gain)}")
         self.render += render
+        self.render_tc += kr.TC_LAUNCHES - before[2]
         self.beam_gain += beam_gain
         return out
+
+    def entries(self):
+        """The counted launches under their kernels-line names."""
+        return {**_by_design(self.render, self.render_tc),
+                "fused_beam_gain": self.beam_gain}
 
 
 def _peak(torch, tag):
@@ -2078,8 +2169,7 @@ def phase_scenarios(torch, dmt):
     log(f"[scenarios] phase 5h: {time.perf_counter() - t_phase:.1f} s "
         f"(host wall, disk writes included); launches counted: render "
         f"{counted.render}, beam gain {counted.beam_gain}")
-    return {"fused_render": counted.render,
-            "fused_beam_gain": counted.beam_gain}
+    return counted.entries()
 
 
 # Phase 5i: the public surface, at the headline width.
@@ -2207,7 +2297,7 @@ def phase_surface(torch, dmt):
                 render=1, what="serving warm call")
     timer = StageTimer()
     event_times = []
-    before = kr.LAUNCHES
+    before = kr.LAUNCHES, kr.TC_LAUNCHES
     for _ in range(SURF_SERVES):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -2219,10 +2309,11 @@ def phase_surface(torch, dmt):
             raise AssertionError("StageTimer: a stage ended before its "
                                  "render")
         event_times.append(start.elapsed_time(end))
-    if kr.LAUNCHES - before != SURF_SERVES:
-        raise AssertionError(f"serving stages: {kr.LAUNCHES - before} "
+    if kr.LAUNCHES - before[0] != SURF_SERVES:
+        raise AssertionError(f"serving stages: {kr.LAUNCHES - before[0]} "
                              f"render launches for {SURF_SERVES} calls")
     counted.render += SURF_SERVES
+    counted.render_tc += kr.TC_LAUNCHES - before[1]
     stage_ms = [dt * 1e3 for _, dt in timer.records]
     log("[surface] StageTimer 'serve' ms (CUDA-event ms): " + "; ".join(
         f"{a:.4f} ({b:.4f})" for a, b in zip(stage_ms, event_times)))
@@ -2323,8 +2414,7 @@ def phase_surface(torch, dmt):
     log(f"[surface] phase 5i: {time.perf_counter() - t_phase:.1f} s (host "
         f"wall); launches counted: render {counted.render}, beam gain "
         f"{counted.beam_gain}")
-    return {"fused_render": counted.render,
-            "fused_beam_gain": counted.beam_gain}
+    return counted.entries()
 
 
 # Phase 5j: ray-tracer outputs converted by the port, at the headline width.
@@ -2914,8 +3004,7 @@ def phase_convert(torch, dmt):
     log(f"[convert] phase 5j: {time.perf_counter() - t_phase:.1f} s (host "
         f"wall, disk writes included); launches counted: render "
         f"{counted.render}, beam gain {counted.beam_gain}")
-    return {"fused_render": counted.render,
-            "fused_beam_gain": counted.beam_gain}
+    return counted.entries()
 
 
 # Phase 5k: the scenario factory on the card, at the headline width.
@@ -3311,8 +3400,7 @@ def phase_factory(torch, dmt):
     log(f"[factory] phase 5k: {time.perf_counter() - t_phase:.1f} s (host "
         f"wall, disk writes included); launches counted: render "
         f"{counted.render}, beam gain {counted.beam_gain}")
-    return {"fused_render": counted.render,
-            "fused_beam_gain": counted.beam_gain}
+    return counted.entries()
 
 
 MD_SEED = 30                 # paths of the multi-device phase
@@ -3326,9 +3414,10 @@ def _md_counted(torch, tag, fn, count, **want):
     (``fused_render``, ``fused_path_sum``, ``fused_beam_gain``) that many
     times and no other fused kernel; the launches go into ``count`` (a
     Counter) unless it is None."""
+    from deepmimo_tpu_torch.ops.kernels import render as kr
     names = ("fused_render", "fused_render_bwd", "fused_path_sum",
              "fused_beam_gain")
-    before = _kernel_launches()
+    before, tc = _kernel_launches(), kr.TC_LAUNCHES
     out = fn()
     torch.cuda.synchronize()
     got = dict(zip(names, (a - b for a, b in zip(_kernel_launches(),
@@ -3337,6 +3426,8 @@ def _md_counted(torch, tag, fn, count, **want):
     if got != expect:
         raise AssertionError(f"{tag}: launches {got}, expected {expect}")
     if count is not None:
+        got.update(_by_design(got["fused_render"],
+                                   kr.TC_LAUNCHES - tc))
         count.update({k: v for k, v in got.items() if v})
     return out
 
@@ -3383,6 +3474,7 @@ def phase_multidevice(torch, dmt):
                                                 render_channels,
                                                 render_channels_planes_polar,
                                                 unpack_polar_planes_np)
+    from deepmimo_tpu_torch.ops.kernels import render as kr
     from deepmimo_tpu_torch.parallel import sharded as sh
     from deepmimo_tpu_torch.parallel.dryrun import dryrun_multichip
 
@@ -3621,12 +3713,16 @@ def phase_multidevice(torch, dmt):
             before = Counter(dict(zip(
                 ("fused_render", "fused_render_bwd", "fused_path_sum",
                  "fused_beam_gain"), _kernel_launches())))
+            tc = kr.TC_LAUNCHES
             text = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(text):
                 rc = fn()
             torch.cuda.synchronize()
             made = Counter(dict(zip(before, _kernel_launches()))) - before
+            made.update(_by_design(made.pop("fused_render", 0),
+                                        kr.TC_LAUNCHES - tc))
+            made = +made
             lines = text.getvalue().strip().splitlines()
             log(f"[multidevice] example {tag}: rc {rc}, "
                 f"{time.perf_counter() - t0:.1f} s, launches "
@@ -3671,6 +3767,7 @@ def kernel_bounds(fma=False):
     tc_bytes, tc_fold, tc_sum, tc_pow = beam_gain(BG_TC_BEAMS)
     work = {   # name: (bytes, flops at f32 grade, flops of one bf16 pass)
         "fused_render": (per_path + 4 * h_planes, fwd, 0),
+        "fused_render[tc]": (per_path + 4 * h_planes, fwd, 0),
         "fused_render[bf16_out]": (per_path + 2 * h_planes, fwd, 0),
         "fused_render[bf16_mm]": (per_path + 4 * h_planes, 0, fwd),
         "fused_render[bf16_mm+bf16_out]": (per_path + 2 * h_planes, 0, fwd),
@@ -3803,12 +3900,13 @@ def phase_train(torch, dmt, fwd_ms, bwd_ms):
     _check_train_grads(torch, dmt, paths, target, cfg, GRAD_RTOL, "train")
 
     # The training path, counted: one forward + one backward per step.
-    kr.LAUNCHES = kr.BWD_LAUNCHES = 0
+    kr.LAUNCHES = kr.BWD_LAUNCHES = kr.TC_LAUNCHES = 0
     losses, step_ms, peak = run_steps(
         torch, lambda p: sh.training_step_planes(p, paths, target, cfg,
                                                  lr=LR),
         params, TRAIN_STEPS, per_step=(1, 1, 0))
-    launches = (kr.LAUNCHES, kr.BWD_LAUNCHES)
+    launches = (_by_design(kr.LAUNCHES, kr.TC_LAUNCHES),
+                kr.BWD_LAUNCHES)
     log(f"[train] {TRAIN_STEPS} training_step_planes steps, {CHUNK} users, "
         f"lr {LR}: losses {['%.7f' % x for x in losses]}")
     if not all(math.isfinite(x) for x in losses) or \
@@ -3820,7 +3918,8 @@ def phase_train(torch, dmt, fwd_ms, bwd_ms):
         f"{TRAIN_STEPS} {steady:.4f} ms = fwd kernel {fwd_ms:.4f} + bwd "
         f"kernel {bwd_ms:.4f} + rest {steady - fwd_ms - bwd_ms:.4f} "
         f"(kernel times from phase 3); peak device memory "
-        f"{peak / 2**30:.3f} GiB; launches fwd {launches[0]}, "
+        f"{peak / 2**30:.3f} GiB; launches fwd {sum(launches[0].values())} "
+        f"({launches[0]['fused_render[tc]']} tensor-core), "
         f"bwd {launches[1]}")
     profile_cell(torch, "calibration planes", [
         lambda: sh.training_step_planes(params, paths, target, cfg, lr=LR)])
@@ -3921,7 +4020,7 @@ def main():
     psum = phase_pathsum_kernels(torch)
     bg = phase_bg_kernels(torch)
     launches = Counter()                 # main-path launches by entry
-    datasets, params, serve_launches = phase_main(torch, dmt)
+    datasets, params, serve = phase_main(torch, dmt)
     phase_streamed(torch, dmt, datasets, params)
     bg_launches, bg_tc_launches = phase_beamgain(torch, datasets, params)
     bf16_serving = phase_bf16_serving(torch, dmt, datasets)
@@ -3935,28 +4034,32 @@ def main():
     factory = phase_factory(torch, dmt)
     multidevice = phase_multidevice(torch, dmt)
     doppler = phase_doppler(torch, dmt)
-    polar_render, polar_bg = phase_polar(torch, dmt)
+    polar, polar_bg = phase_polar(torch, dmt)
     torch.cuda.empty_cache()
     paths, (train_fwd, train_bwd), planes_loss = phase_train(
-        torch, dmt, fwd["f32"]["ms"], bwd["f32"]["ms"])
+        torch, dmt, fwd["tc"]["ms"], bwd["f32"]["ms"])
     train_bf16 = phase_train_bf16(torch, dmt, paths, planes_loss)
     pallas_launches = phase_train_pallas(torch, dmt, paths, planes_loss)
-    launches.update({"fused_render": serve_launches + polar_render +
-                     train_fwd, "fused_render_bwd": train_bwd,
+    launches.update({"fused_render_bwd": train_bwd,
                      "fused_path_sum": pallas_launches,
                      "fused_beam_gain": bg_launches + polar_bg,
                      "fused_beam_gain[tc]": bg_tc_launches})
-    for phase in (bf16_serving, angle_space, doppler, nonfused, train_bf16,
-                  scenarios, surface, converted, factory, multidevice):
+    renders = {"serving": serve, "dual-polar": polar, "training": train_fwd,
+               "angle space": angle_space, "Doppler": doppler,
+               "scenarios from disk": scenarios, "public surface": surface,
+               "converted scenarios": converted, "scenario factory": factory,
+               "multi-device": multidevice}
+    for phase in (serve, polar, train_fwd, bf16_serving, angle_space,
+                  doppler, nonfused, train_bf16, scenarios, surface,
+                  converted, factory, multidevice):
         launches.update(phase)
-    log(f"[launches] fused_render: serving {serve_launches} + dual-polar "
-        f"{polar_render} + training {train_fwd} + angle space "
-        f"{angle_space['fused_render']} + Doppler {doppler['fused_render']}"
-        f" + scenarios from disk {scenarios['fused_render']} + public "
-        f"surface {surface['fused_render']} + converted scenarios "
-        f"{converted['fused_render']} + scenario factory "
-        f"{factory['fused_render']} + multi-device "
-        f"{multidevice['fused_render']}; "
+
+    def by_phase(e):
+        return " + ".join(f"{tag} {ph.get(e, 0)}"
+                          for tag, ph in renders.items())
+
+    log(f"[launches] fused_render (mma.sync): {by_phase('fused_render')}; "
+        f"fused_render[tc]: {by_phase('fused_render[tc]')}; "
         f"fused_render_bwd: training {train_bwd}; fused_path_sum: pallas "
         f"training {pallas_launches} + multi-device "
         f"{multidevice['fused_path_sum']}; fused_beam_gain: serving "

@@ -15,10 +15,22 @@
 // S*K = 64) every user writes 32 KB of H: 4.29 GB per 131,072 users, about
 // 1.3 ms at 3.35 TB/s. The path sum is 1.07e11 flop; at f32 grade on the
 // tensor cores (3 TF32 passes at 495 TFLOP/s) that is 0.65 ms, so HBM
-// bytes bound it. mma.sync, though, runs TF32 at about half that rate on
-// an H100 (tools/mma_peak.cu: ~1.2e11 m16n8k8 products/s), so the three
-// passes over the padded 64 x 56 x 128 GEMM of each user take ~1.5 ms
-// alone: this design is bound by the tensor-core issue rate. Design:
+// bytes bound it. Two designs share the launcher; the wrapper picks one
+// from dtype, mode and shape (ops/kernels/render.py tensor_core_route):
+//
+//   - mma.sync (render_fwd_kernel): the bf16 modes, and panels of fewer
+//     than 48 rows (the quickstart's 8 x 1). mma.sync runs TF32 at about half the tensor
+//     cores' rate on an H100 (tools/mma_peak.cu: ~1.2e11 m16n8k8
+//     products/s), so the three passes over the padded 64 x 56 x 128 GEMM
+//     of each user take ~1.5 ms alone, and its products and its
+//     producers contend for the issue slots (PERF.md: 4.18 ms, 2.48 of
+//     products alone, 2.69 of producers alone);
+//   - tensor cores (tc::render_fwd_kernel_tc): float32 out at f32 grade
+//     on panels of 48 rows or more, the headline among them.
+//     The path sum as warpgroup GEMMs on wgmma, off the issue slots:
+//     2.12 ms at the headline, 7.43 at 4 slots (16.7 on mma.sync).
+//
+// mma.sync design:
 //   - the path sum is a real GEMM per tile on the tensor cores, in 3xTF32
 //     mma.sync m16n8k8 (render_tables.cuh; no one-pass TF32): A = E with
 //     the k-step's columns t and t + 4 the real and imaginary part of path
@@ -55,6 +67,34 @@
 //     casts at its store (render.py:516-528). Lanes t and t ^ 1 swap the hr
 //     and hi halves of their 4 columns with two shuffles, so that each
 //     stores 8 adjacent bf16 of one plane as one 16-byte vector.
+//
+// Tensor-core design (namespace tc), per user and tile of 64 rows (q), in
+// path chunks of 32 and tiles of 64 subcarriers of one slot:
+//   - the path sum as two real GEMMs on wgmma m64n128k8, D3 = Er . G and
+//     D4 = Ei . G with G = [gr | gi] (32 x 128), H = D3(re) - D4(im) +
+//     j (D3(im) + D4(re)) formed in registers, as the beam gain's path sum
+//     (beamgain.cu); both operands from shared memory in wgmma.cuh's
+//     K-major layout, at 3xTF32 (lo.hi + hi.lo + hi.hi, FP32
+//     accumulation, the split of render_tables.cuh). No product register
+//     is written on a branch and every k-step count is fixed, so ptxas
+//     keeps the products in flight together;
+//   - E (a_rx (x) a_tx of the tile's rows) is built once per user and row
+//     tile and kept for every slot and column tile when P <= 32; only G is
+//     built per tile (with more paths, E and G per chunk, summed in the
+//     accumulators). Rows past Q and paths past P are zeros;
+//   - persistent warp-specialised blocks, one per SM (131,072 bytes of
+//     shared memory): one consumer warpgroup runs the products and the
+//     stores; two producer groups of 4 warps take the steps in turn, group
+//     g building stage g (E and G), handed over by named barriers (full,
+//     empty). The producers set its pace: with one group the kernel took
+//     2.69 ms at the headline, of which 2.09 producers alone;
+//   - separable trig, full-range: E = ey[m] ez[row group] for 8-wide TX
+//     panels (two sincos a lane and path, the rest by shuffle; other
+//     panels one sincos an entry), G = fine[k % 8] coarse[k / 8] by
+//     tc_operands.cuh's build_g, the beam gain's producer;
+//   - the accumulators hold four adjacent subcarriers of a row per lane
+//     (build_g's column order) and go straight to HBM as 16-byte streaming
+//     stores into the packed or stacked layout, with no workspace.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,6 +102,8 @@
 #include <type_traits>
 
 #include "render_tables.cuh"
+#include "tc_operands.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -339,12 +381,386 @@ cudaError_t launch(const float* gry, const float* grz, const float* gty,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core design: float32 at f32 grade, panels of 48 rows or more
+// (the wrapper routes; ops/kernels/render.py tensor_core_route)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using render::Split;
+using tcop::kGPlane;
+using tcop::kKt;
+using tcop::kNG;
+using tcop::kPc;
+
+constexpr int kConsumers = 128;      // one warpgroup: wgmma and stores
+constexpr int kGroup = 128;          // 4 warps: the E and g of a step
+constexpr int kGroups = 2;           // producer groups: group g, stage g
+constexpr int kThreads = kConsumers + kGroups * kGroup;
+constexpr int kHandoff = kConsumers + kGroup;   // a stage's two sides
+constexpr int kM = 64;               // rows (q) per tile: the products' rows
+constexpr int kEPlane = kM * kPc;    // floats of one E plane
+// 2 stages of E (re hi, re lo, im hi, im lo) and of g (hi, lo): 131,072
+// bytes, one block per SM.
+constexpr size_t kSmemBytes =
+    sizeof(float) * 2 * (4 * kEPlane + 2 * kGPlane);
+// Named barriers: stage s full (producers arrive, consumers wait) and
+// empty (the reverse).
+constexpr int kFull = 1, kEmpty = 3;
+static_assert(kGroup == 4 * 32 && kPc == 32, "a producer warp per 8 "
+              "paths of a chunk");
+
+struct Args {
+  const float *gry, *grz, *gty, *gtz, *amp, *psi, *omega;
+  float* out;               // packed [U, Q, 2*S*K] or stacked [2, U, Q, S*K]
+  int U, P, r1, t1, t2, T, Q, K, S, n_sa;
+  int n_rt, n_items;        // row tiles; users x row tiles
+  int n_ch, n_kt, n_steps;  // path chunks, column tiles, steps per item
+  int packed, vec;          // vec: 16-byte stores (K % 4 == 0, aligned out)
+};
+
+// Step st of an item (one user and row tile): output tile (slot s, columns
+// k0 .. k0 + kKt - 1 of the slot) and path chunk. With one chunk, E is
+// built at the item's first step and kept for every tile; with more, every
+// step builds its chunk's E and the tile's sum runs over its n_ch steps.
+struct Step {
+  int chunk, s, k0;
+};
+
+__device__ __forceinline__ Step step_at(const Args& a, int st) {
+  Step x;
+  int tile = st;
+  x.chunk = 0;
+  if (a.n_ch > 1) {
+    tile = st / a.n_ch;
+    x.chunk = st - tile * a.n_ch;
+  }
+  x.s = tile / a.n_kt;
+  x.k0 = (tile - x.s * a.n_kt) * kKt;
+  return x;
+}
+
+// The phase of RX element r = nr r1 + mr of a path, mr gry + nr grz, and
+// that of row group G = r t2 + n (TX n of RX element r), n gtz + the RX
+// phase, rounded as the plain version rounds each product.
+__device__ __forceinline__ float rx_phase(const Args& a, int r, float gry,
+                                          float grz) {
+  const int nr = r / a.r1;
+  return __fadd_rn(__fmul_rn(static_cast<float>(r - nr * a.r1), gry),
+                   __fmul_rn(static_cast<float>(nr), grz));
+}
+__device__ __forceinline__ float group_phase(const Args& a, int G, float gry,
+                                             float grz, float gtz) {
+  const int r = G / a.t2;
+  return __fadd_rn(__fmul_rn(static_cast<float>(G - r * a.t2), gtz),
+                   rx_phase(a, r, gry, grz));
+}
+
+// Producers: E of rows q0 .. q0 + kM - 1 and the chunk's paths as the
+// path sum's A operand [kM x kPc] in four K-major planes (re hi, re lo,
+// im hi, im lo): depth p is path p of the chunk, the order of G's rows.
+// E[q, p] = a_rx[r, p] a_tx[t, p] for q = r T + t, t = n t1 + m. Warp w,
+// lane e + 4 rr (paths 8 w + 4 h2 + e, h2 < 2) writes rows 8 i + rr,
+// i < 8: for each (i, h2) the warp fills one core matrix, without bank
+// conflicts. Rows past Q and paths past P are zeros.
+__device__ __forceinline__ void build_e(const Args& a, int q0,
+                                        const bool (&ok)[2],
+                                        const float (&gry)[2],
+                                        const float (&grz)[2],
+                                        const float (&gty)[2],
+                                        const float (&gtz)[2], int w, int e,
+                                        int rr, float* ep) {
+  float2 v[2][8];
+  if (a.t1 == 8) {
+    // Separable: row 8 i + rr is TX m = rr of row group G = q0 / 8 + i (q0
+    // is a multiple of 8), E = ey[rr] ez[G]. Lane (e, rr) computes ey[rr]
+    // and ez of group q0 / 8 + rr for its paths and takes ez[G] from lane
+    // (e, i).
+    const float rf = static_cast<float>(rr);
+    float ph[4];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      ph[2 * h2] = __fmul_rn(rf, gty[h2]);
+      ph[2 * h2 + 1] = group_phase(a, q0 / 8 + rr, gry[h2], grz[h2],
+                                   gtz[h2]);
+    }
+    float2 yz[4];
+    render::phasors(ph, yz);
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const float2 ez = yz[2 * h2 + 1];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 z = make_float2(__shfl_sync(~0u, ez.x, e + 4 * i),
+                                     __shfl_sync(~0u, ez.y, e + 4 * i));
+        v[h2][i] = render::cmul(yz[2 * h2], z);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      float ph[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int q = q0 + 8 * i + rr;
+        const int r = q / a.T, tt = q - r * a.T;
+        const int n = tt / a.t1;
+        ph[i] = __fadd_rn(
+            __fadd_rn(__fmul_rn(static_cast<float>(tt - n * a.t1), gty[h2]),
+                      __fmul_rn(static_cast<float>(n), gtz[h2])),
+            rx_phase(a, r, gry[h2], grz[h2]));
+      }
+      render::phasors(ph, v[h2]);
+    }
+  }
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = 8 * i + rr;
+      const float2 z = ok[h2] && q0 + row < a.Q ? v[h2][i]
+                                                : make_float2(0.f, 0.f);
+      const Split re = render::split(z.x), im = render::split(z.y);
+      const int o = wg::offset(row, 8 * w + 4 * h2 + e, kM);
+      ep[o] = __uint_as_float(re.hi);
+      ep[kEPlane + o] = __uint_as_float(re.lo);
+      ep[2 * kEPlane + o] = __uint_as_float(im.hi);
+      ep[3 * kEPlane + o] = __uint_as_float(im.lo);
+    }
+  }
+}
+
+// Producer group g: E (at an item's first step, or at every step with
+// more than one chunk) and g of the block's steps k = g, g + 2, ... into
+// stage g.
+template <bool kOneChunk>
+__device__ __forceinline__ void produce(const Args& a, int g, float* e_st,
+                                        float* g_st) {
+  const int id = threadIdx.x - kConsumers - g * kGroup;
+  const int w = id >> 5, lane = id & 31;
+  const int e = lane & 3, rr = lane >> 2;
+  float* gp = g_st + g * 2 * kGPlane;
+  int k = 0, n = 0;                  // k: the step, n: the item
+  for (int it = blockIdx.x; it < a.n_items; it += gridDim.x, ++n) {
+    const int ut = it / a.n_rt;
+    const size_t u = static_cast<size_t>(ut);
+    const int q0 = (it - ut * a.n_rt) * kM;
+    for (int st = 0; st < a.n_steps; ++st, ++k) {
+      if ((k & 1) != g) continue;
+      const Step x = step_at(a, st);
+      const bool build = !kOneChunk || st == 0;
+      bool ok[2];
+      float gry[2] = {0.f, 0.f}, grz[2] = {0.f, 0.f}, gty[2] = {0.f, 0.f},
+            gtz[2] = {0.f, 0.f}, om[2] = {0.f, 0.f}, ps[2] = {0.f, 0.f};
+      float2 ca[2];
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {   // the lane's two paths
+        const int p = x.chunk * kPc + 8 * w + 4 * h2 + e;
+        ok[h2] = p < a.P;
+        float am = 0.f;
+        if (ok[h2]) {
+          const size_t row = u * a.P + p;
+          if (build) {
+            gry[h2] = __ldg(a.gry + row);
+            grz[h2] = __ldg(a.grz + row);
+            gty[h2] = __ldg(a.gty + row);
+            gtz[h2] = __ldg(a.gtz + row);
+          }
+          om[h2] = __ldg(a.omega + row);
+          ps[h2] = __ldg(a.psi + (u * a.S + x.s) * a.P + p);
+          am = __ldg(a.amp + (u * a.n_sa + (a.n_sa > 1 ? x.s : 0)) * a.P +
+                     p);
+        }
+        ca[h2] = make_float2(am, 0.f);
+      }
+      if (k >= 2) render::bar_sync(kEmpty + g, kHandoff);   // stage drained
+      if (build)
+        build_e(a, q0, ok, gry, grz, gty, gtz, w, e, rr,
+                e_st + (kOneChunk ? n & 1 : g) * 4 * kEPlane);
+      tcop::build_g(om, ps, ca, x.k0, w, e, rr & 3, rr >> 2, gp);
+      // Written through the generic proxy, read by wgmma through the async
+      // proxy.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      render::bar_arrive(kFull + g, kHandoff);
+    }
+  }
+  if (k > g) render::bar_sync(kEmpty + g, kHandoff);     // the last release
+}
+
+// Consumers: D3 = Er . G and D4 = Ei . G of the stages at 3xTF32, plus
+// D3 and D4 unless `acc` is 0: H = D3(re) - D4(im) + j (D3(im) + D4(re)).
+// The first products start the sums (acc 0) and every k-step count is
+// fixed: no register of a product is written outside the products, so
+// ptxas keeps them in flight together.
+__device__ __forceinline__ void path_sum(float (&d3)[64], float (&d4)[64],
+                                         const float* e, const float* g,
+                                         int acc) {
+  const uint64_t rh = wg::desc(e, kM), rl = wg::desc(e + kEPlane, kM);
+  const uint64_t ih = wg::desc(e + 2 * kEPlane, kM);
+  const uint64_t il = wg::desc(e + 3 * kEPlane, kM);
+  const uint64_t gh = wg::desc(g, kNG), gl = wg::desc(g + kGPlane, kNG);
+  wg::fence_regs(d3);
+  wg::fence_regs(d4);
+  wg::fence();
+#pragma unroll
+  for (int ks = 0; ks < kPc / 8; ++ks) {
+    const uint64_t bh = wg::step(gh, ks, kNG), bl = wg::step(gl, ks, kNG);
+    const uint64_t ah = wg::step(rh, ks, kM), al = wg::step(rl, ks, kM);
+    const uint64_t jh = wg::step(ih, ks, kM), jl = wg::step(il, ks, kM);
+    wg::mma_n128_ss(d3, al, bh, ks ? 1 : acc);                // lo . hi
+    wg::mma_n128_ss(d4, jl, bh, ks ? 1 : acc);
+    wg::mma_n128_ss(d3, ah, bl);                              // hi . lo
+    wg::mma_n128_ss(d4, jh, bl);
+    wg::mma_n128_ss(d3, ah, bh);                              // hi . hi
+    wg::mma_n128_ss(d4, jh, bh);
+  }
+  wg::commit();
+  wg::wait_all();
+  wg::fence_regs(d3);
+  wg::fence_regs(d4);
+}
+
+// Consumers: H of rows ra and ra + 8 of the row tile and the step's 64
+// columns, as float4 streaming stores of four adjacent subcarriers into
+// each plane; rows past Q and columns past K skipped.
+__device__ __forceinline__ void store_h(const Args& a, size_t u, int q0,
+                                        const Step& x, int ra, int t,
+                                        const float (&d3)[64],
+                                        const float (&d4)[64]) {
+  const size_t sk = static_cast<size_t>(a.S) * a.K;
+  const size_t stride = a.packed ? 2 * sk : sk;
+  const int cols = render::imin(kKt, a.K - x.k0);
+  const size_t c0 = static_cast<size_t>(x.s) * a.K + x.k0;
+  float* out_r = a.out + (u * a.Q + q0) * stride + c0;
+  float* out_i = a.packed ? out_r + sk
+                          : a.out + ((a.U + u) * a.Q + q0) * sk + c0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = ra + 8 * h;
+    if (q0 + row >= a.Q) continue;
+    float* dr = out_r + row * stride;
+    float* di = out_i + row * stride;
+#pragma unroll
+    for (int J = 0; J < 4; ++J) {
+      const int kl = 16 * J + 4 * t;
+      if (kl >= cols) continue;
+      float vr[4], vi[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 4 * (4 * J + i) + 2 * h;
+        vr[i] = d3[c] - d4[c + 1];
+        vi[i] = d3[c + 1] + d4[c];
+      }
+      if (a.vec) {                   // cols is a multiple of 4 here
+        __stcs(reinterpret_cast<float4*>(dr + kl),
+               make_float4(vr[0], vr[1], vr[2], vr[3]));
+        __stcs(reinterpret_cast<float4*>(di + kl),
+               make_float4(vi[0], vi[1], vi[2], vi[3]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (kl + i < cols) {
+            __stcs(dr + kl + i, vr[i]);
+            __stcs(di + kl + i, vi[i]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// kOneChunk: P <= kPc, E built once per item (user and row tile) and kept
+// for every slot and column tile; else every step builds its chunk's E
+// and the output tile sums over n_ch steps.
+template <bool kOneChunk>
+__global__ void __launch_bounds__(kThreads, 1)
+render_fwd_kernel_tc(Args a) {
+  extern __shared__ float4 smem4[];
+  float* e_st = reinterpret_cast<float*>(smem4);   // [2][4][kEPlane]
+  float* g_st = e_st + 2 * 4 * kEPlane;            // [2][hi, lo][kGPlane]
+  if (threadIdx.x >= kConsumers) {
+    produce<kOneChunk>(a, (threadIdx.x - kConsumers) / kGroup, e_st, g_st);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int ra = 16 * (threadIdx.x >> 5) + (lane >> 2), t = lane & 3;
+  float d3[64], d4[64];              // column block j: d[4 j .. 4 j + 3]
+  int k = 0, n = 0;                  // k: the step, n: the item
+  for (int it = blockIdx.x; it < a.n_items; it += gridDim.x, ++n) {
+    const int ut = it / a.n_rt;
+    const size_t u = static_cast<size_t>(ut);
+    const int q0 = (it - ut * a.n_rt) * kM;
+    if (kOneChunk) {
+      const float* e = e_st + (n & 1) * 4 * kEPlane;
+      for (int st = 0; st < a.n_steps; ++st, ++k) {
+        const int sg = k & 1;
+        render::bar_sync(kFull + sg, kHandoff);      // E (st 0) and g
+        path_sum(d3, d4, e, g_st + sg * 2 * kGPlane, 0);
+        render::bar_arrive(kEmpty + sg, kHandoff);   // may be rebuilt
+        store_h(a, u, q0, step_at(a, st), ra, t, d3, d4);
+      }
+    } else {
+      for (int st = 0; st < a.n_steps; st += a.n_ch) {
+        for (int c = 0; c < a.n_ch; ++c, ++k) {
+          const int sg = k & 1;
+          render::bar_sync(kFull + sg, kHandoff);    // E and g of step k
+          path_sum(d3, d4, e_st + sg * 4 * kEPlane, g_st + sg * 2 * kGPlane,
+                   c);
+          render::bar_arrive(kEmpty + sg, kHandoff);
+        }
+        store_h(a, u, q0, step_at(a, st), ra, t, d3, d4);
+      }
+    }
+  }
+}
+
+cudaError_t launch(const float* gry, const float* grz, const float* gty,
+                   const float* gtz, const float* amp, const float* psi,
+                   const float* omega, void* out, const Shape& s, int packed,
+                   cudaStream_t stream) {
+  Args a{gry, grz, gty, gtz, amp, psi, omega, static_cast<float*>(out),
+         s.U, s.P, s.r1, s.t1, s.t2, s.T, s.Q, s.K, s.S, s.n_sa,
+         0, 0, 0, 0, 0, packed, 0};
+  a.n_rt = (s.Q + kM - 1) / kM;
+  a.n_ch = (s.P + kPc - 1) / kPc;
+  a.n_kt = (s.K + kKt - 1) / kKt;
+  const long long items = static_cast<long long>(a.n_rt) * s.U;
+  const long long tiles = static_cast<long long>(s.S) * a.n_kt;
+  const long long steps = a.n_ch > 1 ? tiles * a.n_ch : tiles;
+  if (items > 0x3fffffff || steps > 0x3fffffff) return cudaErrorInvalidValue;
+  a.n_items = static_cast<int>(items);
+  a.n_steps = static_cast<int>(steps);
+  a.vec = s.K % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const auto kernel = a.n_ch == 1 ? render_fwd_kernel_tc<true>
+                                  : render_fwd_kernel_tc<false>;
+  const int smem = static_cast<int>(kSmemBytes);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long full = static_cast<long long>(per_sm) * n_sm;
+  const int grid = static_cast<int>(items < full ? items : full);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Launches the render on `stream`. Pointers are device pointers to
 // contiguous arrays: gry..gtz and omega [U, P], amp [U, n_sa*P],
 // psi [U, n_s*P] float32, out as described above, float32 or (out_bf16)
-// bf16. passes: 3 (3xTF32) or 1 (bf16 operands). Returns the cudaError_t
+// bf16. passes: 3 (3xTF32) or 1 (bf16 operands). tensor_cores runs the
+// tensor-core design (passes 3, float32 out only). Returns the cudaError_t
 // of the launch (0 on success); the kernel itself is not waited for.
 extern "C" int render_fwd_launch(const float* gry, const float* grz,
                                  const float* gty, const float* gtz,
@@ -352,12 +768,17 @@ extern "C" int render_fwd_launch(const float* gry, const float* grz,
                                  const float* omega, void* out, int n_users,
                                  int n_paths, int r1, int r2, int t1, int t2,
                                  int n_k, int n_s, int n_sa, int packed,
-                                 int passes, int out_bf16, void* stream) {
+                                 int passes, int out_bf16, int tensor_cores,
+                                 void* stream) {
   if (n_users == 0) return cudaSuccess;
   if (passes != 1 && passes != 3) return cudaErrorInvalidValue;
+  if (tensor_cores && (passes != 3 || out_bf16)) return cudaErrorInvalidValue;
   const Shape s =
       make_shape(n_users, n_paths, r1, r2, t1, t2, n_k, n_s, n_sa);
   const auto st = static_cast<cudaStream_t>(stream);
+  if (tensor_cores)
+    return tc::launch(gry, grz, gty, gtz, amp, psi, omega, out, s, packed,
+                      st);
   if (passes == 3 && !out_bf16)
     return launch<3, float>(gry, grz, gty, gtz, amp, psi, omega, out, s,
                             packed, st);

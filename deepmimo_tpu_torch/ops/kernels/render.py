@@ -23,9 +23,18 @@ Source note.
   the tensor cores (3 TF32 passes at 495 TFLOP/s), so bytes bound both
   (the backward about equally with its products).
 - What the design does about it: each product is a real GEMM per tile
-  on the tensor cores, ``mma.sync`` m16n8k8 in 3xTF32 (each operand split
-  into tf32 hi and lo, lo*hi + hi*lo + hi*hi in FP32 accumulators, ~2^-21
-  relative; no one-pass TF32 and no FP32-FMA main loop). Tiles of 64 rows
+  on the tensor cores in 3xTF32 (each operand split into tf32 hi and lo,
+  lo*hi + hi*lo + hi*hi in FP32 accumulators, ~2^-21 relative; no
+  one-pass TF32 and no FP32-FMA main loop). The forward has two designs
+  behind one launcher, picked by :func:`tensor_core_route` from dtype,
+  mode and shape alone: float32 output at f32 grade on panels of 48 rows
+  or more (the headline's 8 x 8 among them) runs the path sum as
+  warpgroup GEMMs on ``wgmma``
+  (``tc::render_fwd_kernel_tc``: E built once per user and row tile and
+  kept for every slot and column tile, G by the beam gain's producer,
+  2.1 ms at the headline against 4.2); everything else, and the
+  backward, runs ``mma.sync`` m16n8k8, as below. ``TC_LAUNCHES`` counts
+  the launches of the ``wgmma`` design. Tiles of 64 rows
   x 64 columns and chunks of 32 paths keep shared memory bounded, so the
   kernels take any Q, S*K and P. E and g come from per-tile tables
   (separable panel responses, a fine and a coarse OFDM table, as the TPU
@@ -57,7 +66,8 @@ under autograd, the backward kernel; anything a kernel does not take
 raises. CPU tensors take the plain versions :func:`fused_render_reference`
 and :func:`fused_render_bwd_reference`. ``LAUNCHES`` and ``BWD_LAUNCHES``
 count kernel launches, ``MODE_LAUNCHES`` and ``BWD_MODE_LAUNCHES`` the
-launches of each mode (:func:`mode_key`).
+launches of each mode (:func:`mode_key`; the forward's launches that
+took the ``wgmma`` design count under "tc" instead, as in ``TC_LAUNCHES``).
 """
 from __future__ import annotations
 
@@ -72,9 +82,13 @@ from ...utils.profiling import span
 LAUNCHES = 0
 #: Number of backward kernel launches (``csrc/render_bwd.cu``).
 BWD_LAUNCHES = 0
-#: Forward and backward launches of each mode, keyed by :func:`mode_key`.
+#: Forward and backward launches of each mode, keyed by :func:`mode_key`,
+#: the forward's launches of the tensor-core design under "tc" instead.
 MODE_LAUNCHES: dict = {}
 BWD_MODE_LAUNCHES: dict = {}
+#: Forward launches that took the tensor-core design
+#: (:func:`tensor_core_route`).
+TC_LAUNCHES = 0
 
 #: Product passes of each ``matmul_dtype``: 3xTF32, or one pass on bf16
 #: operands.
@@ -310,6 +324,24 @@ def _check_layout(name, x, shape, dev, dtype=torch.float32):
                          f"on {x.device}")
 
 
+def tensor_core_route(rx_shape, tx_shape, mm_dtype: str = "float32",
+                      out_dtype: str = "float32") -> bool:
+    """Does the forward kernel run its tensor-core design at this shape?
+
+    Float32 output at f32 grade (``mm_dtype`` "float32"/"highest") on
+    panels of Q = R*T >= 48 rows. There the tensor-core design took
+    0.43-0.99 of the ``mma.sync`` design's time on an H100 at every shape
+    measured (Q = 48 to 144, K = 1 to 100, 10 to 40 paths, 1 to 4 slots,
+    separable panels or not; tools/render_crossover.py, PERF.md). The
+    bf16 modes and the small panels (Q < 48, the quickstart's 8 x 1 among
+    them) run the ``mma.sync`` design, as before the tensor-core design
+    came. Reads the dtype, the mode and the shape alone;
+    :func:`kernel_fits` decides what the kernel takes at all."""
+    q = rx_shape[0] * rx_shape[1] * tx_shape[0] * tx_shape[1]
+    return (mm_passes(mm_dtype) == 3 and
+            out_torch_dtype(out_dtype) == torch.float32 and q >= 48)
+
+
 def _check_cuda(dev, rx_shape, tx_shape, p, n_k, n_s, what):
     if dev.type != "cuda":
         raise ValueError(f"{what} runs on CUDA or CPU tensors, not {dev}")
@@ -323,7 +355,7 @@ def _check_cuda(dev, rx_shape, tx_shape, p, n_k, n_s, what):
 def _render(args, rx_shape, tx_shape, n_k, packed, out, mm_dtype="float32",
             out_dtype="float32"):
     """The forward without autograd: kernel on CUDA, plain on the CPU."""
-    global LAUNCHES
+    global LAUNCHES, TC_LAUNCHES
     u, p, n_s, n_sa = _check_inputs(args, rx_shape, tx_shape, n_k)
     passes = mm_passes(mm_dtype)
     dtype = out_torch_dtype(out_dtype)
@@ -341,16 +373,18 @@ def _render(args, rx_shape, tx_shape, n_k, packed, out, mm_dtype="float32",
     _check_cuda(dev, (r1, r2), (t1, t2), p, n_k, n_s, "fused_render")
     if out is None:
         out = torch.empty(shape, dtype=dtype, device=dev)
+    tc = tensor_core_route((r1, r2), (t1, t2), mm_dtype, out_dtype)
     with span("dm.kernel.render_fwd"), torch.cuda.device(dev):
-        launch = _build.launcher("render_fwd", 8, 12)
+        launch = _build.launcher("render_fwd", 8, 13)
         rc = launch(*(x.data_ptr() for x in args), out.data_ptr(), u, p,
                     r1, r2, t1, t2, n_k, n_s, n_sa, int(bool(packed)),
-                    passes, int(dtype == torch.bfloat16),
+                    passes, int(dtype == torch.bfloat16), int(tc),
                     torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"render_fwd launch failed with CUDA error {rc}")
     LAUNCHES += 1
-    _count(MODE_LAUNCHES, mode_key(mm_dtype, out_dtype))
+    TC_LAUNCHES += tc
+    _count(MODE_LAUNCHES, "tc" if tc else mode_key(mm_dtype, out_dtype))
     return out
 
 

@@ -411,3 +411,260 @@ def test_cuda_bf16_planes_reach_the_host(cuda):
     finally:
         for k, v in old.items():
             dmt.config.set(k, v)
+
+
+# ----------------------------------------------------------------------------
+# The tensor-core design: its route and its factoring, emulated
+# ----------------------------------------------------------------------------
+
+# Both designs' ms at 131,072 users on an H100 (NVIDIA H100 80GB HBM3,
+# 700 W; deepmimo_tpu_torch/tools/render_crossover.py), f32 at f32 grade:
+# (rx_shape, tx_shape, K, P, S): (mma.sync, tensor cores)
+CROSSOVER_MS = {
+    ((1, 1), (8, 1), 1, 25, 1): (2.4119, 1.8218),
+    ((1, 1), (8, 1), 64, 25, 1): (3.4171, 1.8398),
+    ((1, 1), (4, 4), 1, 25, 1): (2.4717, 2.5855),
+    ((1, 1), (4, 4), 64, 25, 1): (3.5318, 2.7042),
+    ((1, 1), (8, 4), 1, 25, 1): (2.6709, 1.8940),
+    ((1, 1), (8, 4), 64, 25, 1): (3.9236, 2.0839),
+    ((1, 1), (8, 6), 64, 25, 1): (4.0028, 2.0122),
+    ((1, 1), (6, 8), 1, 25, 1): (2.6309, 2.5954),
+    ((1, 1), (6, 8), 64, 25, 1): (3.9943, 2.6830),
+    ((1, 1), (8, 7), 64, 25, 1): (4.1242, 2.0023),
+    ((1, 1), (8, 8), 1, 25, 1): (2.9502, 1.9132),
+    ((1, 1), (8, 8), 16, 25, 1): (2.8819, 1.8862),
+    ((1, 1), (8, 8), 64, 25, 1): (4.2195, 2.0004),
+    ((1, 1), (8, 8), 100, 25, 1): (8.0436, 3.9646),
+    ((1, 1), (8, 8), 64, 10, 1): (3.5959, 2.0180),
+    ((1, 1), (8, 8), 64, 40, 1): (7.2598, 3.6273),
+    ((1, 1), (8, 8), 64, 25, 4): (16.8427, 7.3083),
+    ((1, 1), (4, 16), 64, 25, 1): (4.5689, 2.5589),
+    ((1, 1), (4, 16), 1, 25, 1): (3.0291, 2.6633),
+    ((2, 2), (4, 4), 64, 25, 1): (4.7792, 2.5589),
+    ((2, 2), (4, 4), 1, 25, 1): (3.2930, 2.6281),
+    ((1, 1), (8, 9), 1, 25, 1): (5.3719, 3.8212),
+    ((1, 1), (8, 9), 64, 25, 1): (7.6858, 3.9164),
+    ((1, 1), (8, 10), 64, 25, 1): (7.7657, 3.9232),
+    ((1, 1), (5, 16), 1, 25, 1): (5.7788, 5.1407),
+    ((1, 1), (8, 12), 64, 25, 1): (8.2164, 3.9563),
+    ((1, 1), (8, 14), 64, 25, 1): (8.2676, 4.1682),
+    ((2, 1), (8, 8), 1, 25, 1): (5.8809, 3.8358),
+    ((2, 1), (8, 8), 64, 25, 1): (8.6181, 4.0983),
+    ((2, 1), (8, 9), 1, 25, 1): (7.9942, 5.7236),
+    ((1, 1), (8, 18), 64, 25, 1): (11.6565, 5.8928),
+}
+ROUTE_MODES = [("float32", "float32"), ("highest", "float32"),
+               ("bfloat16", "float32"), ("default", "float32"),
+               ("float32", "bfloat16"), ("bfloat16", "bfloat16")]
+
+
+@pytest.mark.parametrize("mm, out_dtype", ROUTE_MODES)
+def test_tensor_core_route_sweep(mm, out_dtype):
+    """The route depends on dtype, mode and shape alone: only float32
+    output at f32 grade may take the tensor cores, on panels of 48 rows or
+    more. At every shape of CROSSOVER_MS that it sends to the tensor cores
+    they were no slower on the card, and every shape of 48 rows or more
+    where they were more than 10% faster goes to them; the small panels of
+    the quickstart and its like (Q = 8, 16, 32) stay on mma.sync at K = 1
+    and 64 alike."""
+    f32 = mm in ("float32", "highest") and out_dtype == "float32"
+    for r in ((1, 1), (2, 1), (2, 2)):
+        for tx in ((1, 1), (8, 1), (4, 4), (3, 5), (8, 4), (8, 6), (6, 8),
+                   (8, 8), (4, 16), (8, 9), (8, 10), (8, 12), (16, 8),
+                   (16, 16)):
+            q = r[0] * r[1] * tx[0] * tx[1]
+            route = kr.tensor_core_route(r, tx, mm, out_dtype)
+            assert route in (False, True)
+            assert route == (f32 and q >= 48), (r, tx)
+    for (rx, tx, k, p, s), (mma, tc) in CROSSOVER_MS.items():
+        route = kr.tensor_core_route(rx, tx, mm, out_dtype)
+        q = rx[0] * rx[1] * tx[0] * tx[1]
+        assert route == (f32 and q >= 48), (rx, tx, k, p, s)
+        if route:
+            assert tc <= mma, (rx, tx, k, p, s)
+        if f32 and q >= 48 and tc * 1.1 < mma:
+            assert route, (rx, tx, k, p, s)
+    for k in (1, 64):
+        for q, tx in ((8, (8, 1)), (16, (4, 4)), (32, (8, 4)), (64, (8, 8))):
+            assert kr.tensor_core_route((1, 1), tx, mm, out_dtype) == \
+                (f32 and q == 64), (q, k)
+        assert kr.tensor_core_route((2, 1), (8, 8), mm, out_dtype) == f32
+    with pytest.raises(ValueError, match="matmul_dtype"):
+        kr.tensor_core_route((1, 1), (8, 8), "half")
+    with pytest.raises(ValueError, match="out_dtype"):
+        kr.tensor_core_route((1, 1), (8, 8), "float32", "half")
+
+
+def test_tensor_core_route_reads_only_dtype_mode_and_shape():
+    """No setting or environment variable enters the pick: the route's
+    arguments are the panel shapes, the mode and the output dtype."""
+    import inspect
+    assert list(inspect.signature(kr.tensor_core_route).parameters) == [
+        "rx_shape", "tx_shape", "mm_dtype", "out_dtype"]
+    src = inspect.getsource(kr.tensor_core_route)
+    assert "config" not in src and "environ" not in src
+
+
+def test_cpu_render_launches_nothing():
+    """CPU tensors take the plain version: neither launch counter moves."""
+    rx, tx, u, k, s, per_slot, packed = CASES["headline"]
+    args = [torch.from_numpy(a) for a in _inputs(u, s, per_slot)]
+    before = kr.LAUNCHES, kr.TC_LAUNCHES, dict(kr.MODE_LAUNCHES)
+    kr.fused_render(*args, rx, tx, k, packed)
+    assert (kr.LAUNCHES, kr.TC_LAUNCHES, dict(kr.MODE_LAUNCHES)) == before
+
+
+def _mm3(a, b):
+    """lo.hi + hi.lo + hi.hi in float32: the kernel's 3xTF32 product."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tensor_core_emulation(gry, grz, gty, gtz, amp, psi, omega, rx_shape,
+                           tx_shape, n_k, packed):
+    """The tensor-core design's factoring in plain float32 torch, laid out
+    as csrc/render_fwd.cu lays it out: per tile of 64 rows, path chunk of
+    32 and 64 subcarriers of one slot, D3 = Er . G and D4 = Ei . G at
+    3xTF32 with G's columns in tc_operands.cuh's order (column 8 j + 2 t +
+    c is part c of subcarrier 16 (j / 4) + 4 t + j % 4), H = D3(re) -
+    D4(im) + j (D3(im) + D4(re)) read back from those columns."""
+    u, p = omega.shape
+    n_s, n_sa = psi.shape[1] // p, amp.shape[1] // p
+    arx_r, arx_i = kr.response(gry, grz, *rx_shape)
+    atx_r, atx_i = kr.response(gty, gtz, *tx_shape)
+    q = arx_r.shape[1] * atx_r.shape[1]
+    er = (arx_r[:, :, None] * atx_r[:, None] -
+          arx_i[:, :, None] * atx_i[:, None]).reshape(u, q, p)
+    ei = (arx_r[:, :, None] * atx_i[:, None] +
+          arx_i[:, :, None] * atx_r[:, None]).reshape(u, q, p)
+    rows, chunks = -(-q // 64) * 64, -(-p // 32) * 32
+    er = torch.nn.functional.pad(er, (0, chunks - p, 0, rows - q))
+    ei = torch.nn.functional.pad(ei, (0, chunks - p, 0, rows - q))
+    gr, gi = kr.ofdm_gains(amp, psi, omega, n_k)          # [u, s, p, k]
+    n_kt = -(-n_k // 64)
+    gr = torch.nn.functional.pad(gr, (0, 64 * n_kt - n_k, 0, chunks - p))
+    gi = torch.nn.functional.pad(gi, (0, 64 * n_kt - n_k, 0, chunks - p))
+    j, t, c = torch.meshgrid(torch.arange(16), torch.arange(4),
+                             torch.arange(2), indexing="ij")
+    sub = (16 * (j // 4) + 4 * t + j % 4).reshape(-1)    # column -> k
+    part = c.reshape(-1)
+    col = (8 * j + 2 * t + c).reshape(-1)
+    h = torch.zeros(2, u, rows, n_s, 64 * n_kt)
+    for s in range(n_s):
+        for kt in range(n_kt):
+            ks = 64 * kt + sub
+            g = torch.where(part == 0, gr[:, s][..., ks], gi[:, s][..., ks])
+            G = torch.zeros(u, chunks, 128)
+            G[..., col] = g
+            for r0 in range(0, rows, 64):
+                d3 = d4 = 0
+                for p0 in range(0, chunks, 32):
+                    b = G[:, p0:p0 + 32]
+                    d3 = d3 + _mm3(er[:, r0:r0 + 64, p0:p0 + 32], b)
+                    d4 = d4 + _mm3(ei[:, r0:r0 + 64, p0:p0 + 32], b)
+                re, im = col[part == 0], col[part == 1]
+                kk = 64 * kt + sub[part == 0]
+                h[0, :, r0:r0 + 64, s, kk] = d3[..., re] - d4[..., im]
+                h[1, :, r0:r0 + 64, s, kk] = d3[..., im] + d4[..., re]
+    h = h[:, :, :q, :, :n_k].reshape(2, u, q, n_s * n_k)
+    return torch.cat((h[0], h[1]), -1) if packed else h
+
+
+@pytest.mark.parametrize("name, shape", [
+    ("headline", ((1, 1), (8, 8), 64, 1, False, True, 25)),
+    ("two_row_tiles", ((2, 1), (8, 8), 16, 1, False, False, 25)),
+    ("ragged_columns", ((1, 1), (8, 8), 100, 1, False, True, 25)),
+    ("two_chunks_slots", ((1, 1), (8, 6), 20, 2, True, True, 37)),
+    ("ragged_rows", ((1, 1), (8, 12), 8, 3, True, False, 11))])
+def test_tensor_core_factoring_matches_plain_version(name, shape):
+    """The tensor-core design's tiles, column order and H assembly,
+    emulated on the CPU, within the kernel's RTOL of the plain version:
+    two row tiles, a ragged column tile, two path chunks with per-slot
+    amplitudes, a ragged row tile over three slots, both layouts."""
+    rx, tx, k, s, per_slot, packed, p = shape
+    args = [torch.from_numpy(a) for a in _inputs(5, s, per_slot, seed=3,
+                                                   p=p)]
+    got = _tensor_core_emulation(*args, rx, tx, k, packed)
+    want = kr.fused_render_reference(*args, rx, tx, k, packed)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= \
+        RTOL * float(want.abs().max())
+
+
+# name: (rx_shape, tx_shape, U, K, S, per-slot amp, packed, P)
+CUDA_TC_CASES = {
+    "headline": ((1, 1), (8, 8), 4111, 64, 1, False, True, 25),
+    "four_slots": ((1, 1), (8, 8), 2053, 64, 4, True, True, 25),
+    "p37": ((1, 1), (8, 8), 2053, 64, 1, False, True, 37),
+    "p40_two_slots": ((1, 1), (8, 8), 2053, 64, 2, True, True, 40),
+    "rx2_q128": ((2, 1), (8, 8), 2053, 64, 1, False, True, 25),
+    "sk100": ((1, 1), (8, 8), 1031, 100, 1, False, True, 25),
+    "u1": ((1, 1), (8, 8), 1, 64, 1, False, True, 25),
+    "u2125": ((1, 1), (8, 8), 2125, 64, 1, False, True, 25),
+    "stacked": ((1, 1), (8, 8), 2053, 64, 2, False, False, 25),
+    # off the separable 8-wide panel; K = 17: scalar stores
+    "panel_4x16_k17": ((1, 1), (4, 16), 1031, 17, 3, True, True, 25),
+    "q96_ragged_rows": ((1, 1), (8, 12), 1031, 64, 1, False, True, 25),
+    # past the first tile by 8 rows; off the separable panel at K = 1
+    "q72_ragged_rows": ((1, 1), (8, 9), 1031, 64, 1, False, True, 25),
+    "panel_5x16_k1": ((1, 1), (5, 16), 1031, 1, 1, False, True, 25),
+}
+
+
+def _cuda_run(cuda, shape, mm="float32", out_dtype="float32"):
+    """The kernel and its plain version on the card, with the launch
+    counters' steps (LAUNCHES, TC_LAUNCHES)."""
+    rx, tx, u, k, s, per_slot, packed, p = shape
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _inputs(u, s, per_slot, seed=4, p=p)]
+    before = kr.LAUNCHES, kr.TC_LAUNCHES
+    got = kr.fused_render(*args, rx, tx, k, packed, mm_dtype=mm,
+                          out_dtype=out_dtype)
+    want = kr.fused_render_reference(*args, rx, tx, k, packed, mm)
+    torch.cuda.synchronize()
+    steps = kr.LAUNCHES - before[0], kr.TC_LAUNCHES - before[1]
+    return got, want, steps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CUDA_TC_CASES))
+def test_cuda_tensor_core_design_matches_plain_version(cuda, name):
+    """The tensor-core design (one launch, counted in TC_LAUNCHES and
+    under MODE_LAUNCHES["tc"] alone) against the plain version within
+    RTOL * max|H|."""
+    modes = dict(kr.MODE_LAUNCHES)
+    got, want, steps = _cuda_run(cuda, CUDA_TC_CASES[name])
+    assert steps == (1, 1)
+    modes["tc"] = modes.get("tc", 0) + 1
+    assert kr.MODE_LAUNCHES == modes
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= \
+        RTOL * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, shape, mm, out_dtype, tol", [
+    ("quickstart", ((1, 1), (8, 1), 1031, 1, 1, False, True, 25),
+     "float32", "float32", RTOL),
+    ("panel_4x4", ((1, 1), (4, 4), 1031, 64, 1, False, True, 25),
+     "float32", "float32", RTOL),
+    ("panel_8x4", ((1, 1), (8, 4), 1031, 64, 2, True, False, 25),
+     "float32", "float32", RTOL),
+    ("headline_bf16_mm", ((1, 1), (8, 8), 1031, 64, 1, False, True, 25),
+     "bfloat16", "float32", BF16_MM_RTOL),
+    ("headline_bf16_out", ((1, 1), (8, 8), 1031, 64, 1, False, True, 25),
+     "float32", "bfloat16", BF16_OUT_RTOL)])
+def test_cuda_mma_design_keeps_other_shapes(cuda, name, shape, mm,
+                                            out_dtype, tol):
+    """Small panels and the bf16 modes stay on the mma.sync design: one
+    launch, TC_LAUNCHES unmoved and counted under its mode's key, within
+    the mode's bound."""
+    modes = dict(kr.MODE_LAUNCHES)
+    got, want, steps = _cuda_run(cuda, shape, mm, out_dtype)
+    assert steps == (1, 0)
+    key = kr.mode_key(mm, out_dtype)
+    modes[key] = modes.get(key, 0) + 1
+    assert kr.MODE_LAUNCHES == modes
+    assert float((got.float() - want).abs().max()) <= \
+        tol * float(want.abs().max())
