@@ -420,23 +420,6 @@ KERNEL_CASES = [
 ]
 
 
-def _render_design(torch, args, rx, tx, k, packed, out, tensor_cores):
-    """One launch of the forward kernel in float32 at f32 grade into
-    ``out``, on its tensor-core design if ``tensor_cores`` else on
-    ``mma.sync``, whatever ``tensor_core_route`` picks."""
-    from deepmimo_tpu_torch.ops.kernels import _build
-    u, p = args[-1].shape
-    n_s, n_sa = args[5].shape[1] // p, args[4].shape[1] // p
-    rc = _build.launcher("render_fwd", 8, 13)(
-        *(x.data_ptr() for x in args), out.data_ptr(), u, p, *rx, *tx, k,
-        n_s, n_sa, int(packed), 3, 0, int(tensor_cores),
-        torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"render_fwd (tensor_cores={int(tensor_cores)}) "
-                           f"failed with CUDA error {rc}")
-    return out
-
-
 def phase_kernels(torch):
     """The forward kernel in each of FWD_MODES against its plain version in
     the same mode at every KERNEL_CASES shape, the design the route picks
@@ -480,16 +463,19 @@ def phase_kernels(torch):
                 headline[design] = dict(max_abs_err=err, ms=ms,
                                         plain_ms=plain_ms)
                 if design != key:        # the mma.sync design, past the route
-                    h = _render_design(torch, args, rx, tx, k, packed, out,
-                                       False)
+                    def mma():           # uncounted: kr.LAUNCHES stays
+                        kr._launch_fwd(args, out, u, p, *rx, *tx, k, s,
+                                       s if per_slot else 1, packed,
+                                       passes=3, out_bf16=False,
+                                       tensor_cores=False)
+                    mma()
                     torch.cuda.synchronize()
-                    err = float((h - ref).abs().max())
+                    err = float((out - ref).abs().max())
                     if not (math.isfinite(err) and err <= tol * scale):
                         raise AssertionError(f"fused_render {name} {key} "
                                              f"(mma.sync): kernel disagrees "
                                              f"with its plain version")
-                    ms = event_ms(torch, lambda: _render_design(
-                        torch, args, rx, tx, k, packed, out, False), reps=20)
+                    ms = event_ms(torch, mma, reps=20)
                     log(f"[kernel] {entry('fused_render', key)} headline "
                         f"(mma.sync, past the route): kernel {ms:.4f} ms, "
                         f"max_abs_err={err:.3e} rel={err / scale:.3e}")

@@ -95,6 +95,11 @@ MODE_LAUNCHES: dict = {}
 #: Launches that took the tensor-core design (:func:`tensor_core_route`).
 TC_LAUNCHES = 0
 
+#: The launcher's design codes (``mode`` of ``beamgain_launch``): the SIMT
+#: design in float32, with bf16 path-sum operands and in float64, keyed as
+#: ``MODE_LAUNCHES``, and the tensor-core design.
+DESIGNS = {"f32": 0, "bf16_mm": 1, "f64": 2, "tc": 3}
+
 #: Fewest beams that take the tensor-core design: 16 beams fill a quarter
 #: of its 64-row tile.
 TC_MIN_BEAMS = 32
@@ -286,6 +291,23 @@ def _check_codebook(wr, wi, tx_shape, dev, dtype):
     return wr.shape[0]
 
 
+def _launch(args, wr, wi, out, u, p, r1, r2, t1, t2, n_b, n_k, n_s, n_sa,
+            design):
+    """One launch of ``beamgain_launch`` (the only place that spells its C
+    signature) on ``out``'s device and current stream, of the design with
+    code ``design`` (:data:`DESIGNS`); counts nothing (:func:`_beam_gain`
+    counts the library's launches)."""
+    dev = out.device
+    cw = torch.stack((wr.t(), wi.t().neg()), -1)    # conj(W), [T, B, 2]
+    with span("dm.kernel.beam_gain"), torch.cuda.device(dev):
+        launch = _build.launcher("beamgain", 9, 11)
+        rc = launch(*(x.data_ptr() for x in args), cw.data_ptr(),
+                    out.data_ptr(), u, p, r1, r2, t1, t2, n_b, n_k, n_s,
+                    n_sa, design, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"beamgain launch failed with CUDA error {rc}")
+
+
 def _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out,
                mm_dtype="float32"):
     """The forward without autograd: kernel on CUDA, plain on the CPU."""
@@ -317,17 +339,10 @@ def _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out,
             f"{SMEM_LIMIT} bytes")
     if out is None:
         out = torch.empty(shape, dtype=dtype, device=dev)
-    cw = torch.stack((wr.t(), wi.t().neg()), -1)    # conj(W), [T, B, 2]
     tc = tensor_core_route((r1, r2), (t1, t2), n_b, n_k, p, n_s, mm_dtype,
                            dtype)
-    design = 3 if tc else {"f32": 0, "bf16_mm": 1, "f64": 2}[mode]
-    with span("dm.kernel.beam_gain"), torch.cuda.device(dev):
-        launch = _build.launcher("beamgain", 9, 11)
-        rc = launch(*(x.data_ptr() for x in args), cw.data_ptr(),
-                    out.data_ptr(), u, p, r1, r2, t1, t2, n_b, n_k, n_s,
-                    n_sa, design, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"beamgain launch failed with CUDA error {rc}")
+    _launch(args, wr, wi, out, u, p, r1, r2, t1, t2, n_b, n_k, n_s, n_sa,
+            DESIGNS["tc" if tc else mode])
     LAUNCHES += 1
     TC_LAUNCHES += tc
     _count(MODE_LAUNCHES, mode)

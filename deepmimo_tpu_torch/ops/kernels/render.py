@@ -352,6 +352,23 @@ def _check_cuda(dev, rx_shape, tx_shape, p, n_k, n_s, what):
             f"P={p} (Q and S*K must each be <= {INDEX_LIMIT})")
 
 
+def _launch_fwd(args, out, u, p, r1, r2, t1, t2, n_k, n_s, n_sa, packed,
+                passes, out_bf16, tensor_cores):
+    """One launch of ``render_fwd_launch`` (the only place that spells its
+    C signature) on ``out``'s device and current stream, on the
+    tensor-core design if ``tensor_cores`` else on ``mma.sync``; counts
+    nothing (:func:`_render` counts the library's launches)."""
+    dev = out.device
+    with span("dm.kernel.render_fwd"), torch.cuda.device(dev):
+        launch = _build.launcher("render_fwd", 8, 13)
+        rc = launch(*(x.data_ptr() for x in args), out.data_ptr(), u, p,
+                    r1, r2, t1, t2, n_k, n_s, n_sa, int(bool(packed)),
+                    passes, int(bool(out_bf16)), int(bool(tensor_cores)),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"render_fwd launch failed with CUDA error {rc}")
+
+
 def _render(args, rx_shape, tx_shape, n_k, packed, out, mm_dtype="float32",
             out_dtype="float32"):
     """The forward without autograd: kernel on CUDA, plain on the CPU."""
@@ -374,14 +391,8 @@ def _render(args, rx_shape, tx_shape, n_k, packed, out, mm_dtype="float32",
     if out is None:
         out = torch.empty(shape, dtype=dtype, device=dev)
     tc = tensor_core_route((r1, r2), (t1, t2), mm_dtype, out_dtype)
-    with span("dm.kernel.render_fwd"), torch.cuda.device(dev):
-        launch = _build.launcher("render_fwd", 8, 13)
-        rc = launch(*(x.data_ptr() for x in args), out.data_ptr(), u, p,
-                    r1, r2, t1, t2, n_k, n_s, n_sa, int(bool(packed)),
-                    passes, int(dtype == torch.bfloat16), int(tc),
-                    torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"render_fwd launch failed with CUDA error {rc}")
+    _launch_fwd(args, out, u, p, r1, r2, t1, t2, n_k, n_s, n_sa, packed,
+                passes, dtype == torch.bfloat16, tc)
     LAUNCHES += 1
     TC_LAUNCHES += tc
     _count(MODE_LAUNCHES, "tc" if tc else mode_key(mm_dtype, out_dtype))

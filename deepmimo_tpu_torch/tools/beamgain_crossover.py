@@ -6,12 +6,13 @@ Run from the repository root on a machine with an H100 and nvcc:
 
 Builds ``csrc/beamgain.cu`` and prints the ptxas report of its kernels.
 Then, at 131,072 users and each shape of ``SHAPES`` (or those named), it
-times the SIMT design (launcher code 0) and the tensor-core design (code
-3) with CUDA events at each of the shape's beam counts, in rounds of
-launches whose order alternates, whatever ``tensor_core_route`` would
-pick, and prints each design's median ms, their ratio and the route's
-pick. These timings set ``ops/kernels/beamgain.py``'s route. The card's
-name and power limit are printed first. The tests hold both designs to
+times the SIMT design in float32 and the tensor-core design
+(``beamgain.DESIGNS``) with CUDA events at each of the shape's beam
+counts, in rounds of launches whose order alternates, whatever
+``tensor_core_route`` would pick, and prints each design's median ms,
+their ratio and the route's pick. These timings set
+``ops/kernels/beamgain.py``'s route. The card's name and power limit are
+printed first. The tests hold both designs to
 the plain version (``tests/test_torch_beamgain.py``).
 """
 import os
@@ -26,7 +27,7 @@ import chip_smoke as cs                                     # noqa: E402
 from deepmimo_tpu_torch.ops.kernels import _build           # noqa: E402
 from deepmimo_tpu_torch.ops.kernels import beamgain as kb   # noqa: E402
 
-SIMT, TC = 0, 3
+SIMT, TC = kb.DESIGNS["f32"], kb.DESIGNS["tc"]
 USERS = cs.CHUNK
 # name: rx_shape, tx_shape, K, P, S, n_sa, beams. The route's cost models
 # were fitted to the first 27 and checked on the rest.
@@ -65,31 +66,18 @@ SHAPES = {
 }
 
 
-def launch(args, w, shape, design, out):
-    """One launch of ``design`` on the current stream into ``out``."""
-    rx, tx, b, k, p, s, n_sa = shape
-    cw = torch.stack((w[0].t(), w[1].t().neg()), -1)
-    rc = _build.launcher("beamgain", 9, 11)(
-        *(x.data_ptr() for x in args), cw.data_ptr(), out.data_ptr(), USERS,
-        p, *rx, *tx, b, k, s, n_sa, design,
-        torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"design {design}: CUDA error {rc}")
-
-
 def time_shape(name, rounds=5, reps=10):
     rx, tx, k, p, s, n_sa, beams = SHAPES[name]
     args = cs._render_inputs(torch, USERS, p, s, n_sa, seed=len(name))
     for b in beams:
         w = cs._planes_on_card(torch, cs.codebook(b, tx[0] * tx[1], seed=b))
-        shape = (rx, tx, b, k, p, s, n_sa)
         out = torch.empty((USERS, rx[0] * rx[1] * b, s * k), device="cuda")
         ms = {SIMT: [], TC: []}
         for rnd in range(rounds):
             for design in ((SIMT, TC) if rnd % 2 else (TC, SIMT)):
-                ms[design].append(cs.event_ms(
-                    torch, lambda: launch(args, w, shape, design, out),
-                    reps=reps))
+                ms[design].append(cs.event_ms(torch, lambda: kb._launch(
+                    args, *w, out, USERS, p, *rx, *tx, b, k, s, n_sa,
+                    design), reps=reps))
         simt, tc = (statistics.median(ms[d]) for d in (SIMT, TC))
         route = kb.tensor_core_route(rx, tx, b, k, p, s)
         print(f"[crossover] {name} B={b}: rx={rx} tx={tx} K={k} P={p} S={s}"

@@ -7,10 +7,10 @@ Run from the repository root on a machine with an H100 and nvcc:
 Builds ``csrc/render_fwd.cu`` and prints the ptxas report of its
 tensor-core kernels. Then, at 131,072 users and each shape of ``SHAPES``
 (or those named), it times the ``mma.sync`` design and the tensor-core
-design (the launcher's ``tensor_cores`` flag) in float32 at f32 grade with
-CUDA events, in rounds of launches whose order alternates, whatever
-``tensor_core_route`` would pick, and prints each design's median ms,
-their ratio and the route's pick. These timings set
+design (``render._launch_fwd``'s ``tensor_cores`` flag) in float32 at f32
+grade with CUDA events, in rounds of launches whose order alternates,
+whatever ``tensor_core_route`` would pick, and prints each design's
+median ms, their ratio and the route's pick. These timings set
 ``ops/kernels/render.py``'s route. The card's name and power limit are
 printed first. The tests hold both designs to the plain version
 (``tests/test_torch_render.py``).
@@ -73,8 +73,9 @@ def time_shape(name, rounds=5, reps=10):
     ms = {MMA: [], TC: []}
     for rnd in range(rounds):
         for design in ((MMA, TC) if rnd % 2 else (TC, MMA)):
-            ms[design].append(cs.event_ms(torch, lambda: cs._render_design(
-                torch, args, rx, tx, k, True, out, design), reps=reps))
+            ms[design].append(cs.event_ms(torch, lambda: kr._launch_fwd(
+                args, out, USERS, p, *rx, *tx, k, s, s, True, passes=3,
+                out_bf16=False, tensor_cores=design), reps=reps))
     mma, tc = (statistics.median(ms[d]) for d in (MMA, TC))
     route = kr.tensor_core_route(rx, tx)
     print(f"[crossover] {name}: rx={rx} tx={tx} Q={q} K={k} P={p} S={s} "

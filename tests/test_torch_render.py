@@ -8,6 +8,10 @@ also run where JAX is not installed:
 ``python -m pytest -m gpu --noconftest tests/test_torch_render.py``.
 """
 
+import glob
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -282,6 +286,66 @@ def test_build_is_keyed_by_source_hash():
     # accurate trig only: omega*k reaches ~31 rad at the headline
     assert "__sincosf" not in text
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
+
+
+# kernel: (pointer parameters, int parameters) of its extern "C" launcher
+# before the stream, and the wrapper that alone spells that signature.
+LAUNCH_ABI = {
+    "render_fwd": ((8, 13), "render.py"),
+    "render_bwd": ((15, 11), "render.py"),
+    "beamgain": ((9, 11), "beamgain.py"),
+    "pathsum": ((10, 5), "pathsum.py"),
+}
+
+
+def _python_sources():
+    """The port's Python files and ``chip_smoke.py``, as (path, text)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = glob.glob(os.path.join(root, "deepmimo_tpu_torch", "**",
+                                   "*.py"), recursive=True)
+    paths.append(os.path.join(root, "chip_smoke.py"))
+    for path in sorted(paths):
+        with open(path) as f:
+            yield path, f.read()
+
+
+@pytest.mark.parametrize("kernel", sorted(LAUNCH_ABI))
+def test_launch_signature_is_written_once_in_its_wrapper(kernel):
+    """The C signature of ``<kernel>_launch`` (pointers, ints, then the
+    stream) is spelled by exactly one ``_build.launcher`` call, in the
+    kernel's wrapper under ``ops/kernels/``, with the counts of the
+    source; no other Python file names the symbol or sets argtypes."""
+    (n_ptr, n_int), wrapper = LAUNCH_ABI[kernel]
+    src = os.path.join(_build.CSRC_DIR, f"{kernel}.cu")
+    with open(src) as f:
+        text = f.read()
+    sig = re.search(r'extern "C" int ' + kernel + r"_launch\((.*?)\)\s*\{",
+                    text, re.S)
+    assert sig, f'no extern "C" int {kernel}_launch in {src}'
+    params = [" ".join(x.split()) for x in sig.group(1).split(",")]
+    assert params[-1] == "void* stream", params[-1]
+    ptrs = [x for x in params[:-1] if "*" in x]
+    ints = [x for x in params[:-1] if x.startswith("int ")]
+    assert len(ptrs) + len(ints) == len(params) - 1, params
+    assert params[:len(ptrs)] == ptrs, "pointers come before the ints"
+    assert (len(ptrs), len(ints)) == (n_ptr, n_int)
+
+    sites, named = [], []
+    for path, body in _python_sources():
+        calls = re.findall(r"launcher\(\s*(\S+?)\s*,\s*(\S+?)\s*,"
+                           r"\s*(\S+?)\s*\)", body)
+        sites += [(path, c) for c in calls if c[0] in (f'"{kernel}"',
+                                                       f"'{kernel}'")]
+        if os.path.basename(path) != "_build.py" and re.search(
+                r"_launch[\"']|[\"']_launch|argtypes.*_launch|"
+                + kernel + r"_launch\b.*argtypes", body):
+            named.append(path)
+    assert len(sites) == 1, sites
+    path, (_, ptr_arg, int_arg) = sites[0]
+    assert path == os.path.join(os.path.dirname(os.path.abspath(
+        kr.__file__)), wrapper)
+    assert (int(ptr_arg), int(int_arg)) == (n_ptr, n_int)
+    assert not named, named
 
 
 @pytest.fixture
