@@ -8,7 +8,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 
 1. Card and toolchain: ``nvidia-smi`` name and power limit, torch/CUDA.
 2. Build: compiles every kernel (``render_fwd``, ``render_bwd``,
-   ``pathsum``, ``beamgain``) from ``csrc/`` with nvcc for sm_90a, one
+   ``pathsum``, ``beamgain``, ``prologue``) from ``csrc/`` with nvcc for
+   sm_90a, one
    nvcc per source, all started together, and prints the ptxas report.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main paths' shapes (``KERNEL_CASES``, ``BG_CASES``), with
@@ -34,18 +35,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    every case whose codebook fits its shared memory.
 4. Serving path: four 131,072-user x 25-path datasets (synthetic, seed 7)
    through ``Dataset.compute_channels(params, to_device=True, out=prev)``
-   — one kernel launch per call — checked for shape and finiteness and on
-   64 users per dataset against the float64 oracle ``tests/oracle.py``;
-   then the four served on the quickstart's 8 x 1 BS panel at one
-   subcarrier, which the route keeps on ``mma.sync``, counted and against
-   the oracle; then a timed sweep and a ``torch.profiler`` breakdown
-   (device window, busy and idle share, largest kernels), as in phases
-   5b, 5c and 5f.
+   — one render and one prologue launch per call — checked for shape and
+   finiteness and on 64 users per dataset against the float64 oracle
+   ``tests/oracle.py``; then the four served on the quickstart's 8 x 1 BS
+   panel at one subcarrier, which the route keeps on ``mma.sync``,
+   counted and against the oracle; then a timed sweep and a
+   ``torch.profiler`` breakdown (device window, busy and idle share,
+   largest kernels), as in phases 5b, 5c and 5f; then the prologue kernel
+   alone on the first dataset's card tensors: its seven outputs against
+   the PyTorch ops that the calls it does not take keep (the route
+   patched off), at rtol 2e-6 plus 4 float32 ulps of each value's terms,
+   and both timed with CUDA events.
 5. Streamed path: ``to_device=False`` over 3 user blocks must equal the
    single-dispatch result exactly.
 5b. Beam-gain serving: ``Dataset.compute_beam_gains(params, codebook=W,
    to_device=True, out=prev)`` on the same four datasets with a 16-beam
-   codebook — one beam-gain launch and no render launch per call — on 64
+   codebook — one beam-gain and one prologue launch and no render launch
+   per call — on 64
    users per dataset against |conj(W) . H| ** 2 from the float64 oracle
    (1e-4 * max|G|); then a timed sweep.
 5c. bf16 serving on the four datasets, counted by kernel mode:
@@ -54,19 +60,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    products, each against the oracle (2^-7, 1e-2) and timed as phase 4.
 5d. Angle space: the four datasets with a half-wave dipole BS pattern
    through ``compute_channels`` and an ops-level ``render_channels_planes``
-   with bs_fov=(120, 180), both through the fused render, against the
-   oracle; ms per call.
+   with bs_fov=(120, 180), both through the fused render after the
+   PyTorch prologue (no prologue launch, each call in ``FALLBACKS``),
+   against the oracle; ms per call.
 5e. Doppler: one 131,072-user dataset with radial velocities and
    accelerations at 4 snapshots, ``compute_channels`` (17.2 GB, one
-   launch with 4 slots) and ``compute_beam_gains``, each snapshot against
-   the oracle; ms per call.
+   launch with 4 slots) and ``compute_beam_gains``, each after the
+   PyTorch prologue (no prologue launch), each snapshot against the
+   oracle; ms per call.
 5f. Dual-polar: a 131,072-user dataset with four NaN-padded polarization
    matrices; ``compute_channels(..., to_device=True, out=prev)`` in one
    render launch with 4 slots, 64 users per polarization against the
    oracle (5e-5 * max|H|); dual-polar ``compute_beam_gains`` in one
    beam-gain launch, equal to the per-polarization fold of those channels
-   (3e-5 * max|G|); the streamed dual-polar render of a 16,384-user slice
-   over 3 blocks equal to its single launch bit for bit.
+   (3e-5 * max|G|), each call with one prologue launch of 4 slots; the
+   prologue kernel alone at 4 slots against its PyTorch ops, as in phase
+   4; the streamed dual-polar render of a 16,384-user slice over 3 blocks
+   equal to its single launch bit for bit.
 5g. Non-fused paths: the headline data (seed 7) through
    ``Dataset.compute_channels(params, to_device=True)`` in the settings
    the JAX package renders with plain XLA ops, which stay eager here:
@@ -120,10 +130,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    |conj(W) . H| ** 2 of the oracle (1e-4 * max|G|), CUDA-event ms;
    (c) 5 serving calls, each in a ``StageTimer`` stage and an
    ``annotate("dm.serve")`` range: each stage at least 0.95 x the call's
-   CUDA-event time (the stage waits for the device); one call under
-   ``xla_trace`` whose written trace must hold a render-kernel event and
-   the ``dm.serve`` range (traced again, up to 3 times in all, while the
-   profiler records no device event); ``renderer_roofline``'s memory bound equal to
+   CUDA-event time (the stage waits for the device); a warm-up call and
+   an annotated one under ``xla_trace``, whose written trace must hold a
+   render-kernel event enqueued inside the ``dm.serve`` range (linked to
+   its runtime call by correlation id; traced again, up to 3 times in
+   all, while the profiler drops it), window and idle share of that
+   call's device ops alone; ``renderer_roofline``'s memory bound equal to
    ``kernel_bounds()``'s for the render (1e-9 relative), its users/s
    beside the measured; (d) a 16,384-user scenario written with the port's
    writers, its ``summary``, ``upload`` to a loopback mock of the scenario
@@ -212,8 +224,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
 The line before the last is a JSON object describing every kernel in each
 of its modes and designs (``fused_render[bf16_out]``, ...; the forward's
 f32 launches apart by design, ``fused_render[tc]`` on the tensor cores
-and ``fused_render`` on ``mma.sync``; each launched on a main path,
-counted in the checked calls of each phase), with ``bound_ms``: the larger of its bytes (each
+and ``fused_render`` on ``mma.sync``; the prologue kernel as
+``fused_prologue`` at one slot and ``fused_prologue[polar]`` at four, its
+``replaces`` null; each launched on a main path, counted in the checked
+calls of each phase), with ``bound_ms``: the larger of its bytes (each
 input read once, each output written once) over 3.35 TB/s and its flops
 at f32 grade on the tensor cores (3 TF32 passes at 495 TFLOP/s), or for
 one-pass bf16 products at 989 TFLOP/s, or the float64 beam gain's
@@ -251,7 +265,7 @@ N_SC = 64
 BANDWIDTH = 10e6
 KERNEL_RTOL = 3e-5       # kernel vs plain, relative to max|H|
 GRAD_RTOL = 3e-4         # backward kernel vs plain, relative to max|g|
-KERNELS = ("render_fwd", "render_bwd", "pathsum", "beamgain")
+KERNELS = ("render_fwd", "render_bwd", "pathsum", "beamgain", "prologue")
 TRAIN_STEPS = 5
 PALLAS_STEPS = 3
 LR = 3e-3
@@ -263,6 +277,8 @@ BG_BEAMS = 16            # codebook beams of the beam-gain paths
 BG_TC_BEAMS = 64         # beams of the tensor-core design's serving calls
 BG_RTOL = 3e-5           # beam-gain kernel vs plain, relative to max|G|
 BG_ORACLE_RTOL = 1e-4    # beam gains vs the float64 oracle, rel. max|G|
+PROLOGUE_RTOL = 2e-6     # prologue kernel vs its PyTorch ops, relative,
+PROLOGUE_ULPS = 4        # plus float32 ulps of the terms of each value
 POLAR_STREAM_USERS = 16_384
 C128_RTOL = 1e-9             # complex128 vs the float64 oracle, rel. max
 FULL_BAND_USERS = 16_384     # the full-band filter's H is 34 GB at CHUNK
@@ -761,7 +777,9 @@ def phase_bg_kernels(torch):
 
 
 def phase_main(torch, dmt):
+    from deepmimo_tpu_torch.ops import channel as ch
     from deepmimo_tpu_torch.ops.channel import unpack_planes_np
+    from deepmimo_tpu_torch.ops.kernels import prologue as kpro
     from deepmimo_tpu_torch.ops.kernels import render as kr
 
     t0 = time.perf_counter()
@@ -773,14 +791,14 @@ def phase_main(torch, dmt):
         d["tx_pos"] = np.zeros((1, 3), np.float32)
         datasets.append(dmt.Dataset(d))
     params = make_params(dmt)
-    cfg, _, _ = params.to_config(CHUNK)
+    cfg, bs, ue = params.to_config(CHUNK)
     log(f"[main] {N_DATASETS} datasets of {CHUNK} users x {MAX_PATHS} paths "
         f"built in {time.perf_counter() - t0:.1f} s")
 
     # The main path, counted: one kernel launch per compute_channels call.
     expected = (CHUNK, UE_SHAPE[0] * UE_SHAPE[1],
                 BS_SHAPE[0] * BS_SHAPE[1], 2 * N_SC)
-    kr.LAUNCHES = kr.TC_LAUNCHES = 0
+    kr.LAUNCHES = kr.TC_LAUNCHES = kpro.LAUNCHES = kpro.FALLBACKS = 0
     h = None
     for i, ds in enumerate(datasets):
         prev = h
@@ -802,12 +820,16 @@ def phase_main(torch, dmt):
         if not err <= ORACLE_RTOL * scale:
             raise AssertionError(f"dataset {i}: disagrees with the oracle")
     launches = kr.LAUNCHES
-    if launches != N_DATASETS:
-        raise AssertionError(f"fused_render launched {launches} times for "
+    prologues = (kpro.LAUNCHES, kpro.FALLBACKS)
+    if (launches, *prologues) != (N_DATASETS, N_DATASETS, 0):
+        raise AssertionError(f"(fused_render, prologue, PyTorch prologue) "
+                             f"launches {(launches, *prologues)} for "
                              f"{N_DATASETS} compute_channels calls")
     log(f"[main] fused_render launches in the main path: {launches}, "
-        f"{kr.TC_LAUNCHES} of them on the tensor-core design")
+        f"{kr.TC_LAUNCHES} of them on the tensor-core design; prologue "
+        f"launches {prologues[0]}, PyTorch prologues {prologues[1]}")
     designs = Counter(_by_design(launches, kr.TC_LAUNCHES))
+    designs["fused_prologue"] = prologues[0]
     designs.update(_serve_small_panel(torch, dmt, datasets))
 
     calls = [lambda ds=ds: ds.compute_channels(params, to_device=True, out=h)
@@ -817,7 +839,11 @@ def phase_main(torch, dmt):
         f"{CHUNK}-user dataset (CUDA events), {CHUNK / ms * 1e3:.1f} "
         f"users/s; host wall {wall:.4f} ms per dataset")
     profile_cell(torch, "serving", calls)
-    return datasets, params, designs
+    paths = _card_paths(dmt, datasets[0])
+    prologue = _check_prologue(
+        torch, f"headline, {CHUNK} users x {MAX_PATHS} paths, 1 slot", cfg,
+        bs, ue, lambda: ch._fused_inputs(cfg, paths, bs, ue))
+    return datasets, params, designs, prologue
 
 
 def _serve_small_panel(torch, dmt, datasets):
@@ -825,13 +851,14 @@ def _serve_small_panel(torch, dmt, datasets):
     subcarrier, counted (the route keeps it on ``mma.sync``) and against
     the oracle. Returns the render launches by design."""
     from deepmimo_tpu_torch.ops.channel import unpack_planes_np
+    from deepmimo_tpu_torch.ops.kernels import prologue as kpro
     from deepmimo_tpu_torch.ops.kernels import render as kr
     c = dmt.consts
     params = make_params(dmt)
     params[c.PARAMSET_ANT_BS][c.PARAMSET_ANT_SHAPE] = np.array(SMALL_BS_SHAPE)
     params[c.PARAMSET_OFDM][c.PARAMSET_OFDM_SC_SAMP] = np.arange(1)
     cfg, _, _ = params.to_config(CHUNK)
-    kr.LAUNCHES = kr.TC_LAUNCHES = 0
+    kr.LAUNCHES = kr.TC_LAUNCHES = kpro.LAUNCHES = 0
     for i, ds in enumerate(datasets):
         h = ds.compute_channels(params, to_device=True)
         _check_oracle("main", f"{SMALL_BS_SHAPE} BS panel, dataset {i}",
@@ -839,14 +866,15 @@ def _serve_small_panel(torch, dmt, datasets):
                       _oracle(ds, N_ORACLE, ds["power"], ds["phase"],
                               bs_shape=SMALL_BS_SHAPE,
                               selected_subcarriers=(0,)), ORACLE_RTOL)
-    launches = (kr.LAUNCHES, kr.TC_LAUNCHES)
-    if launches != (len(datasets), 0):
+    launches = (kr.LAUNCHES, kr.TC_LAUNCHES, kpro.LAUNCHES)
+    if launches != (len(datasets), 0, len(datasets)):
         raise AssertionError(f"{SMALL_BS_SHAPE} BS panel: (render, "
-                             f"tensor-core) launches {launches} for "
-                             f"{len(datasets)} calls")
+                             f"tensor-core, prologue) launches {launches} "
+                             f"for {len(datasets)} calls")
     log(f"[main] {SMALL_BS_SHAPE} BS panel: {launches[0]} fused_render "
-        f"launches, none on the tensor-core design")
-    return _by_design(*launches)
+        f"launches, none on the tensor-core design; {launches[2]} prologue "
+        f"launches")
+    return {**_by_design(*launches[:2]), "fused_prologue": launches[2]}
 
 
 def phase_streamed(torch, dmt, datasets, params):
@@ -904,6 +932,87 @@ def _check_oracle(tag, what, got, want, tol):
         f"max={scale:.3e} rel={err / scale:.3e} (limit {tol:g})")
     if not err <= tol * scale:
         raise AssertionError(f"{tag} {what}: disagrees with the oracle")
+
+
+def _check_prologue(torch, tag, cfg, bs, ue, run):
+    """The prologue kernel alone on card tensors: ``run()``
+    (``channel._fused_inputs`` or ``_polar_fused_inputs``) through the
+    kernel, one launch and no fallback, against the same call with the
+    route patched off (the PyTorch ops that the calls it does not take
+    keep), output by output at rtol ``PROLOGUE_RTOL`` and an atol of
+    ``PROLOGUE_ULPS`` float32 ulps of the terms each value is summed from
+    (kd for the phase steps, pi + |omega0 k0| for psi), as
+    tests/test_torch_prologue.py holds them. Times the kernel's launch
+    alone and the ops with CUDA events (each host-paced call of the two
+    prologues too) and returns the kernels-line metrics."""
+    from deepmimo_tpu_torch.ops import channel as ch
+    from deepmimo_tpu_torch.ops.kernels import prologue as kpro
+    route, launch = ch._prologue_route, kpro._launch
+    ch._prologue_route = lambda *a: False
+    try:
+        want = run()
+        plain_ms, plain_wall = timed_sweep(torch, [run], reps=20)
+    finally:
+        ch._prologue_route = route
+    launches = []
+    kpro._launch = lambda *a: launches.append(a) or launch(*a)
+    before = kpro.LAUNCHES, kpro.FALLBACKS
+    try:
+        got = run()
+    finally:
+        kpro._launch = launch
+    counts = (kpro.LAUNCHES - before[0], kpro.FALLBACKS - before[1])
+    if counts != (1, 0) or len(launches) != 1:
+        raise AssertionError(f"prologue {tag}: (launches, fallbacks) "
+                             f"{counts} for one call")
+    k0, stride = ch._k_progression(cfg)
+    ulp = PROLOGUE_ULPS * float(np.finfo(np.float32).eps)
+    kd_ue, kd_bs = (2 * math.pi * float(x.spacing) for x in (ue, bs))
+    shift = float((want[6] / stride * k0).abs().max())
+    atols = {"gry": ulp * kd_ue, "grz": ulp * kd_ue, "gty": ulp * kd_bs,
+             "gtz": ulp * kd_bs, "amp": 0.0, "psi": ulp * (math.pi + shift),
+             "omega": 0.0}
+    errs = []
+    for (name, atol), g, w in zip(atols.items(), got, want):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"prologue {tag} {name}: {tuple(g.shape)} "
+                                 f"(ops {tuple(w.shape)}) or not finite")
+        err = (g - w).abs()
+        errs.append(float(err.max()))
+        over = int((err > atol + PROLOGUE_RTOL * w.abs()).sum())
+        if over:
+            raise AssertionError(f"prologue {tag} {name}: {over} values "
+                                 f"past rtol {PROLOGUE_RTOL:g} + atol "
+                                 f"{atol:.3e}, max_abs_err {errs[-1]:.3e}")
+    ms = event_ms(torch, lambda: launch(*launches[0]), 20)
+    wall = timed_sweep(torch, [run], reps=20)[1]
+    log(f"[prologue] {tag}: {tuple(got[0].shape)} steps, amp/psi "
+        f"{tuple(got[4].shape)}; vs the PyTorch ops max_abs_err " +
+        ", ".join(f"{n} {e:.3e}" for n, e in zip(atols, errs)) +
+        f" (rtol {PROLOGUE_RTOL:g} + {PROLOGUE_ULPS} ulps); kernel "
+        f"{ms:.4f} ms (CUDA events, launches alone), ops {plain_ms:.4f} ms "
+        f"a call (CUDA events, host-paced); host {wall:.4f} ms a call "
+        f"through the kernel, {plain_wall:.4f} ms through the ops")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+
+
+def _prologue_fallbacks(tag, n):
+    """Fail unless the ``n`` calls counted since the prologue's counters
+    were zeroed each took the PyTorch prologue, with no kernel launch."""
+    from deepmimo_tpu_torch.ops.kernels import prologue as kpro
+    got = (kpro.LAUNCHES, kpro.FALLBACKS)
+    if got != (0, n):
+        raise AssertionError(f"{tag}: (prologue launches, PyTorch "
+                             f"prologues) {got} for {n} calls")
+    log(f"[prologue] {tag}: {n} calls through the PyTorch prologue, no "
+        f"prologue launch")
+
+
+def _card_paths(dmt, d):
+    """A card ``PathData`` of the path matrices in ``d``."""
+    return dmt.PathData.from_numpy(*(d[k] for k in (
+        "power", "phase", "delay", "aoa_az", "aoa_el", "aod_az", "aod_el")),
+        device=DEV)
 
 
 def _beam_oracle(w, h):
@@ -1051,19 +1160,21 @@ def phase_beamgain(torch, datasets, params):
     """Beam-gain serving on the four headline datasets, counted: one
     beam-gain launch and no render launch per call; with 16 beams the SIMT
     design, timed and profiled, then with ``BG_TC_BEAMS`` the tensor-core
-    design. Returns the launches of each."""
+    design, one prologue launch a call before either. Returns the
+    launches of each design and the prologue's."""
     from deepmimo_tpu_torch.ops.kernels import beamgain as kb
+    from deepmimo_tpu_torch.ops.kernels import prologue as kpro
     from deepmimo_tpu_torch.ops.kernels import render as kr
 
-    kb.LAUNCHES = kr.LAUNCHES = kb.TC_LAUNCHES = 0
+    kb.LAUNCHES = kr.LAUNCHES = kb.TC_LAUNCHES = kpro.LAUNCHES = 0
     w, g = _serve_beam_gains(torch, datasets, params, BG_BEAMS, 75)
-    launches = (kb.LAUNCHES, kr.LAUNCHES, kb.TC_LAUNCHES)
-    if launches != (len(datasets), 0, 0):
-        raise AssertionError(f"(beam-gain, render, tensor-core) launches "
-                             f"{launches} for {len(datasets)} "
+    launches = (kb.LAUNCHES, kr.LAUNCHES, kb.TC_LAUNCHES, kpro.LAUNCHES)
+    if launches != (len(datasets), 0, 0, len(datasets)):
+        raise AssertionError(f"(beam-gain, render, tensor-core, prologue) "
+                             f"launches {launches} for {len(datasets)} "
                              f"compute_beam_gains calls")
     log(f"[beamgain] launches in the serving path: beam gain {launches[0]}, "
-        f"render {launches[1]}")
+        f"render {launches[1]}, prologue {launches[3]}")
 
     calls = [lambda ds=ds: ds.compute_beam_gains(params, codebook=w,
                                                  to_device=True, out=g)
@@ -1075,14 +1186,17 @@ def phase_beamgain(torch, datasets, params):
     profile_cell(torch, "beam-gain serving", calls)
     kb.TC_LAUNCHES = 0
     before = kb.LAUNCHES
+    kpro.LAUNCHES = 0
     _serve_beam_gains(torch, datasets, params, BG_TC_BEAMS, 78)
-    tc = (kb.LAUNCHES - before, kb.TC_LAUNCHES)
-    if tc != (len(datasets),) * 2:
-        raise AssertionError(f"(beam-gain, tensor-core) launches {tc} for "
-                             f"{len(datasets)} {BG_TC_BEAMS}-beam calls")
-    log(f"[beamgain] {BG_TC_BEAMS} beams: {tc[1]} tensor-core launches")
+    tc = (kb.LAUNCHES - before, kb.TC_LAUNCHES, kpro.LAUNCHES)
+    if tc != (len(datasets),) * 3:
+        raise AssertionError(f"(beam-gain, tensor-core, prologue) launches "
+                             f"{tc} for {len(datasets)} {BG_TC_BEAMS}-beam "
+                             f"calls")
+    log(f"[beamgain] {BG_TC_BEAMS} beams: {tc[1]} tensor-core launches, "
+        f"{tc[2]} prologue launches")
     torch.cuda.empty_cache()
-    return launches[0], tc[1]
+    return launches[0], tc[1], launches[3] + tc[2]
 
 
 def make_pol_data(data, seed=8):
@@ -1105,8 +1219,10 @@ def phase_polar(torch, dmt):
     against the oracle and the per-polarization fold; then the streamed
     dual-polar render against its single launch."""
     from deepmimo_tpu_torch.generator.dataset import POLS
+    from deepmimo_tpu_torch.ops import channel as ch
     from deepmimo_tpu_torch.ops.channel import unpack_polar_planes_np
     from deepmimo_tpu_torch.ops.kernels import beamgain as kb
+    from deepmimo_tpu_torch.ops.kernels import prologue as kpro
     from deepmimo_tpu_torch.ops.kernels import render as kr
 
     d = make_data(CHUNK, MAX_PATHS, seed=7)
@@ -1116,11 +1232,11 @@ def phase_polar(torch, dmt):
     ds = dmt.Dataset(d)
     params = make_params(dmt)
     params[dmt.consts.PARAMSET_POLAR_EN] = 1
-    cfg, _, _ = params.to_config(CHUNK)
+    cfg, bs, ue = params.to_config(CHUNK)
     n_pol, t = len(POLS), BS_SHAPE[0] * BS_SHAPE[1]
     expected = (CHUNK, 1, t, 2 * n_pol * N_SC)
 
-    kr.LAUNCHES = kr.TC_LAUNCHES = kb.LAUNCHES = 0
+    kr.LAUNCHES = kr.TC_LAUNCHES = kb.LAUNCHES = kpro.LAUNCHES = 0
     h = None
     for i in range(2):
         prev = h
@@ -1130,11 +1246,12 @@ def phase_polar(torch, dmt):
                                  f"expected {expected} finite")
         if prev is not None and h.data_ptr() != prev.data_ptr():
             raise AssertionError(f"dual-polar call {i}: out= not reused")
-    ch_launches = (kr.LAUNCHES, kb.LAUNCHES)
+    ch_launches = (kr.LAUNCHES, kb.LAUNCHES, kpro.LAUNCHES)
     ch_designs = _by_design(kr.LAUNCHES, kr.TC_LAUNCHES)
-    if ch_launches != (2, 0):
+    if ch_launches != (2, 0, 2):
         raise AssertionError(f"dual-polar compute_channels: (render, beam "
-                             f"gain) launches {ch_launches} for 2 calls")
+                             f"gain, prologue) launches {ch_launches} for 2 "
+                             f"calls")
     got = unpack_polar_planes_np(h[:N_ORACLE].cpu().numpy(), cfg)
     for ip, pol in enumerate(POLS):
         want = _oracle(ds, N_ORACLE, d[f"power_{pol.lower()}"],
@@ -1168,6 +1285,7 @@ def phase_polar(torch, dmt):
     torch.cuda.empty_cache()
 
     kr.LAUNCHES = kb.LAUNCHES = 0
+    prologues = kpro.LAUNCHES
     g = None
     for i in range(2):
         prev = g
@@ -1176,10 +1294,12 @@ def phase_polar(torch, dmt):
         if prev is not None and g.data_ptr() != prev.data_ptr():
             raise AssertionError(f"dual-polar beam gains {i}: out= not "
                                  f"reused")
-    bg_launches = (kb.LAUNCHES, kr.LAUNCHES)
-    if bg_launches != (2, 0):
+    bg_launches = (kb.LAUNCHES, kr.LAUNCHES, kpro.LAUNCHES - prologues)
+    if bg_launches != (2, 0, 2):
         raise AssertionError(f"dual-polar compute_beam_gains: (beam gain, "
-                             f"render) launches {bg_launches} for 2 calls")
+                             f"render, prologue) launches {bg_launches} for "
+                             f"2 calls")
+    ch_designs["fused_prologue[polar]"] = ch_launches[2] + bg_launches[2]
     err = float((g - fold).abs().max())
     scale = float(fold.max())
     log(f"[polar] compute_beam_gains: {tuple(g.shape)}, 1 beam-gain launch "
@@ -1197,6 +1317,17 @@ def phase_polar(torch, dmt):
     profile_cell(torch, "dual-polar beam gains", calls)
     del g, fold
     torch.cuda.empty_cache()
+
+    # The prologue kernel alone at 4 slots, on the NaN-padded stacks.
+    paths = _card_paths(dmt, d)
+    stacks = [torch.tensor(np.stack([d[f"{key}_{pol.lower()}"]
+                                     for pol in POLS]), device=DEV)
+              for key in ("power", "phase")]
+    prologue = _check_prologue(
+        torch, f"dual-polar, {CHUNK} users x {MAX_PATHS} paths, {n_pol} "
+        f"slots", cfg, bs, ue,
+        lambda: ch._polar_fused_inputs(cfg, paths, bs, ue, *stacks))
+    del paths, stacks
 
     # Streamed dual-polar render of a slice == its single launch.
     sub = dmt.Dataset({k: v[:POLAR_STREAM_USERS] if k != "tx_pos" else v
@@ -1224,7 +1355,7 @@ def phase_polar(torch, dmt):
     log(f"[polar] streamed: {blocks} blocks of <= {block} users, each "
         f"polarization {streamed['VV'].shape} equals the single launch "
         f"exactly")
-    return ch_designs, bg_launches[0]
+    return ch_designs, bg_launches[0], prologue
 
 
 def phase_bf16_serving(torch, dmt, datasets):
@@ -1315,6 +1446,7 @@ def phase_doppler(torch, dmt):
     4*64]), counted, each snapshot against the oracle; ms per call."""
     from deepmimo_tpu_torch.ops.channel import unpack_planes_np
     from deepmimo_tpu_torch.ops.kernels import beamgain as kb
+    from deepmimo_tpu_torch.ops.kernels import prologue as kpro
     from deepmimo_tpu_torch.ops.kernels import render as kr
 
     c = dmt.consts
@@ -1338,13 +1470,14 @@ def phase_doppler(torch, dmt):
              for ts in DOPPLER_TIMES]
 
     kr.MODE_LAUNCHES.clear()
-    kb.LAUNCHES = 0
+    kb.LAUNCHES = kpro.LAUNCHES = kpro.FALLBACKS = 0
     h = _counted_calls(
         torch, "doppler channels",
         lambda i, prev: ds.compute_channels(params, to_device=True,
                                             out=prev), 2,
         (CHUNK, 1, t, 2 * n_s * N_SC), torch.float32)
     launches = _modes(kr.MODE_LAUNCHES, "fused_render", {"tc": 2})
+    _prologue_fallbacks("doppler channels", 2)
     got = unpack_planes_np(h[:N_ORACLE], cfg)            # [..., K, S]
     for i, ts in enumerate(DOPPLER_TIMES):
         _check_oracle("doppler", f"channels t={ts:g} s", got[..., i],
@@ -1360,7 +1493,7 @@ def phase_doppler(torch, dmt):
 
     w = codebook(BG_BEAMS, t, seed=77)
     kb.MODE_LAUNCHES.clear()
-    kr.LAUNCHES = 0
+    kr.LAUNCHES = kpro.LAUNCHES = kpro.FALLBACKS = 0
     g = _counted_calls(
         torch, "doppler beam gains",
         lambda i, prev: ds.compute_beam_gains(params, codebook=w,
@@ -1370,6 +1503,7 @@ def phase_doppler(torch, dmt):
                            {"f32": 2}))
     if kr.LAUNCHES:
         raise AssertionError("Doppler beam gains launched the render")
+    _prologue_fallbacks("doppler beam gains", 2)
     gh = g[:N_ORACLE].cpu().numpy()
     for i, ts in enumerate(DOPPLER_TIMES):
         _check_oracle("doppler", f"beam gains t={ts:g} s",
@@ -1394,6 +1528,7 @@ def phase_angle_space(torch, dmt, datasets):
     ms per call."""
     from deepmimo_tpu_torch.ops.channel import (render_channels_planes,
                                                 unpack_planes_np)
+    from deepmimo_tpu_torch.ops.kernels import prologue as kpro
     from deepmimo_tpu_torch.ops.kernels import render as kr
 
     c = dmt.consts
@@ -1403,12 +1538,14 @@ def phase_angle_space(torch, dmt, datasets):
     n, t = len(datasets), BS_SHAPE[0] * BS_SHAPE[1]
     shape = (CHUNK, 1, t, 2 * N_SC)
     kr.MODE_LAUNCHES.clear()
+    kpro.LAUNCHES = kpro.FALLBACKS = 0
     h = _counted_calls(
         torch, "dipole channels",
         lambda i, prev: datasets[i].compute_channels(params, to_device=True,
                                                      out=prev), n, shape,
         torch.float32)
     launches = _modes(kr.MODE_LAUNCHES, "fused_render", {"tc": n})
+    _prologue_fallbacks("angle-space dipole", n)
     ds = datasets[-1]
     _check_oracle("angle-space", f"dipole dataset {n - 1}",
                   unpack_planes_np(h[:N_ORACLE], cfg),
@@ -1424,10 +1561,9 @@ def phase_angle_space(torch, dmt, datasets):
     ds = datasets[0]
     fov_cfg, bs, ue = make_params(dmt).to_config(CHUNK)
     fov_cfg = fov_cfg.replace(bs_fov=(120.0, 180.0))
-    paths = dmt.PathData.from_numpy(*(ds[k] for k in (
-        "power", "phase", "delay", "aoa_az", "aoa_el", "aod_az", "aod_el")),
-        device=DEV)
+    paths = _card_paths(dmt, ds)
     kr.MODE_LAUNCHES.clear()
+    kpro.LAUNCHES = kpro.FALLBACKS = 0
     buf = h
     h = _counted_calls(
         torch, "fov channels",
@@ -1436,6 +1572,7 @@ def phase_angle_space(torch, dmt, datasets):
         torch.float32)
     launches["fused_render[tc]"] += _modes(
         kr.MODE_LAUNCHES, "fused_render", {"tc": 1})["fused_render[tc]"]
+    _prologue_fallbacks("angle-space bs_fov", 1)
     _check_oracle("angle-space", "bs_fov=(120, 180)",
                   unpack_planes_np(h[:N_ORACLE], fov_cfg),
                   _oracle(ds, N_ORACLE, ds["power"], ds["phase"],
@@ -2183,18 +2320,32 @@ def _oracle_rows(ds, rows):
 
 
 def _trace_check(tdir):
-    """(render-kernel events, ``dm.serve`` ranges, file MB, device window
-    ms, device busy ms) of the one ``xla_trace`` file written into
-    ``tdir``; window and busy span every kernel, copy and memset."""
+    """(render-kernel events of the annotated call, ``dm.serve`` ranges,
+    file MB, device window ms, device busy ms) of the one ``xla_trace``
+    file written into ``tdir``. A device op is the annotated call's when
+    the runtime call that enqueued it (linked by correlation id) lies
+    inside a ``dm.serve`` range on the host's clock; window and busy span
+    those kernels, copies and memsets alone."""
     import glob
     (path,) = glob.glob(os.path.join(tdir, "*.pt.trace.json"))
     with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel" and
-               "render_fwd_kernel" in e.get("name", "")]
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
     ranges = [e for e in events if e.get("name") == "dm.serve"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    enqueued = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+
+    def annotated(e):
+        ts = enqueued.get(e.get("args", {}).get("correlation"))
+        return ts is not None and any(
+            r["ts"] <= ts <= r["ts"] + r["dur"] for r in ranges)
+
+    ops = [e for e in events if e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset") and annotated(e)]
+    kernels = [e for e in ops if e["cat"] == "kernel" and
+               "render_fwd_kernel" in e.get("name", "")]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in ops)
     busy, reach = 0.0, spans[0][0] if spans else 0.0
     for start, end in spans:
         busy += max(0.0, end - max(start, reach))
@@ -2311,12 +2462,19 @@ def phase_surface(torch, dmt):
     old = {k: dmt.config.get(k) for k in ("scenarios_folder",
                                           "api_endpoint")}
     try:
-        # A trace is taken again when the profiler dropped the cycle's
-        # device events (see profile_cell), each into its own folder.
+        # A trace is taken again when the profiler dropped the annotated
+        # call's device events (see profile_cell), each into its own
+        # folder. A fresh profiler can drop the device events of its first
+        # moments, and a serving call enqueues its few device ops within
+        # them, so a warm-up call runs inside the trace before the
+        # annotated one; only the annotated call's ops count.
         for attempt in range(PROFILE_TRIES):
             tdir = os.path.join(root, f"trace{attempt}")
             t0 = time.perf_counter()
             with xla_trace(tdir):
+                counted(lambda: ds.compute_channels(
+                    params, to_device=True, out=h),
+                    render=1, what="traced warm-up call")
                 with annotate("dm.serve"):
                     counted(lambda: ds.compute_channels(
                         params, to_device=True, out=h),
@@ -2324,17 +2482,20 @@ def phase_surface(torch, dmt):
             kernels, ranges, mb, window, busy = _trace_check(tdir)
             log(f"[surface] xla_trace {attempt + 1}: "
                 f"{time.perf_counter() - t0:.3f} s (host), "
-                f"{mb:.2f} MB; render kernel events {len(kernels)} ("
-                + ", ".join(f"{e['dur'] / 1e3:.4f} ms" for e in kernels) +
-                f"), 'dm.serve' ranges {len(ranges)} ("
+                f"{mb:.2f} MB; 'dm.serve' ranges {len(ranges)} ("
                 + ", ".join(sorted({e.get('cat', '?') for e in ranges})) +
-                f"); device window {window:.4f} ms, busy {busy:.4f} ms, "
-                f"idle {100 * (1 - busy / window) if window else 0:.2f}%")
-            if window:
+                f"); render kernel events enqueued inside one "
+                f"{len(kernels)} ("
+                + ", ".join(f"{e['dur'] / 1e3:.4f} ms" for e in kernels) +
+                f"); the annotated call's device window {window:.4f} ms, "
+                f"busy {busy:.4f} ms, idle "
+                f"{100 * (1 - busy / window) if window else 0:.2f}%")
+            if kernels:
                 break
-        if not kernels or not ranges:
+        if len(kernels) != 1:
             raise AssertionError("xla_trace: the trace lacks the render "
-                                 "kernel or the dm.serve range")
+                                 "kernel enqueued inside the dm.serve "
+                                 "range")
         roof = renderer_roofline(CHUNK, UE_SHAPE[0] * UE_SHAPE[1], t, N_SC,
                                  MAX_PATHS)
         bound = kernel_bounds()["fused_render"][0]
@@ -3771,6 +3932,12 @@ def kernel_bounds(fma=False):
         "fused_beam_gain[tc]": (tc_bytes, tc_fold + tc_sum + tc_pow, 0),
         # every value and product in float64 (its flops counted apart)
         "fused_beam_gain[f64]": (2 * bg_bytes, 0, 0),
+        # reads 5 float32 fields, the bool mask and a power and a phase a
+        # slot; writes the 4 steps, omega, and an amp and a psi a slot
+        "fused_prologue": (u * p * (5 * 4 + 1 + 2 * 4 + 5 * 4 + 2 * 4), 0,
+                           0),
+        "fused_prologue[polar]": (u * p * (5 * 4 + 1 + 8 * 4 + 5 * 4 +
+                                           8 * 4), 0, 0),
     }
     f64_flops = {"fused_beam_gain[f64]": fold + bg_sum + bg_pow}
     out = {}
@@ -4006,9 +4173,10 @@ def main():
     psum = phase_pathsum_kernels(torch)
     bg = phase_bg_kernels(torch)
     launches = Counter()                 # main-path launches by entry
-    datasets, params, serve = phase_main(torch, dmt)
+    datasets, params, serve, prologue = phase_main(torch, dmt)
     phase_streamed(torch, dmt, datasets, params)
-    bg_launches, bg_tc_launches = phase_beamgain(torch, datasets, params)
+    bg_launches, bg_tc_launches, bg_prologues = phase_beamgain(
+        torch, datasets, params)
     bf16_serving = phase_bf16_serving(torch, dmt, datasets)
     angle_space = phase_angle_space(torch, dmt, datasets)
     del datasets
@@ -4020,7 +4188,7 @@ def main():
     factory = phase_factory(torch, dmt)
     multidevice = phase_multidevice(torch, dmt)
     doppler = phase_doppler(torch, dmt)
-    polar, polar_bg = phase_polar(torch, dmt)
+    polar, polar_bg, prologue_polar = phase_polar(torch, dmt)
     torch.cuda.empty_cache()
     paths, (train_fwd, train_bwd), planes_loss = phase_train(
         torch, dmt, fwd["tc"]["ms"], bwd["f32"]["ms"])
@@ -4029,7 +4197,8 @@ def main():
     launches.update({"fused_render_bwd": train_bwd,
                      "fused_path_sum": pallas_launches,
                      "fused_beam_gain": bg_launches + polar_bg,
-                     "fused_beam_gain[tc]": bg_tc_launches})
+                     "fused_beam_gain[tc]": bg_tc_launches,
+                     "fused_prologue": bg_prologues})
     renders = {"serving": serve, "dual-polar": polar, "training": train_fwd,
                "angle space": angle_space, "Doppler": doppler,
                "scenarios from disk": scenarios, "public surface": surface,
@@ -4056,7 +4225,10 @@ def main():
         f"{converted['fused_beam_gain']} + scenario factory "
         f"{factory['fused_beam_gain']} + multi-device "
         f"{multidevice['fused_beam_gain']}; fused_beam_gain[tc]: serving "
-        f"{bg_tc_launches} ({BG_TC_BEAMS} beams); modes: complex128 beam "
+        f"{bg_tc_launches} ({BG_TC_BEAMS} beams); fused_prologue: serving "
+        f"{serve['fused_prologue']} + beam-gain serving {bg_prologues}; "
+        f"fused_prologue[polar]: dual-polar "
+        f"{polar['fused_prologue[polar]']}; modes: complex128 beam "
         f"gains "
         f"{nonfused}, bf16 serving {bf16_serving}, "
         f"bf16 training {train_bf16}")
@@ -4073,6 +4245,9 @@ def main():
         "fused_render_bwd": ("render_bwd.cu", "render.py:659", bwd),
         "fused_path_sum": ("pathsum.cu", "pathsum.py:66", {"f32": psum}),
         "fused_beam_gain": ("beamgain.cu", "beamgain.py:77", bg),
+        # the JAX package leaves the prologue to XLA: no TPU kernel
+        "fused_prologue": ("prologue.cu", None,
+                           {"f32": prologue, "polar": prologue_polar}),
     }
     # library_ms: one PyTorch call computing the same function. The path
     # sum has one (the complex einsum over its given planes, g formed
@@ -4087,7 +4262,8 @@ def main():
                 raise AssertionError(f"{e} was not launched on a main path")
             kernels.append({
                 "name": e, "route": "cuda", "source": src + source,
-                "replaces": tpu + replaces, "launches": launches[e],
+                "replaces": replaces and tpu + replaces,
+                "launches": launches[e],
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": bounds[e][0],
                 "bound_by": bounds[e][1], "library_ms": m.get("library_ms")})

@@ -11,7 +11,10 @@ Counterpart of ``deepmimo_tpu/ops/channel.py``. ``render_channels_planes``:
 - the fused backend (``backend`` "fused"/"pallas", the product default)
   rotates the path directions to unit-vector phase steps and hands seven
   per-path scalars to the hand-written CUDA kernel
-  (``ops/kernels/render.py``), which writes H once;
+  (``ops/kernels/render.py``), which writes H once; on a card the seven
+  come from one launch of the prologue kernel
+  (``ops/kernels/prologue.py``) for the calls :func:`_prologue_route`
+  takes, else from PyTorch ops;
 - the "xla" backend, and configs the kernel does not take, go through the
   eager planes path (rotated angles, FoV, pattern gains, array responses,
   OFDM gains, four real batched products).
@@ -61,6 +64,7 @@ from .geometry import (apply_fov, array_response, array_response_phase,
                        array_response_planes, is_full_fov, rotate_angles,
                        rotate_unit_vec)
 from .kernels import beamgain as _beamgain
+from .kernels import prologue as _prologue
 from .kernels import render as _render
 from .kernels.pathsum import fused_path_sum
 from .patterns import pattern_gain
@@ -459,14 +463,56 @@ def _wavevec_inputs(cfg: ChannelConfig, paths: PathData, bs: AntennaPanel,
             *steps)
 
 
+def _prologue_route(cfg: ChannelConfig, paths: PathData, bs: AntennaPanel,
+                    ue: AntennaPanel, *stacks) -> bool:
+    """Does the fused kernels' prologue run as one launch of
+    ``csrc/prologue.cu`` (``kernels/prologue.py``)? On a card, with float32
+    path fields, panels and polarization ``stacks``, for a config without
+    angle space (isotropic, full FoV: :func:`_angles_needed`) and without
+    Doppler, and with no autograd through any of them. Every other call
+    takes the PyTorch prologue: angle space, Doppler, float64, the CPU, and
+    the calibration step, which differentiates through the prologue. Reads
+    the config, the dtypes, the device and ``requires_grad`` alone."""
+    dev = paths.delay_s.device
+    floats = [paths.delay_s, paths.aoa_el_deg, paths.aoa_az_deg,
+              paths.aod_el_deg, paths.aod_az_deg, bs.rotation_deg,
+              ue.rotation_deg, bs.spacing, ue.spacing,
+              *(stacks or (paths.power_dbw, paths.phase_deg))]
+    return (_on_card(dev) and not _angles_needed(cfg)
+            and not cfg.enable_doppler and paths.valid.device == dev
+            and all(x.dtype == torch.float32 and x.device == dev
+                    for x in floats)
+            and not (torch.is_grad_enabled()
+                     and any(x.requires_grad for x in floats)))
+
+
+def _prologue_kernel(cfg: ChannelConfig, paths: PathData, bs: AntennaPanel,
+                     ue: AntennaPanel, power, phase, polar: bool):
+    """The seven per-path inputs from one launch of the prologue kernel,
+    with the [N, U, P] ``power`` and ``phase`` on the slot axis (masked on
+    invalid paths when ``polar``)."""
+    k0, stride = _k_progression(cfg)
+    return _prologue.fused_prologue(
+        paths.delay_s, paths.valid, paths.aoa_el_deg, paths.aoa_az_deg,
+        paths.aod_el_deg, paths.aod_az_deg, power, phase, ue.rotation_deg,
+        bs.rotation_deg, ue.spacing, bs.spacing, cfg.subcarriers,
+        cfg.bandwidth, k0, stride, polar)
+
+
 def _fused_inputs(cfg: ChannelConfig, paths: PathData, bs: AntennaPanel,
                   ue: AntennaPanel):
     """The prologue of the fused render and beam-gain kernels: their seven
     per-path inputs (gry, grz, gty, gtz, amp, psi, omega [U, P]), the
     RX/TX wave-vector phase steps kd*y', kd*z' in the rotated frame zeroed
-    on invalid paths and :func:`_fused_path_scalars`. The scalars come
+    on invalid paths and :func:`_fused_path_scalars`. One launch of the
+    prologue kernel where :func:`_prologue_route` takes the call, else
+    PyTorch ops (counted in ``prologue.FALLBACKS``). The scalars come
     first: with the masked steps first more memory is live at the peak."""
     with span("dm.prologue"):
+        if _prologue_route(cfg, paths, bs, ue):
+            return _prologue_kernel(cfg, paths, bs, ue, paths.power_dbw[None],
+                                    paths.phase_deg[None], polar=False)
+        _prologue.FALLBACKS += 1
         valid, powers_lin, *steps = _wavevec_inputs(cfg, paths, bs, ue)
         u, p = paths.delay_s.shape
         valid_f = valid.reshape(-1)
@@ -906,10 +952,18 @@ def _polar_fused_inputs(cfg: ChannelConfig, paths: PathData,
     slot axis (slot = pol*S + s). Angles and delays are shared across
     polarizations. The polarization matrices [N_pol, U, P] arrive
     NaN-padded from the loader, so both amp and psi are masked: a NaN psi
-    would poison the kernel's trig even at amp = 0.
+    would poison the kernel's trig even at amp = 0. One launch of the
+    prologue kernel where :func:`_prologue_route` takes the call, else
+    PyTorch ops (counted in ``prologue.FALLBACKS``).
     """
     with span("dm.prologue"):
         paths = paths.trim_paths(cfg.num_paths)
+        if _prologue_route(cfg, paths, bs, ue, pol_power_dbw, pol_phase_deg):
+            with span("dm.polar"):
+                return _prologue_kernel(
+                    cfg, paths, bs, ue, pol_power_dbw[..., :cfg.num_paths],
+                    pol_phase_deg[..., :cfg.num_paths], polar=True)
+        _prologue.FALLBACKS += 1
         valid, gain, *steps = _wavevec_steps(cfg, paths, bs, ue)
         zero = torch.zeros((), dtype=paths.delay_s.dtype,
                            device=paths.delay_s.device)

@@ -77,13 +77,13 @@ def build_log(name: str) -> str:
         return f.read()
 
 
-def launcher(name: str, n_ptr: int, n_int: int):
+def launcher(name: str, n_ptr: int, n_int: int, n_float: int = 0):
     """``<name>_launch`` of ``csrc/<name>.cu`` with its argument types:
-    ``n_ptr`` pointers, ``n_int`` ints, then the stream; returns an int
-    (the launch's cudaError_t)."""
+    ``n_ptr`` pointers, ``n_int`` ints, ``n_float`` floats, then the
+    stream; returns an int (the launch's cudaError_t)."""
     fn = getattr(load_library(name), f"{name}_launch")
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
-        [ctypes.c_void_p]
+        [ctypes.c_float] * n_float + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 

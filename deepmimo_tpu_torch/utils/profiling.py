@@ -20,13 +20,18 @@ boundaries with it, under the name ``span``:
 - ``dm.h2d``: one host-to-device upload (a small tensor, a whole
   ``PathData``, or one of a dual-polar dataset's two polarization
   stacks);
-- ``dm.prologue``: the fused kernels' per-path inputs (the ~100 small ops
-  enqueued before a launch);
+- ``dm.prologue``: the fused kernels' per-path inputs: one launch of the
+  prologue kernel (``ops/kernels/prologue.py``, counted in its
+  ``LAUNCHES``), or the ~100 small ops enqueued before a launch where its
+  route keeps them (angle space, Doppler, float64, the CPU, autograd;
+  counted in its ``FALLBACKS``);
 - ``dm.polar``: inside ``dm.prologue`` of a dual-polar render or beam
-  gain, the per-polarization part (the power and phase stacks trimmed,
-  made linear and masked, and laid pol-major on the kernel's slot axis);
+  gain, the per-polarization part (the power and phase stacks trimmed and,
+  in the kernel, laid pol-major on the render's slot axis; as ops, made
+  linear, masked and laid out);
 - ``dm.kernel.<name>``: the host side of one launch of a hand-written
-  kernel (``render_fwd``, ``render_bwd``, ``beam_gain``, ``pathsum``);
+  kernel (``render_fwd``, ``render_bwd``, ``beam_gain``, ``pathsum``,
+  ``prologue``);
 - ``dm.d2h``: the copy of a result from a card to the host, its wait for
   the device included (streamed: each block's copy enqueued, and the wait
   for it);

@@ -318,6 +318,8 @@ def test_float64_beyond_shared_memory_plain_on_cpu_raises_on_card(
     assert want.dtype == torch.float64 and torch.isfinite(want).all()
     assert torch.equal(tch.render_beam_gains(pd, bs, ue, cfg, wr, wi), want)
     monkeypatch.setattr(tch, "_on_card", lambda dev: True)
+    # the prologue kernel cannot run on these CPU tensors: its PyTorch ops
+    monkeypatch.setattr(tch, "_prologue_route", lambda *a: False)
     with pytest.raises(ValueError, match="complex128"):
         tch.render_beam_gains(pd, bs, ue, cfg, wr, wi)
     calls = []
@@ -767,6 +769,8 @@ def test_beyond_shared_memory_plain_on_cpu_raises_on_card(polar,
     assert torch.isfinite(want).all()
     assert torch.equal(fn(pd, bs, ue, cfg, *pol, wr, wi), want)
     monkeypatch.setattr(tch, "_on_card", lambda dev: True)
+    # the prologue kernel cannot run on these CPU tensors: its PyTorch ops
+    monkeypatch.setattr(tch, "_prologue_route", lambda *a: False)
     with pytest.raises(ValueError, match="shared memory"):
         fn(pd, bs, ue, cfg, *pol, wr, wi)
     assert torch.equal(fn(pd, bs, ue, xla, *pol, wr, wi), want)

@@ -291,10 +291,11 @@ def test_build_is_keyed_by_source_hash():
 # kernel: (pointer parameters, int parameters) of its extern "C" launcher
 # before the stream, and the wrapper that alone spells that signature.
 LAUNCH_ABI = {
-    "render_fwd": ((8, 13), "render.py"),
-    "render_bwd": ((15, 11), "render.py"),
-    "beamgain": ((9, 11), "beamgain.py"),
-    "pathsum": ((10, 5), "pathsum.py"),
+    "render_fwd": ((8, 13, 0), "render.py"),
+    "render_bwd": ((15, 11, 0), "render.py"),
+    "beamgain": ((9, 11, 0), "beamgain.py"),
+    "pathsum": ((10, 5, 0), "pathsum.py"),
+    "prologue": ((19, 12, 1), "prologue.py"),
 }
 
 
@@ -311,11 +312,11 @@ def _python_sources():
 
 @pytest.mark.parametrize("kernel", sorted(LAUNCH_ABI))
 def test_launch_signature_is_written_once_in_its_wrapper(kernel):
-    """The C signature of ``<kernel>_launch`` (pointers, ints, then the
-    stream) is spelled by exactly one ``_build.launcher`` call, in the
-    kernel's wrapper under ``ops/kernels/``, with the counts of the
+    """The C signature of ``<kernel>_launch`` (pointers, ints, floats,
+    then the stream) is spelled by exactly one ``_build.launcher`` call, in
+    the kernel's wrapper under ``ops/kernels/``, with the counts of the
     source; no other Python file names the symbol or sets argtypes."""
-    (n_ptr, n_int), wrapper = LAUNCH_ABI[kernel]
+    (n_ptr, n_int, n_float), wrapper = LAUNCH_ABI[kernel]
     src = os.path.join(_build.CSRC_DIR, f"{kernel}.cu")
     with open(src) as f:
         text = f.read()
@@ -326,14 +327,16 @@ def test_launch_signature_is_written_once_in_its_wrapper(kernel):
     assert params[-1] == "void* stream", params[-1]
     ptrs = [x for x in params[:-1] if "*" in x]
     ints = [x for x in params[:-1] if x.startswith("int ")]
-    assert len(ptrs) + len(ints) == len(params) - 1, params
-    assert params[:len(ptrs)] == ptrs, "pointers come before the ints"
-    assert (len(ptrs), len(ints)) == (n_ptr, n_int)
+    floats = [x for x in params[:-1] if x.startswith("float ")]
+    assert len(ptrs) + len(ints) + len(floats) == len(params) - 1, params
+    assert params[:-1] == ptrs + ints + floats, \
+        "pointers come before the ints, the ints before the floats"
+    assert (len(ptrs), len(ints), len(floats)) == (n_ptr, n_int, n_float)
 
     sites, named = [], []
     for path, body in _python_sources():
         calls = re.findall(r"launcher\(\s*(\S+?)\s*,\s*(\S+?)\s*,"
-                           r"\s*(\S+?)\s*\)", body)
+                           r"\s*(\S+?)\s*(?:,\s*(\S+?)\s*)?\)", body)
         sites += [(path, c) for c in calls if c[0] in (f'"{kernel}"',
                                                        f"'{kernel}'")]
         if os.path.basename(path) != "_build.py" and re.search(
@@ -341,10 +344,11 @@ def test_launch_signature_is_written_once_in_its_wrapper(kernel):
                 + kernel + r"_launch\b.*argtypes", body):
             named.append(path)
     assert len(sites) == 1, sites
-    path, (_, ptr_arg, int_arg) = sites[0]
+    path, (_, ptr_arg, int_arg, float_arg) = sites[0]
     assert path == os.path.join(os.path.dirname(os.path.abspath(
         kr.__file__)), wrapper)
-    assert (int(ptr_arg), int(int_arg)) == (n_ptr, n_int)
+    assert (int(ptr_arg), int(int_arg), int(float_arg or 0)) == \
+        (n_ptr, n_int, n_float)
     assert not named, named
 
 
