@@ -20,10 +20,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    old kernel's shared memory: a 16 x 16 BS at 1,024 subcarriers, and 300
    paths), the render's backward within
    3e-4 * max|g| for each of its 7 gradients, the beam-gain kernel within
-   3e-5 * max|G| at 7 shapes, from 5 users to 131,072 and up to 100 paths,
+   3e-5 * max|G| at 8 shapes, from 5 users to 131,072 and up to 100 paths,
    256 subcarriers and 64 beams of a 16 x 16 panel, timed at the headline
-   with 16 beams and with 64 (its tensor-core design; each line names the
-   design that ran) (and, for context, the
+   with 16 beams and with 64 (its tensor-core design) and at a 16 x 16
+   panel with 256 beams (its wide tensor-core design, the plain version
+   over blocks of users; each line names the design that ran) (and, for
+   context, the
    forward render plus an einsum fold at the headline width). The path
    sum's yardstick is timed beside it: one complex64 ``torch.einsum`` over
    the same planes with g given (its ``library_ms``). Every mode is held
@@ -53,7 +55,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    codebook — one beam-gain and one prologue launch and no render launch
    per call — on 64
    users per dataset against |conj(W) . H| ** 2 from the float64 oracle
-   (1e-4 * max|G|); then a timed sweep.
+   (1e-4 * max|G|); then a timed sweep; then 64 beams (the tensor-core
+   design), and two calls of the last dataset at a 16 x 16 BS panel with
+   its 256-beam codebook into one 8 GiB buffer, each one launch of the
+   wide tensor-core design (``MODE_LAUNCHES["tc_wide"]``) and one prologue
+   launch, against the oracle and timed.
 5c. bf16 serving on the four datasets, counted by kernel mode:
    ``compute_channels`` with ``planes_out_dtype`` "bfloat16" (f32
    products, then bf16 products) and ``compute_beam_gains`` with bf16
@@ -275,6 +281,8 @@ ORACLE_RTOL = 5e-5       # main path vs float64 oracle, relative to max|H|
 N_ORACLE = 64            # users per dataset checked against the oracle
 BG_BEAMS = 16            # codebook beams of the beam-gain paths
 BG_TC_BEAMS = 64         # beams of the tensor-core design's serving calls
+BG_WIDE_SHAPE = (16, 16)  # the massive-MIMO panel of the wide design's call
+BG_WIDE_BEAMS = 256      # its grid of beams, one per element
 BG_RTOL = 3e-5           # beam-gain kernel vs plain, relative to max|G|
 BG_ORACLE_RTOL = 1e-4    # beam gains vs the float64 oracle, rel. max|G|
 PROLOGUE_RTOL = 2e-6     # prologue kernel vs its PyTorch ops, relative,
@@ -706,15 +714,30 @@ BG_CASES = [
     ("ragged_large", 4099, (2, 2), (4, 4), 5, 17, 100, 3, 1),
     # the largest P the one-block-per-user kernel took at this shape
     ("wide", 4099, (1, 1), (16, 16), 64, 256, 39, 1, 1),
+    # the 16x16 panel with its 256-beam grid: the wide tensor-core design
+    # (float32 only), timed too
+    ("wide256", CHUNK, UE_SHAPE, BG_WIDE_SHAPE, BG_WIDE_BEAMS, N_SC,
+     MAX_PATHS, 1, 1),
     # fewer users than the grid has warps
     ("few_users", 5, UE_SHAPE, BS_SHAPE, BG_BEAMS, N_SC, MAX_PATHS, 4, 4),
 ]
 
 
+def _bg_reference(torch, args, wr, wi, rx, tx, k, mm, block=16_384):
+    """The beam-gain kernel's plain version over the users in blocks of
+    ``block`` (a whole wide call's temporaries would not fit the card)."""
+    from deepmimo_tpu_torch.ops.kernels import beamgain as kb
+    u = args[-1].shape[0]
+    return torch.cat([kb.beam_gain_reference(
+        *(x[u0:u0 + block] for x in args), wr, wi, rx, tx, k, mm)
+        for u0 in range(0, u, block)])
+
+
 def phase_bg_kernels(torch):
     """The beam-gain kernel vs its plain version at the BG_CASES shapes.
-    Returns the headline's numbers by mode, and under "tc" those of the
-    tensor-core design at ``headline64``."""
+    Returns the headline's numbers by mode, under "tc" those of the
+    tensor-core design at ``headline64`` and under "tc_wide" those of its
+    wide design at ``wide256``."""
     from deepmimo_tpu_torch.ops.kernels import beamgain as kb
     from deepmimo_tpu_torch.ops.kernels import render as kr
     headline = {}
@@ -725,18 +748,22 @@ def phase_bg_kernels(torch):
         for mm, dtype_name in BG_MODES:
             dtype = getattr(torch, dtype_name)
             key = kb.beam_gain_mode(mm, dtype)
-            if not kb.beam_gain_fits(rx, tx, b, p, k, key == "f64"):
+            if not kb.beam_gain_fits(rx, tx, b, p, k, key == "f64", mm):
                 log(f"[kernel] {entry('fused_beam_gain', key)} {name}: "
-                    f"T*B = {t * b} past the float64 shared memory; the "
+                    f"T*B = {t * b} past the SIMT design's shared memory "
+                    f"in {key}, which the tensor cores do not take; the "
                     f"card refuses it")
                 continue
             tol = BG_TOL[key]
             args = [x.to(dtype) for x in args32]
             wr, wi = (x.to(dtype) for x in w32)
-            tc_before = kb.TC_LAUNCHES
+            tc_before = kb.TC_LAUNCHES, kb.MODE_LAUNCHES.get("tc_wide", 0)
             got = kb.fused_beam_gain(*args, wr, wi, rx, tx, k, mm_dtype=mm)
-            design = "tensor cores" if kb.TC_LAUNCHES > tc_before else "SIMT"
-            want = kb.beam_gain_reference(*args, wr, wi, rx, tx, k, mm)
+            design = ("tensor cores" if kb.TC_LAUNCHES > tc_before[0] else
+                      "wide tensor cores"
+                      if kb.MODE_LAUNCHES.get("tc_wide", 0) > tc_before[1]
+                      else "SIMT")
+            want = _bg_reference(torch, args, wr, wi, rx, tx, k, mm)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             scale = float(want.max())
@@ -748,17 +775,24 @@ def phase_bg_kernels(torch):
                 raise AssertionError(f"fused_beam_gain {name} {key}: kernel "
                                      f"disagrees with its plain version")
             del want
-            if name in ("headline", "headline64"):
+            if name in ("headline", "headline64", "wide256"):
                 ms = event_ms(torch, lambda: kb.fused_beam_gain(
-                    *args, wr, wi, rx, tx, k, out=got, mm_dtype=mm), reps=20)
-                plain_ms = event_ms(torch, lambda: kb.beam_gain_reference(
-                    *args, wr, wi, rx, tx, k, mm), reps=3)
+                    *args, wr, wi, rx, tx, k, out=got, mm_dtype=mm),
+                    reps=3 if name == "wide256" else 20)
+                plain_ms = event_ms(torch, lambda: _bg_reference(
+                    torch, args, wr, wi, rx, tx, k, mm), reps=3)
                 log(f"[kernel] {entry('fused_beam_gain', key)} {name}: "
                     f"{design} kernel {ms:.4f} ms "
                     f"({u / ms * 1e3:.1f} users/s), plain {plain_ms:.4f} ms")
             if name == "headline64" and design == "tensor cores":
                 headline["tc"] = dict(max_abs_err=err, ms=ms,
                                       plain_ms=plain_ms)
+            if name == "wide256":
+                if design != "wide tensor cores":
+                    raise AssertionError(f"fused_beam_gain {name}: {design} "
+                                         f"ran, not the wide design")
+                headline["tc_wide"] = dict(max_abs_err=err, ms=ms,
+                                           plain_ms=plain_ms)
             if name == "headline":
                 headline[key] = dict(max_abs_err=err, ms=ms,
                                      plain_ms=plain_ms)
@@ -1195,8 +1229,62 @@ def phase_beamgain(torch, datasets, params):
                              f"calls")
     log(f"[beamgain] {BG_TC_BEAMS} beams: {tc[1]} tensor-core launches, "
         f"{tc[2]} prologue launches")
+    del g
     torch.cuda.empty_cache()
-    return launches[0], tc[1], launches[3] + tc[2]
+    wide = _serve_wide_beam_gains(torch, datasets[-1])
+    return launches[0], tc[1], launches[3] + tc[2] + wide, wide
+
+
+def _serve_wide_beam_gains(torch, ds):
+    """``compute_beam_gains`` of one headline dataset (131,072 users) at a
+    ``BG_WIDE_SHAPE`` BS panel with its ``BG_WIDE_BEAMS``-beam codebook,
+    twice into one buffer: each call one launch of the wide tensor-core
+    design (``MODE_LAUNCHES["tc_wide"]``) and one prologue launch, held to
+    the float64 oracle, then timed. Returns the launches."""
+    import deepmimo_tpu_torch as dmt
+    from deepmimo_tpu_torch.ops.kernels import beamgain as kb
+    from deepmimo_tpu_torch.ops.kernels import prologue as kpro
+
+    params = make_params(dmt)
+    params[dmt.consts.PARAMSET_ANT_BS][dmt.consts.PARAMSET_ANT_SHAPE] = \
+        np.array(BG_WIDE_SHAPE)
+    t = BG_WIDE_SHAPE[0] * BG_WIDE_SHAPE[1]
+    w = codebook(BG_WIDE_BEAMS, t, seed=80)
+    before = dict(kb.MODE_LAUNCHES), kb.LAUNCHES, kpro.LAUNCHES
+    g = None
+    for _ in range(2):
+        prev = g
+        g = ds.compute_beam_gains(params, codebook=w, to_device=True,
+                                  out=prev)
+        if prev is not None and g.data_ptr() != prev.data_ptr():
+            raise AssertionError("wide beam gains: out= buffer not reused")
+    torch.cuda.synchronize()
+    step = {key: n - before[0].get(key, 0)
+            for key, n in kb.MODE_LAUNCHES.items()
+            if n != before[0].get(key, 0)}
+    if step != {"tc_wide": 2} or kb.LAUNCHES - before[1] != 2 or \
+            kpro.LAUNCHES - before[2] != 2:
+        raise AssertionError(f"wide beam gains: launches by mode {step}, "
+                             f"prologue {kpro.LAUNCHES - before[2]}, for 2 "
+                             f"calls")
+    expected = (CHUNK, BG_WIDE_BEAMS, N_SC)
+    if tuple(g.shape) != expected or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"wide beam gains: {tuple(g.shape)}, expected "
+                             f"{expected} and finite")
+    h = _oracle(ds, N_ORACLE, ds["power"], ds["phase"],
+                bs_shape=BG_WIDE_SHAPE)
+    _check_oracle("beamgain", f"{BG_WIDE_BEAMS} beams at {BG_WIDE_SHAPE}",
+                  g[:N_ORACLE].cpu().numpy(), _beam_oracle(w, h),
+                  BG_ORACLE_RTOL)
+    ms = event_ms(torch, lambda: ds.compute_beam_gains(
+        params, codebook=w, to_device=True, out=g), reps=3)
+    log(f"[beamgain] {BG_WIDE_BEAMS} beams at {BG_WIDE_SHAPE}: 2 launches "
+        f"of the wide tensor-core design; {ms:.4f} ms per {CHUNK}-user "
+        f"call (CUDA events), {CHUNK / ms * 1e3:.1f} users/s; maps "
+        f"{g.numel() * 4 / 2**30:.2f} GiB")
+    del g
+    torch.cuda.empty_cache()
+    return 2
 
 
 def make_pol_data(data, seed=8):
@@ -3904,14 +3992,16 @@ def kernel_bounds(fma=False):
     fwd = 8 * u * q * k * p        # H = E g^T: 8 flops per complex MAC
     bwd = 16 * u * q * k * p       # dE = ct g and dG = ct^T E
 
-    def beam_gain(b):
+    def beam_gain(b, t=t):
         """Bytes, and flops of the fold (eb = conj(W) a_tx, B*T*P MACs),
-        the path sum (R*B*K*P MACs) and |y|^2, with ``b`` beams."""
+        the path sum (R*B*K*P MACs) and |y|^2, with ``b`` beams and ``t``
+        TX elements."""
         return (per_path + 4 * 2 * b * t + 4 * u * r * b * k,
                 8 * u * b * t * p, 8 * u * r * b * k * p, 3 * u * r * b * k)
 
     bg_bytes, fold, bg_sum, bg_pow = beam_gain(BG_BEAMS)
     tc_bytes, tc_fold, tc_sum, tc_pow = beam_gain(BG_TC_BEAMS)
+    wide = beam_gain(BG_WIDE_BEAMS, BG_WIDE_SHAPE[0] * BG_WIDE_SHAPE[1])
     work = {   # name: (bytes, flops at f32 grade, flops of one bf16 pass)
         "fused_render": (per_path + 4 * h_planes, fwd, 0),
         "fused_render[tc]": (per_path + 4 * h_planes, fwd, 0),
@@ -3930,6 +4020,8 @@ def kernel_bounds(fma=False):
         "fused_beam_gain[bf16_mm]": (bg_bytes, fold + bg_pow, bg_sum),
         # the tensor-core design at BG_TC_BEAMS beams
         "fused_beam_gain[tc]": (tc_bytes, tc_fold + tc_sum + tc_pow, 0),
+        # its wide design at BG_WIDE_BEAMS beams of the BG_WIDE_SHAPE panel
+        "fused_beam_gain[tc_wide]": (wide[0], sum(wide[1:]), 0),
         # every value and product in float64 (its flops counted apart)
         "fused_beam_gain[f64]": (2 * bg_bytes, 0, 0),
         # reads 5 float32 fields, the bool mask and a power and a phase a
@@ -4175,8 +4267,8 @@ def main():
     launches = Counter()                 # main-path launches by entry
     datasets, params, serve, prologue = phase_main(torch, dmt)
     phase_streamed(torch, dmt, datasets, params)
-    bg_launches, bg_tc_launches, bg_prologues = phase_beamgain(
-        torch, datasets, params)
+    bg_launches, bg_tc_launches, bg_prologues, bg_wide_launches = \
+        phase_beamgain(torch, datasets, params)
     bf16_serving = phase_bf16_serving(torch, dmt, datasets)
     angle_space = phase_angle_space(torch, dmt, datasets)
     del datasets
@@ -4198,6 +4290,7 @@ def main():
                      "fused_path_sum": pallas_launches,
                      "fused_beam_gain": bg_launches + polar_bg,
                      "fused_beam_gain[tc]": bg_tc_launches,
+                     "fused_beam_gain[tc_wide]": bg_wide_launches,
                      "fused_prologue": bg_prologues})
     renders = {"serving": serve, "dual-polar": polar, "training": train_fwd,
                "angle space": angle_space, "Doppler": doppler,
@@ -4225,7 +4318,9 @@ def main():
         f"{converted['fused_beam_gain']} + scenario factory "
         f"{factory['fused_beam_gain']} + multi-device "
         f"{multidevice['fused_beam_gain']}; fused_beam_gain[tc]: serving "
-        f"{bg_tc_launches} ({BG_TC_BEAMS} beams); fused_prologue: serving "
+        f"{bg_tc_launches} ({BG_TC_BEAMS} beams); fused_beam_gain[tc_wide]: "
+        f"serving {bg_wide_launches} ({BG_WIDE_BEAMS} beams at "
+        f"{BG_WIDE_SHAPE}); fused_prologue: serving "
         f"{serve['fused_prologue']} + beam-gain serving {bg_prologues}; "
         f"fused_prologue[polar]: dual-polar "
         f"{polar['fused_prologue[polar]']}; modes: complex128 beam "

@@ -23,28 +23,42 @@
 // 3xTF32 on the tensor cores' nominal 495 TFLOP/s, beside 0.54 GB of output
 // (0.16 ms at 3.35 TB/s). With B = 64 each product is 102,400 complex MACs
 // a user: 3.2 ms as FP32 FMA, and 8.25e11 flops a call as the real-block
-// GEMMs below at 3xTF32 over P padded to 32, 1.67 ms at 495 TFLOP/s. Two
-// designs share the launcher; the wrapper picks one from dtype, mode and
-// shape (ops/kernels/beamgain.py tensor_core_route):
+// GEMMs below at 3xTF32 over P padded to 32, 1.67 ms at 495 TFLOP/s. A
+// 16x16 panel with its 256-beam grid (T = B = 256) folds 16 times that a
+// user: 8.9e11 flops a call over the valid paths, 80% of its 1.12e12.
+// Three designs share the launcher; the wrapper picks one from dtype, mode
+// and shape (ops/kernels/beamgain.py tensor_core_route):
 //
 //   - SIMT (beamgain_kernel): float64, the one-pass bf16 mode, codebooks
-//     under the wrapper's threshold of beams, panels past 64 elements and
+//     under the wrapper's threshold of beams, panels past 256 elements and
 //     the shapes at which the wrapper's cost models give it the smaller
-//     time (small panels or few paths with few beams).
+//     time (small panels or few paths with few beams). Its shared memory
+//     bounds it to T*B <= 28,768 in float32, 14,240 in float64.
 //     Small products (a user's fold is [P x T] . [T x B]) on which
 //     mma.sync TF32 runs at half its nominal rate here (PERF.md), so FP32
 //     FMA on the SIMT pipes, bound by the instructions the SMs issue: the
 //     design cuts everything issued beside the FMA. At B = 64 it issues at
 //     ~72% of the SMs' rate, 11x its least time;
 //   - tensor cores (tc::beamgain_kernel_tc): float32 at f32 grade, from
-//     32 beams, T <= 64, where it is the faster. Two chained warpgroup
+//     32 beams, T <= 64, where it is the faster or the SIMT design's
+//     shared memory does not take the codebook. Two chained warpgroup
 //     GEMMs per user on wgmma at 3xTF32 take the products off the issue
 //     slots. What bounds it then is the SM itself: run without their
 //     hand-over, the producers' trig, splits and shared stores and the
 //     products take as long together as with it, so the two contend for
 //     the SM rather than wait on each other; the design cuts the
 //     producers' instructions per operand value and the products' count of
-//     small wgmma (PERF.md).
+//     small wgmma (PERF.md);
+//   - wide tensor cores (tcw::beamgain_kernel_wide): float32 at f32 grade,
+//     from 32 beams, 64 < T <= 256, any number of beams. The tc design's
+//     64-beam codebook tile in its four 3xTF32 planes would take 256 KB
+//     at T = 256, and re-read from L2 per user it would move 1 MB a user
+//     (137 GB a call). So its tile is 32 beams, whose real and imaginary
+//     rows make the products' 64 rows: conj(W) of the tile in two planes
+//     (128 KB at T = 256) stays in shared memory for every user the block
+//     takes with it, while a_tx passes through in slices of 32 elements.
+//     T = 256 is the most that the tile, two a_tx slices and two g
+//     stages fit in a block's 227 KB.
 //
 // SIMT design:
 //   - persistent blocks of up to 8 warps, sized by the occupancy calculator;
@@ -138,6 +152,39 @@
 //   - with one path chunk (P <= 32) E is folded once per user and beam tile
 //     and kept for every RX element, slot and 64-column tile; with more,
 //     y sums over the chunks and E is folded again per output tile.
+//
+// Wide tensor-core design (namespace tcw), for one user and a tile of 32
+// beams, in path chunks of 32, a_tx slices of 32 TX elements and tiles of
+// 64 subcarriers:
+//   - the fold as one real GEMM on wgmma m64n64k8, D = C . X over the
+//     slices: row 16 v + g + 8 h of C is part h of conj(W) of beam
+//     8 v + g, so a warpgroup thread holds both parts of one beam (rows
+//     ra and ra + 8), and X's columns are tc's, so it holds both parts of
+//     path 4 j + t in column block j: cr ar, cr ai, ci ar and ci ai, from
+//     which Er and Ei of (beam, path) are its own;
+//   - the path sum as one real GEMM on wgmma m64n64k8, y = A . G, with A
+//     the real form [[Er, -Ei], [Ei, Er]] of E straight from those
+//     registers: k-step j's depths t and t + 4 are parts re and im of
+//     path 4 j + t, so its A fragment is (Er, Ei, -Ei, Er); G's depths
+//     hold (gr, gi) of the paths and its columns run so that a thread
+//     holds Re y and Im y (rows ra, ra + 8) of four adjacent subcarriers:
+//     |y|^2 in registers, 16-byte streaming stores;
+//   - a slice's products run on while the next slice's are issued;
+//     3xTF32 throughout (a_tx's hi plane is the float itself, which the
+//     tf32 products read truncated, its lo plane the exact rest);
+//   - persistent warp-specialised blocks of 512 threads, one per SM
+//     (229,376 bytes of shared memory): one consumer warpgroup stages the
+//     codebook tile and runs the products and the stores; two producer
+//     warpgroups build the a_tx slices and one builds g, each ring in two
+//     stages (named barriers: each ring's full and empty), with 16-byte
+//     stores free of bank conflicts; setmaxnreg gives the consumers 200
+//     registers and the producers 96 (without it ptxas serialises the
+//     products, C7512). a_tx is separable where the panel's rows are 8,
+//     16 or 32 elements wide (a_tx = ey[m] ez[n]: the row factors once
+//     per user, one sincos a slice), else one sincos per entry; g one
+//     sincos per entry. The a_tx producers set the pace (PERF.md). No
+//     product register is written on a branch; the k-step counts of a
+//     slice and of the path sum are compile-time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1020,6 +1067,548 @@ cudaError_t launch(const ::Args<float>& s, const void* cw,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// The wide tensor-core design: float32 at f32 grade, panels of 65 to kTMax
+// TX elements (the wrapper routes; ops/kernels/beamgain.py
+// tensor_core_route)
+// ---------------------------------------------------------------------------
+
+namespace tcw {
+
+using render::Split;
+using tcop::kKt;
+using tcop::kPc;
+
+constexpr int kConsumers = 128;      // one warpgroup: codebook, wgmma, stores
+constexpr int kXProducers = 256;     // two warpgroups: the a_tx slices
+constexpr int kGProducers = 128;     // one warpgroup: g
+constexpr int kThreads = kConsumers + kXProducers + kGProducers;
+constexpr int kXRing = kConsumers + kXProducers;  // the rings' barriers
+constexpr int kGRing = kConsumers + kGProducers;
+// Registers a thread of the consumers and of the producers: 65,536 for
+// the block's 512 threads, most of them to the consumers' accumulators
+// and fragments (setmaxnreg).
+constexpr int kConsumerRegs = 200, kProducerRegs = 96;
+static_assert(kConsumers * kConsumerRegs +
+              (kXProducers + kGProducers) * kProducerRegs <= 65536,
+              "the register file");
+constexpr int kBeams = 32;           // beams per tile
+constexpr int kM = 2 * kBeams;       // the products' rows: (beam, part)
+constexpr int kTMax = 256;           // TX elements the staged codebook holds
+constexpr int kTS = 32;              // depths of one a_tx slice
+constexpr int kNX = 2 * kPc;         // fold columns: (re, im) of kPc paths
+constexpr int kDG = 2 * kPc;         // path-sum depths: (re, im) of kPc paths
+constexpr int kWPlane = kM * kTMax;  // floats of one codebook plane
+constexpr int kXPlane = kTS * kNX;   // floats of one a_tx slice plane
+constexpr int kGPlane = kDG * kKt;   // floats of one g plane
+// The rings: a_tx slices in kXStages stages, g in kGStages (4 and 1
+// measured alike at the cell's shape).
+constexpr int kXStages = 2, kGStages = 2;
+// conj(W) of the tile as 2 planes (hi, lo) over kTMax depths, then the
+// a_tx and g stages (hi, lo): 229,376 bytes, one block per SM.
+constexpr size_t kSmemBytes =
+    sizeof(float) * (2 * kWPlane + 2 * (kXStages * kXPlane +
+                                        kGStages * kGPlane));
+// Named barriers: a_tx stage s full and empty, g stage s full and empty
+// (each ring's producers arrive on full, the consumers on empty), the
+// consumers' own.
+constexpr int kXFull = 1, kXEmpty = kXFull + kXStages,
+              kGFull = kXEmpty + kXStages, kGEmpty = kGFull + kGStages,
+              kConsBar = kGEmpty + kGStages;
+static_assert(kConsBar <= 15, "16 named barriers");
+static_assert(kXProducers == 8 * 32 && kGProducers == 4 * 32 &&
+              kPc == 32 && kKt == 64,
+              "two a_tx warps and a g warp per 8 paths of a chunk");
+
+struct Args {
+  const float *gry, *grz, *gty, *gtz, *amp, *psi, *omega;
+  const float2* cw;         // conj(W) [T][B]
+  float* out;               // [U, R*B, S*K]
+  int U, P, r1, r2, t1, t2, T, B, K, S, n_sa;
+  int n_items;              // beam tiles x users
+  int n_ch, n_kt, n_tiles;  // path chunks, column tiles, output tiles
+  int n_sl;                 // a_tx slices of kTS depths
+  int vec;                  // 16-byte stores: K % 4 == 0, aligned out
+};
+
+// Output tile `tile` of an item: RX element, slot and first column.
+struct Tile {
+  int r, s, k0;
+};
+
+__device__ __forceinline__ Tile tile_at(const Args& a, int tile) {
+  Tile x;
+  const int rs = tile / a.n_kt;
+  x.k0 = (tile - rs * a.n_kt) * kKt;
+  x.r = rs / a.S;
+  x.s = rs - x.r * a.S;
+  return x;
+}
+
+// An a_tx producer lane's share of a slice: path 8 (w % 4) + 4 jp + e of
+// the chunk (column block J = 2 (w % 4) + jp of X) and the 4 depths
+// 8 q + 4 (w / 4) + i (i < 4) of the slice, q = 2 x + hs, for lane
+// e + 4 hs + 8 x + 16 jp of a_tx producer warp w (of 8).
+struct XLane {
+  int e, hs, q, jp, half;
+};
+
+__device__ __forceinline__ XLane x_lane(int w, int lane) {
+  return {lane & 3, (lane >> 2) & 1, 2 * ((lane >> 3) & 1) + ((lane >> 2) & 1),
+          lane >> 4, w >> 2};
+}
+
+// The separable panels: rows of t1 = 8, 16 or 32 elements, so that depth
+// 8 q + r (r < 8) of every slice lies at the same element m =
+// (8 q + r) % t1 of a row, and a lane's depths of a slice in one row n.
+__device__ __forceinline__ bool separable(const Args& a) {
+  return a.t1 == 8 || a.t1 == 16 || a.t1 == 32;
+}
+
+// Producers: a_tx of the lane's path at its 4 depths of the slice at t0
+// into the fold's B operand [kTS x kNX] (hi and lo planes), whose column
+// 8 J + 2 e + h holds part h of a_tx of path 4 J + e: per part one
+// 16-byte store to each plane, the lanes hs = 1 writing the imaginary
+// part first, so that the 8 lanes of each quarter of a store cover 8 rows
+// of one core matrix (free of bank conflicts). The hi plane holds x
+// itself, whose low 13 bits the tf32 products do not read (x truncated),
+// and the lo plane the rest, x - trunc(x), exactly. On separable panels
+// a_tx = ey[i] ez with the lane's row factors ey (once per item) and ez =
+// exp(j n gtz) of the slice's row n; else one sincos per depth. Depths
+// past T and paths past P are zeros.
+__device__ __forceinline__ void build_x(const Args& a, const XLane& l,
+                                        bool ok, float gty, float gtz,
+                                        const float2 (&ey)[4], int t0, int w,
+                                        float* xh) {
+  const int k0 = 8 * l.q + 4 * l.half;        // the lane's first depth
+  const int t = t0 + k0;
+  float2 v[4];
+  if (separable(a)) {
+    float ph[1] = {__fmul_rn(static_cast<float>(t / a.t1), gtz)};
+    float2 ez[1];
+    render::phasors(ph, ez);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = render::cmul(ey[i], ez[0]);
+  } else {
+    int n = t / a.t1, m = t - n * a.t1;
+    float ph[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ph[i] = __fadd_rn(__fmul_rn(static_cast<float>(m), gty),
+                        __fmul_rn(static_cast<float>(n), gtz));
+      const bool wrap = ++m == a.t1;
+      m = wrap ? 0 : m;
+      n += wrap;
+    }
+    render::phasors(ph, v);
+  }
+  const int row = 8 * (2 * (w & 3) + l.jp) + 2 * l.e;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {               // part hs, then 1 - hs
+    const int h = k ^ l.hs;
+    float hi[4], lo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = ok && t + i < a.T ? (h ? v[i].y : v[i].x) : 0.f;
+      hi[i] = x;
+      lo[i] = x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+    }
+    const int o = wg::offset(row + h, k0, kNX);
+    *reinterpret_cast<float4*>(xh + o) =
+        make_float4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<float4*>(xh + kXPlane + o) =
+        make_float4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// Producers: g of the tile's slot and columns k0 .. k0 + kKt - 1 as the
+// path sum's B operand [kDG x kKt] in hi and lo planes: depth 8 ks + d +
+// 4 c holds part c of g of path 4 ks + d of the chunk (the order in which
+// the fold's accumulators lie as A fragments), column n subcarrier
+// 16 (n / 16) + 2 (n / 8 % 2) + 4 (n % 8 / 2) + n % 2 of the tile, so that
+// a consumer thread's accumulators hold four adjacent subcarriers. g = ca
+// exp(j (psi - omega k)), ca = amp a_rx[r], one sincos per entry. Lane
+// cg + 16 kh of g producer warp w takes the 4 paths of k-step ks =
+// 2 w + kh and the columns cg + 16 i (i < 4): per column and part one
+// 16-byte store to each plane, the 8 lanes of each quarter of a store
+// covering 8 rows of one core matrix. Columns past K hold values that
+// are never stored.
+__device__ __forceinline__ void build_g(const float (&om)[4],
+                                        const float (&ps)[4],
+                                        const float2 (&ca)[4], int k0,
+                                        int ks, int cg, float* gh) {
+  const int kb = k0 + 2 * ((cg >> 3) & 1) + 4 * ((cg & 7) >> 1) + (cg & 1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float ph[4];
+#pragma unroll
+    for (int d = 0; d < 4; ++d)
+      ph[d] = __fsub_rn(ps[d],
+                        __fmul_rn(om[d], static_cast<float>(kb + 16 * i)));
+    float2 v[4];
+    render::phasors(ph, v);
+    float re[2][4], im[2][4];
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const float2 g = render::cmul(ca[d], v[d]);
+      const Split sr = render::split(g.x), si = render::split(g.y);
+      re[0][d] = __uint_as_float(sr.hi);
+      re[1][d] = __uint_as_float(sr.lo);
+      im[0][d] = __uint_as_float(si.hi);
+      im[1][d] = __uint_as_float(si.lo);
+    }
+    const int o = wg::offset(cg + 16 * i, 8 * ks, kKt);
+    const int o2 = wg::offset(cg + 16 * i, 8 * ks + 4, kKt);
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+      *reinterpret_cast<float4*>(gh + pl * kGPlane + o) =
+          make_float4(re[pl][0], re[pl][1], re[pl][2], re[pl][3]);
+      *reinterpret_cast<float4*>(gh + pl * kGPlane + o2) =
+          make_float4(im[pl][0], im[pl][1], im[pl][2], im[pl][3]);
+    }
+  }
+}
+
+// Producers: the a_tx slices of chunk c of user u into the a_tx stages,
+// counted by kx.
+__device__ __forceinline__ void produce_x(const Args& a, size_t u, int c,
+                                          int w, int lane, float* x_st,
+                                          int& kx) {
+  const XLane l = x_lane(w, lane);
+  const int p = c * kPc + 8 * (w & 3) + 4 * l.jp + l.e;
+  const bool ok = p < a.P;
+  const float gty = ok ? __ldg(a.gty + u * a.P + p) : 0.f;
+  const float gtz = ok ? __ldg(a.gtz + u * a.P + p) : 0.f;
+  float2 ey[4];                      // the row factors of the lane's depths
+  if (separable(a)) {
+    float ph[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      ph[i] = __fmul_rn(
+          static_cast<float>((8 * l.q + 4 * l.half + i) % a.t1), gty);
+    render::phasors(ph, ey);
+  }
+  for (int sl = 0; sl < a.n_sl; ++sl, ++kx) {
+    const int sg = kx % kXStages;
+    if (kx >= kXStages) render::bar_sync(kXEmpty + sg, kXRing);  // drained
+    build_x(a, l, ok, gty, gtz, ey, sl * kTS, w, x_st + sg * 2 * kXPlane);
+    // Written through the generic proxy, read by wgmma through the async
+    // proxy.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    render::bar_arrive(kXFull + sg, kXRing);
+  }
+}
+
+// Producers: g of output tile `tile` and chunk c of user u into a g
+// stage, counted by kg.
+__device__ __forceinline__ void produce_g(const Args& a, size_t u, int tile,
+                                          int c, int w, int lane,
+                                          float* g_st, int& kg) {
+  const int ks = 2 * w + (lane >> 4), cg = lane & 15;
+  const Tile x = tile_at(a, tile);
+  const int R = a.r1 * a.r2;
+  float om[4] = {0.f, 0.f, 0.f, 0.f}, ps[4] = {0.f, 0.f, 0.f, 0.f};
+  float2 ca[4];
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    const int p = c * kPc + 4 * ks + d;
+    float am = 0.f;
+    float2 rx = make_float2(1.f, 0.f);
+    if (p < a.P) {
+      const size_t row = u * a.P + p;
+      om[d] = __ldg(a.omega + row);
+      ps[d] = __ldg(a.psi + (u * a.S + x.s) * a.P + p);
+      am = __ldg(a.amp + (u * a.n_sa + (a.n_sa > 1 ? x.s : 0)) * a.P + p);
+      if (R > 1) {
+        const int nr = x.r / a.r1;
+        rx = render::phasor(__fadd_rn(
+            __fmul_rn(static_cast<float>(x.r - nr * a.r1),
+                      __ldg(a.gry + row)),
+            __fmul_rn(static_cast<float>(nr), __ldg(a.grz + row))));
+      }
+    }
+    ca[d] = make_float2(am * rx.x, am * rx.y);
+  }
+  const int sg = kg % kGStages;
+  if (kg >= kGStages) render::bar_sync(kGEmpty + sg, kGRing);  // drained
+  build_g(om, ps, ca, x.k0, ks, cg, g_st + sg * 2 * kGPlane);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  render::bar_arrive(kGFull + sg, kGRing);
+  ++kg;
+}
+
+// Producers: every item's operands of their ring in the order the
+// consumers take them: the a_tx warpgroups (`gp` false) each chunk's a_tx
+// slices, once per item with one chunk, else once per output tile; the g
+// warpgroup (`gp`) g of every output tile and chunk.
+__device__ __forceinline__ void produce(const Args& a, bool gp, float* x_st,
+                                        float* g_st) {
+  const int id = threadIdx.x - kConsumers - (gp ? kXProducers : 0);
+  const int w = id >> 5, lane = id & 31;
+  int k = 0;                         // stages of the ring
+  const int n_x = a.n_ch == 1 ? 1 : a.n_tiles;
+  for (int it = blockIdx.x; it < a.n_items; it += gridDim.x) {
+    const size_t u = static_cast<size_t>(it % a.U);
+    if (gp) {
+      for (int tile = 0; tile < a.n_tiles; ++tile)
+        for (int c = 0; c < a.n_ch; ++c)
+          produce_g(a, u, tile, c, w, lane, g_st, k);
+    } else {
+      for (int o = 0; o < n_x; ++o)
+        for (int c = 0; c < a.n_ch; ++c)
+          produce_x(a, u, c, w, lane, x_st, k);
+    }
+  }
+  // The consumers release the ring's last stages too.
+  const int n_st = gp ? kGStages : kXStages;
+  for (int j = k < n_st ? 0 : k - n_st; j < k; ++j)
+    render::bar_sync((gp ? kGEmpty : kXEmpty) + j % n_st,
+                     gp ? kGRing : kXRing);
+}
+
+// Consumers: conj(W) of beams b0 .. b0 + kBeams - 1 as the fold's A
+// operand [kM x depth], split into hi and lo planes: row 16 v + g + 8 h
+// holds part h (0: re, 1: im) of beam b0 + 8 v + g, so that a thread's
+// accumulator rows ra and ra + 8 are the two parts of one beam; zeros
+// past B and T.
+__device__ __forceinline__ void stage_codebook(const Args& a, int b0,
+                                               float* w) {
+  const int depth = a.n_sl * kTS;
+  for (int idx = threadIdx.x; idx < kM * depth; idx += kConsumers) {
+    const int m = idx & (kM - 1), t = idx / kM;
+    const int b = b0 + 8 * (m >> 4) + (m & 7);
+    float v = 0.f;
+    if (b < a.B && t < a.T) {
+      const float2 c = a.cw[static_cast<size_t>(t) * a.B + b];
+      v = (m & 8) ? c.y : c.x;
+    }
+    const Split s = render::split(v);
+    const int o = wg::offset(m, t, kM);
+    w[o] = __uint_as_float(s.hi);
+    w[kWPlane + o] = __uint_as_float(s.lo);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  render::bar_sync(kConsBar, kConsumers);
+}
+
+// E of the chunk as the path sum's A fragments of its 8 k-steps, hi and lo.
+struct EFrags {
+  uint32_t h[8][4], l[8][4];
+};
+
+__device__ __forceinline__ void fence_frags(EFrags& f) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    wg::fence_regs(f.h[ks]);
+    wg::fence_regs(f.l[ks]);
+  }
+}
+
+// Consumers: the fold of the chunk, D = conj(W) . X over the a_tx slices
+// at 3xTF32; a slice's products run on while the next slice's are issued,
+// and its stage is released once they are done (acc 0 starts the sum at
+// its first product). Then E: this thread's accumulators of column block
+// j hold, for the two parts (rows ra, ra + 8) of its beam and the two
+// parts (columns 2 t, 2 t + 1) of path 4 j + t, cr ar, cr ai, ci ar and
+// ci ai, so Er = cr ar - ci ai and Ei = cr ai + ci ar. Path-sum k-step j has depths t and t + 4 at parts
+// re and im of path 4 j + t, so its A fragment, the real form [[Er, -Ei],
+// [Ei, Er]] of E, is this thread's own: a = (Er, Ei, -Ei, Er).
+__device__ __forceinline__ void fold(const Args& a, uint64_t dwh,
+                                     uint64_t dwl, const float* x_st,
+                                     int& kx, EFrags& f) {
+  float d[32];
+  for (int sl = 0; sl < a.n_sl; ++sl, ++kx) {
+    const int sg = kx % kXStages;
+    render::bar_sync(kXFull + sg, kXRing);               // a_tx of slice sl
+    const float* x = x_st + sg * 2 * kXPlane;
+    const uint64_t xh = wg::desc(x, kNX), xl = wg::desc(x + kXPlane, kNX);
+    wg::fence_regs(d);
+    wg::fence();
+#pragma unroll
+    for (int ks = 0; ks < kTS / 8; ++ks) {
+      const int kw = sl * (kTS / 8) + ks;
+      const uint64_t bh = wg::step(xh, ks, kNX), bl = wg::step(xl, ks, kNX);
+      wg::mma_n64_ss(d, wg::step(dwl, kw, kM), bh, sl + ks);  // lo . hi
+      wg::mma_n64_ss(d, wg::step(dwh, kw, kM), bl);           // hi . lo
+      wg::mma_n64_ss(d, wg::step(dwh, kw, kM), bh);           // hi . hi
+    }
+    wg::commit();
+    if (sl > 0) {                    // the previous slice's products done
+      wg::wait_one();
+      render::bar_arrive(kXEmpty + (kx - 1) % kXStages, kXRing);
+    }
+  }
+  wg::wait_all();
+  wg::fence_regs(d);
+  render::bar_arrive(kXEmpty + (kx - 1) % kXStages, kXRing);  // reusable
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const Split re = render::split(d[4 * j] - d[4 * j + 3]);
+    const Split im = render::split(d[4 * j + 1] + d[4 * j + 2]);
+    const Split nim = render::neg(im);
+    f.h[j][0] = re.hi;
+    f.h[j][1] = im.hi;
+    f.h[j][2] = nim.hi;
+    f.h[j][3] = re.hi;
+    f.l[j][0] = re.lo;
+    f.l[j][1] = im.lo;
+    f.l[j][2] = nim.lo;
+    f.l[j][3] = re.lo;
+  }
+}
+
+// Consumers: y = E . g of the stage at 3xTF32, plus y unless `acc` is 0:
+// rows ra and ra + 8 of the accumulator are Re y and Im y of the thread's
+// beam.
+__device__ __forceinline__ void path_sum(float (&y)[32], EFrags& f,
+                                         const float* g, int acc) {
+  const uint64_t gh = wg::desc(g, kKt), gl = wg::desc(g + kGPlane, kKt);
+  wg::fence_regs(y);
+  fence_frags(f);
+  wg::fence();
+#pragma unroll
+  for (int ks = 0; ks < kDG / 8; ++ks) {
+    const uint64_t bh = wg::step(gh, ks, kKt), bl = wg::step(gl, ks, kKt);
+    wg::mma_n64_rs(y, f.l[ks], bh, ks ? 1 : acc);             // lo . hi
+    wg::mma_n64_rs(y, f.h[ks], bl);                           // hi . lo
+    wg::mma_n64_rs(y, f.h[ks], bh);                           // hi . hi
+  }
+  wg::commit();
+  wg::wait_all();
+  wg::fence_regs(y);
+  fence_frags(f);
+}
+
+// Consumers: G = |y|^2 of the thread's beam b0 + bl and the tile's
+// columns 16 i + 4 t .. + 3 (i < 4) as float4 streaming stores; beams
+// past B and columns past K skipped.
+__device__ __forceinline__ void store_power(const Args& a, size_t u, int b0,
+                                            const Tile& x, int bl, int t,
+                                            const float (&y)[32]) {
+  const int b = b0 + bl;
+  if (b >= a.B) return;
+  const size_t sk = static_cast<size_t>(a.S) * a.K;
+  const int R = a.r1 * a.r2;
+  const int cols = render::imin(kKt, a.K - x.k0);
+  float* o = a.out + ((u * R + x.r) * a.B + b) * sk +
+             static_cast<size_t>(x.s) * a.K + x.k0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int kl = 16 * i + 4 * t;
+    if (kl >= cols) continue;
+    float v[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = 2 * i + (c >> 1);
+      const float yr = y[4 * j + (c & 1)], yi = y[4 * j + 2 + (c & 1)];
+      v[c] = yr * yr + yi * yi;
+    }
+    if (a.vec) {                     // cols is a multiple of 4 here
+      __stcs(reinterpret_cast<float4*>(o + kl),
+             make_float4(v[0], v[1], v[2], v[3]));
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (kl + c < cols) __stcs(o + kl + c, v[c]);
+    }
+  }
+}
+
+// Per item (a user and a tile of kBeams beams): conj(W) of the tile stays
+// in shared memory for every user the block takes with it, while a_tx
+// passes through in slices of kTS depths. kOneChunk: P <= kPc, E folded
+// once per item and kept for every output tile; else every output tile
+// folds each chunk again and sums over the n_ch chunks.
+template <bool kOneChunk>
+__global__ void __launch_bounds__(kThreads, 1)
+beamgain_kernel_wide(Args a) {
+  extern __shared__ float4 smem4[];
+  float* w = reinterpret_cast<float*>(smem4);        // [hi, lo][kWPlane]
+  float* x_st = w + 2 * kWPlane;         // [kXStages][hi, lo][kXPlane]
+  float* g_st = x_st + kXStages * 2 * kXPlane;  // [kGStages][hi, lo][..]
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    produce(a, threadIdx.x >= kConsumers + kXProducers, x_st, g_st);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int lane = threadIdx.x & 31;
+  const int bl = 8 * (threadIdx.x >> 5) + (lane >> 2), t = lane & 3;
+  const uint64_t dwh = wg::desc(w, kM), dwl = wg::desc(w + kWPlane, kM);
+  EFrags f;                          // E of the chunk
+  float y[32];                       // column block j: y[4 j .. 4 j + 3]
+  int kx = 0, kg = 0, staged = -1;
+  for (int it = blockIdx.x; it < a.n_items; it += gridDim.x) {
+    const int bt = it / a.U, b0 = bt * kBeams;
+    const size_t u = static_cast<size_t>(it - bt * a.U);
+    if (bt != staged) {              // every earlier product has completed
+      if (staged >= 0) render::bar_sync(kConsBar, kConsumers);
+      stage_codebook(a, b0, w);
+      staged = bt;
+    }
+    if (kOneChunk) {
+      fold(a, dwh, dwl, x_st, kx, f);
+      for (int tile = 0; tile < a.n_tiles; ++tile, ++kg) {
+        const int sg = kg % kGStages;
+        render::bar_sync(kGFull + sg, kGRing);          // g of the tile
+        path_sum(y, f, g_st + sg * 2 * kGPlane, 0);
+        render::bar_arrive(kGEmpty + sg, kGRing);       // may be rebuilt
+        store_power(a, u, b0, tile_at(a, tile), bl, t, y);
+      }
+    } else {
+      for (int tile = 0; tile < a.n_tiles; ++tile) {
+        for (int c = 0; c < a.n_ch; ++c, ++kg) {
+          fold(a, dwh, dwl, x_st, kx, f);
+          const int sg = kg % kGStages;
+          render::bar_sync(kGFull + sg, kGRing);
+          path_sum(y, f, g_st + sg * 2 * kGPlane, c);
+          render::bar_arrive(kGEmpty + sg, kGRing);
+        }
+        store_power(a, u, b0, tile_at(a, tile), bl, t, y);
+      }
+    }
+  }
+}
+
+cudaError_t launch(const ::Args<float>& s, const void* cw,
+                   cudaStream_t stream) {
+  Args a{s.gry, s.grz, s.gty, s.gtz, s.amp, s.psi, s.omega,
+         static_cast<const float2*>(cw), s.out, s.U, s.P, s.r1, s.r2, s.t1,
+         s.t2, s.t1 * s.t2, s.B, s.K, s.S, s.n_sa, 0, 0, 0, 0, 0, 0};
+  if (a.T > kTMax) return cudaErrorInvalidValue;
+  a.n_ch = (a.P + kPc - 1) / kPc;
+  a.n_kt = (a.K + kKt - 1) / kKt;
+  a.n_sl = (a.T + kTS - 1) / kTS;
+  const long long items =
+      static_cast<long long>((a.B + kBeams - 1) / kBeams) * a.U;
+  const long long tiles = static_cast<long long>(a.r1) * a.r2 * a.S * a.n_kt;
+  if (items > 0x3fffffff || tiles * a.n_ch > 0x3fffffff)
+    return cudaErrorInvalidValue;
+  a.n_items = static_cast<int>(items);
+  a.n_tiles = static_cast<int>(tiles);
+  a.vec = a.K % 4 == 0 && reinterpret_cast<uintptr_t>(a.out) % 16 == 0;
+  const auto kernel = a.n_ch == 1 ? beamgain_kernel_wide<true>
+                                  : beamgain_kernel_wide<false>;
+  const int smem = static_cast<int>(kSmemBytes);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long full = static_cast<long long>(per_sm) * n_sm;
+  const int grid = static_cast<int>(items < full ? items : full);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace tcw
+
 }  // namespace
 
 // Dynamic shared memory of the kernel's block at T TX elements and B beams,
@@ -1036,7 +1625,8 @@ extern "C" long long beamgain_smem_bytes(int n_tx, int n_beams, int f64) {
 // gry..gtz and omega [U, P], amp [U, n_sa*P], psi [U, n_s*P], cw [T, B, 2]
 // (conj(W) transposed, real and imaginary parts interleaved),
 // out [U, R*B, n_s*n_k]. Mode 1 rounds the path sum's operands to bf16;
-// mode 3 runs the tensor-core design (float32, T <= 64).
+// mode 3 runs the tensor-core design (float32, T <= 64), mode 4 its wide
+// design (float32, 64 < T <= 256; cudaErrorInvalidValue past 256).
 // Returns the cudaError_t of the setup and the launch (0 on success); the
 // kernel is not waited for.
 extern "C" int beamgain_launch(const void* gry, const void* grz,
@@ -1058,6 +1648,7 @@ extern "C" int beamgain_launch(const void* gry, const void* grz,
       make_args<float>(gry, grz, gty, gtz, amp, psi, omega, out, n_users,
                        n_paths, r1, r2, t1, t2, n_beams, n_k, n_s, n_sa);
   if (mode == 3) return tc::launch(a, cw, st);
+  if (mode == 4) return tcw::launch(a, cw, st);
   return mode == 1 ? launch<float, true>(a, cw, n_users, st)
                    : launch<float, false>(a, cw, n_users, st);
 }

@@ -301,6 +301,15 @@ class Dataset(DotDict):
                 in place (the previous result is overwritten); ignored
                 otherwise.
 
+        On a card the kernel takes T*B <= 28,768 (TX elements times
+        beams; 14,240 with complex128) in every mode, and with complex64
+        and ``config['matmul_dtype']`` "float32" or "highest" any number
+        of beams on panels of up to 256 TX elements (a 16x16 panel with
+        its 256-beam grid of beams runs on the tensor cores); past that
+        it raises ValueError there rather than form the channel on the
+        device (``render_backend`` "xla" or the CPU take the plain
+        version).
+
         Returns [n_ue, n_rx_ant, n_beams, K] float32 (float64, from a
         float64 codebook, with ``config['compute_dtype']`` "complex128"),
         with a trailing time axis [..., K, S] for several Doppler
@@ -317,7 +326,8 @@ class Dataset(DotDict):
         with span("dm.entry"):
             params, cfg, bs_panel, ue_panel = self._channel_config(params)
             pd = self._path_data()
-            w = _codebook_planes(codebook, cfg, pd.valid.device)
+            with span("dm.codebook"):
+                w = _codebook_planes(codebook, cfg, pd.valid.device)
             polar = bool(params.get(c.PARAMSET_POLAR_EN, 0))
             if polar:
                 self._check_pols()

@@ -829,14 +829,18 @@ def beam_gain_eligible(cfg: ChannelConfig, n_beams: int) -> bool:
     """Can beam gains render through the CUDA kernel? Same answer on every
     device: the JAX package's gate of its beam-gain kernel (frequency
     domain, arithmetic subcarriers, whatever the dtype; the filter is
-    refused before) plus the kernel's shared-memory bound in the config's
-    real dtype (which does not grow with the slots, so it holds for
-    dual-polar too).
+    refused before) plus what the kernel takes
+    (:func:`..kernels.beamgain.beam_gain_fits`): its SIMT design's
+    shared-memory bound in the config's real dtype (T*B <= 28,768 in
+    float32, 14,240 in complex128), and past it float32 at f32 grade up
+    to 256 TX elements with any number of beams. Neither bound grows with
+    the slots, so it holds for dual-polar too.
     """
     return bool(cfg.freq_domain and not cfg.rx_filter
                 and _k_progression(cfg)) and _beamgain.beam_gain_fits(
         cfg.ue_shape, cfg.bs_shape, n_beams, cfg.num_paths,
-        len(cfg.selected_subcarriers), cfg.dtype == "complex128")
+        len(cfg.selected_subcarriers), cfg.dtype == "complex128",
+        _mm_dtype(cfg))
 
 
 def _on_card(dev: torch.device) -> bool:
@@ -849,9 +853,11 @@ def _beam_gain_route(cfg: ChannelConfig, n_beams: int,
 
     ``backend`` "xla" takes the plain version. The fused backends take the
     kernel wrapper (its float64 instantiation for complex128), whose CPU
-    route is the plain version; past the kernel's shared memory they take
-    the plain version on the CPU (as the JAX package does) and raise on
-    the card, where the plain version would form the whole channel in
+    route is the plain version; past what the kernel takes
+    (:func:`beam_gain_eligible`: complex128 or the one-pass bf16 mode past
+    the SIMT design's shared memory, or more than 256 TX elements) they
+    take the plain version on the CPU (as the JAX package does) and raise
+    on the card, where the plain version would form the whole channel in
     device memory.
     """
     if cfg.backend not in ("pallas", "fused"):
@@ -866,10 +872,12 @@ def _beam_gain_route(cfg: ChannelConfig, n_beams: int,
                                 cfg.dtype == "complex128")
     raise ValueError(
         f"Beam gains at R={cfg.n_rx_ant}, T={cfg.n_tx_ant}, B={n_beams}, "
-        f"K={n_k}, P={cfg.num_paths} in {cfg.dtype} need {need} bytes of "
-        f"the beam-gain kernel's shared memory, over its "
-        f"{_render.SMEM_LIMIT}-byte bound; use fewer beams or TX elements, "
-        f"or backend='xla' for the plain version.")
+        f"K={n_k}, P={cfg.num_paths} in {cfg.dtype} with matmul_dtype "
+        f"{_mm_dtype(cfg)!r} need {need} bytes of the beam-gain kernel's "
+        f"shared memory, over its {_render.SMEM_LIMIT}-byte bound, and the "
+        f"tensor cores do not take them: {_beamgain.TAKES}. Use fewer "
+        f"beams or TX elements, complex64 with matmul_dtype 'float32', or "
+        f"backend='xla' for the plain version.")
 
 
 def _beam_gains(cfg: ChannelConfig, args, wr, wi,

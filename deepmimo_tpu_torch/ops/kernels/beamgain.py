@@ -18,13 +18,13 @@ Source note.
   3xTF32 on the tensor cores' nominal 495 TFLOP/s; the output is 0.54 GB,
   0.16 ms at 3.35 TB/s. With 64 beams each product is four times that:
   3.2 ms as FP32 FMA, 1.67 ms at 3xTF32 (P padded to 32).
-- What the design does about it: two designs, one launcher, picked by
+- What the design does about it: three designs, one launcher, picked by
   :func:`tensor_core_route` from dtype, mode and shape alone.
 
   - SIMT (float64, the bf16 mode, codebooks under :data:`TC_MIN_BEAMS`
-    beams, panels past :data:`TC_MAX_TX` elements, and the shapes at which
-    it is the faster: small panels or few paths with few beams, as the
-    quickstart's 8 x 1 panel at 32 beams): the products are small
+    beams, panels past :data:`TC_WIDE_MAX_TX` elements, and the shapes at
+    which it is the faster: small panels or few paths with few beams, as
+    the quickstart's 8 x 1 panel at 32 beams): the products are small
     per user and mma.sync TF32 runs at half its nominal rate on these
     shapes, so they run as FP32 FMA, and the instructions issued beside
     them are what the design cuts. Persistent blocks of up to 8 warps, one
@@ -35,9 +35,9 @@ Source note.
     from 8 fine and 8 coarse per slot), 32 sincosf per path at the
     headline; register tiles in which each 16-byte shared load feeds 8 or
     more FMA.
-  - Tensor cores (float32 at f32 grade, from :data:`TC_MIN_BEAMS` beams,
-    where the two designs' cost models, fitted on an H100, give it the
-    smaller time):
+  - Tensor cores (float32 at f32 grade, from :data:`TC_MIN_BEAMS` beams
+    and panels of up to :data:`TC_MAX_TX` elements, where the cost models,
+    fitted on an H100, give it the smaller time):
     per user and 64-beam tile, the fold and the path sum as chained real
     GEMMs on ``wgmma`` at 3xTF32, conj(W) split once per block into shared
     memory, a_tx and g built by producer warps from separable trig tables,
@@ -47,12 +47,23 @@ Source note.
     takes 3.3 ms to the SIMT design's 7.4 ms; with the products on the
     tensor cores, the producers' work and the products contend for the
     SM.
+  - Wide tensor cores (float32 at f32 grade, from :data:`TC_MIN_BEAMS`
+    beams, panels of :data:`TC_MAX_TX` + 1 to :data:`TC_WIDE_MAX_TX`
+    elements, where the cost models give it the smaller time, and every
+    such shape past the SIMT design's shared memory): a 64-beam codebook
+    tile at T = 256 would take 256 KB in its four 3xTF32 planes, and
+    re-read per user from L2 it would move 1 MB a user. So the tile is 32
+    beams, whose real and imaginary rows make the products' 64 rows, and
+    it stays in shared memory (128 KB at T = 256) for every user the
+    block takes with it, while a_tx passes through in slices of 32
+    elements; the path sum takes E as the real form [[Er, -Ei], [Ei, Er]]
+    straight from the fold's accumulators. Counted under
+    ``MODE_LAUNCHES["tc_wide"]``.
 
   The TPU's lane packing, hi/lo split, ``pltpu.roll`` reassembly and VMEM
   budget (``pick_user_tile_bg``, ``vmem_estimate_bg``, ``pad_store``) are
   not carried over; :func:`beam_gain_fits` is the SIMT design's
-  shared-memory bound, and the tensor-core design takes a subset of what
-  it admits.
+  shared-memory bound, widened by what the tensor-core designs take.
 - Modes, as the TPU kernel's ``mm_dtype``: "float32" and "highest" keep
   every product f32 grade; "bfloat16" and "default" round the path sum's
   operands, E = a_rx (x) eb and g, to bf16 (RNE) before its FP32 FMAs,
@@ -72,8 +83,9 @@ tensors launch the kernel or raise, CPU tensors take the plain version
 :func:`beam_gain_reference`. Its backward is the VJP of the plain version,
 recomputed, as in the JAX package (which has no backward kernel here).
 ``LAUNCHES`` counts kernel launches, ``MODE_LAUNCHES`` those of each mode
-(:func:`beam_gain_mode`: "f32", "bf16_mm" or "f64", whichever design ran)
-and ``TC_LAUNCHES`` those of the tensor-core design.
+(:func:`beam_gain_mode`: "f32", "bf16_mm" or "f64", whether the SIMT or
+the tensor-core design ran; "tc_wide" for the wide tensor-core design in
+place of its mode) and ``TC_LAUNCHES`` those of the tensor-core design.
 """
 
 from __future__ import annotations
@@ -97,14 +109,23 @@ TC_LAUNCHES = 0
 
 #: The launcher's design codes (``mode`` of ``beamgain_launch``): the SIMT
 #: design in float32, with bf16 path-sum operands and in float64, keyed as
-#: ``MODE_LAUNCHES``, and the tensor-core design.
-DESIGNS = {"f32": 0, "bf16_mm": 1, "f64": 2, "tc": 3}
+#: ``MODE_LAUNCHES``, and the tensor-core designs.
+DESIGNS = {"f32": 0, "bf16_mm": 1, "f64": 2, "tc": 3, "tc_wide": 4}
 
 #: Fewest beams that take the tensor-core design: 16 beams fill a quarter
 #: of its 64-row tile.
 TC_MIN_BEAMS = 32
 #: Most TX elements (T) whose codebook tile the tensor-core design stages.
 TC_MAX_TX = 64
+#: Most TX elements of the wide tensor-core design: its 32-beam codebook
+#: tile in two 3xTF32 planes (512 T bytes), two a_tx slices and two g
+#: stages fill 227 KB of shared memory at T = 256 (229,376 bytes).
+TC_WIDE_MAX_TX = 256
+
+#: What the kernel takes, for the messages of the shapes it refuses.
+TAKES = (f"the kernel takes T*B <= 28,768 in float32 (14,240 in float64), "
+         f"and any number of beams in float32 at f32 grade (matmul_dtype "
+         f"'float32' or 'highest') up to T = {TC_WIDE_MAX_TX} TX elements")
 
 _MAX_WARPS = 8          # warps per block
 _PITCH = 18             # complex entries per row of a warp's two buffers
@@ -133,19 +154,38 @@ def smem_bytes(rx_shape, tx_shape, n_beams: int, n_paths: int,
     return cw + 2 * ce * 8 * _PITCH
 
 
+def _tensor_cores_take(tx_shape, n_beams: int, mm_dtype: str,
+                       dtype: torch.dtype) -> bool:
+    """Float32 at f32 grade, at least :data:`TC_MIN_BEAMS` beams and at
+    most :data:`TC_WIDE_MAX_TX` TX elements: a shape one of the
+    tensor-core designs takes, with any number of beams, paths, RX
+    elements, subcarriers and slots."""
+    return (mm_passes(mm_dtype) == 3 and dtype == torch.float32 and
+            n_beams >= TC_MIN_BEAMS and
+            tx_shape[0] * tx_shape[1] <= TC_WIDE_MAX_TX)
+
+
 def beam_gain_fits(rx_shape, tx_shape, n_beams: int, n_paths: int,
-                   n_k: int, f64: bool = False) -> bool:
+                   n_k: int, f64: bool = False,
+                   mm_dtype: str = "float32") -> bool:
     """Does the CUDA kernel take this shape? (Device-independent.)
 
-    The only bound is the block's shared memory (:func:`smem_bytes` <=
-    227 KB), which holds conj(W) and one warp: T*B <= 28,768 (up to 449
-    beams of an 8 x 8 panel), 14,240 in float64 (``f64``), with any
-    number of paths, RX elements, subcarriers and slots.
+    The SIMT design's bound is its block's shared memory
+    (:func:`smem_bytes` <= 227 KB), which holds conj(W) and one warp:
+    T*B <= 28,768 (up to 449 beams of an 8 x 8 panel), 14,240 in float64
+    (``f64``), with any number of paths, RX elements, subcarriers and
+    slots. Past it, float32 at f32 grade (``mm_dtype`` "float32" or
+    "highest") with at most :data:`TC_WIDE_MAX_TX` TX elements runs on the
+    tensor cores, with any number of beams (16x16 panels with their
+    256-beam grid among them); float64 and the one-pass bf16 mode do not.
     """
     if min(*rx_shape, *tx_shape, n_beams, n_paths, n_k) < 1:
         return False
-    return smem_bytes(rx_shape, tx_shape, n_beams, n_paths, n_k,
-                      f64) <= SMEM_LIMIT
+    if smem_bytes(rx_shape, tx_shape, n_beams, n_paths, n_k,
+                  f64) <= SMEM_LIMIT:
+        return True
+    return _tensor_cores_take(tx_shape, n_beams, mm_dtype,
+                              torch.float64 if f64 else torch.float32)
 
 
 def _simt_ns(r, t, b, k, p, s) -> float:
@@ -153,52 +193,97 @@ def _simt_ns(r, t, b, k, p, s) -> float:
     crossover (PERF.md): per 16-beam row tile of one RX element, the fold
     (0.80 + 0.094 T) and per slot and 64-column tile the path sum
     (1.23 + 0.224 P); past one chunk of 32 paths both for every chunk,
-    slot and column tile, 1.86 times slower."""
+    slot and column tile, 1.86 times slower. Past 64 TX elements 1.27
+    times that with one chunk (0.95 with more) and the plan's 8 warps a
+    block, (8 / warps)^0.6 times more with fewer, and 36 times more where
+    it takes chunks of 8 paths (:func:`smem_bytes`; T = 72 to 256,
+    PERF.md)."""
     tiles, n_kt, n_ch = r * -(-b // 16), -(-k // 64), -(-p // 32)
     fold = 0.80 + 0.094 * t
     if n_ch == 1:
-        return tiles * (fold + s * n_kt * (1.23 + 0.224 * p))
-    return tiles * s * n_kt * n_ch * 1.86 * (fold + 1.23 + 0.224 * 32)
+        ns = tiles * (fold + s * n_kt * (1.23 + 0.224 * p))
+    else:
+        ns = tiles * s * n_kt * n_ch * 1.86 * (fold + 1.23 + 0.224 * 32)
+    if t <= TC_MAX_TX:
+        return ns
+    cw = 16 * -(-t * b * 8 // 16)
+    warps = max(0, min(_MAX_WARPS,
+                       (SMEM_LIMIT - cw) // (2 * 8 * 32 * _PITCH)))
+    return ns * (1.27 if n_ch == 1 else 0.95) * (
+        (_MAX_WARPS / warps) ** 0.6 if warps else 36.0)
 
 
 def _tc_ns(r, tx_shape, b, k, p, s) -> float:
-    """The tensor-core design's time per user on an H100, in ns, fitted to
-    the crossover (PERF.md): per 64-beam tile, the fold (6.7 for T <= 32,
-    10.7 for 8-wide panels of more, else 14.2) and 13.6 per RX element,
-    slot and 64-column tile; past one chunk of 32 paths both for every
-    chunk, RX element, slot and column tile. The paths of a chunk cost the
-    same whatever their number."""
+    """The tensor-core designs' time per user on an H100, in ns, fitted to
+    the crossover (PERF.md). Up to :data:`TC_MAX_TX` TX elements, per
+    64-beam tile, the fold (6.7 for T <= 32, 10.7 for 8-wide panels of
+    more, else 14.2) and 13.6 per RX element, slot and 64-column tile;
+    past one chunk of 32 paths both for every chunk, RX element, slot and
+    column tile. The paths of a chunk cost the same whatever their number.
+    Past it (the wide design), per 32-beam tile the fold in slices of 32
+    TX elements (:func:`_tc_wide_ns`)."""
     t = tx_shape[0] * tx_shape[1]
-    fold = 6.7 if t <= 32 else 10.7 if tx_shape[0] == 8 else 14.2
     tiles, n_ch = -(-b // 64), -(-p // 32)
     steps = r * s * -(-k // 64)
+    if t > TC_MAX_TX:
+        return _tc_wide_ns(t, -(-b // 32), steps, n_ch)
+    fold = 6.7 if t <= 32 else 10.7 if tx_shape[0] == 8 else 14.2
     if n_ch == 1:
         return tiles * (fold + steps * 13.6)
     return tiles * steps * n_ch * (fold + 13.6)
 
 
+def _tc_wide_ns(t, tiles, steps, n_ch) -> float:
+    """The wide tensor-core design's time per user on an H100, in ns,
+    fitted to the crossover (PERF.md): per 32-beam tile the fold, 3.85 per
+    slice of 32 TX elements, with 11.7 for the tile's first RX element,
+    slot and 64-column tile and 21.1 for each other (there g's producers
+    set the pace); past one chunk of 32 paths the fold and 11.7 for every
+    chunk, RX element, slot and column tile."""
+    fold = 3.85 * -(-t // 32)
+    if n_ch == 1:
+        return tiles * (fold + 11.7 + 21.1 * (steps - 1))
+    return tiles * steps * n_ch * (fold + 11.7)
+
+
 def tensor_core_route(rx_shape, tx_shape, n_beams: int, n_k: int,
                       n_paths: int, n_s: int, mm_dtype: str = "float32",
                       dtype: torch.dtype = torch.float32) -> bool:
-    """Does a shape that the kernel takes run its tensor-core design?
+    """Does a shape that the kernel takes run a tensor-core design?
 
     Float32 at f32 grade (``mm_dtype`` "float32"/"highest"), at least
-    :data:`TC_MIN_BEAMS` beams, at most :data:`TC_MAX_TX` TX elements, and
-    a shape at which the tensor-core design's time per user is the
-    smaller by the two designs' cost models (:func:`_tc_ns`,
-    :func:`_simt_ns`), fitted to both designs' times on an H100 at 80
-    points of 27 shapes. Everything else (float64, the one-pass bf16 mode,
-    small codebooks, wide panels, small panels with few beams or paths)
-    runs the SIMT design. :func:`beam_gain_fits` decides what the kernel
-    takes at all; this only picks the design.
+    :data:`TC_MIN_BEAMS` beams, at most :data:`TC_WIDE_MAX_TX` TX
+    elements, and either a shape past the SIMT design's shared memory or
+    one at which the tensor cores' time per user is the smaller by the
+    designs' cost models (:func:`_tc_ns`, :func:`_simt_ns`), fitted to
+    their times on an H100 (:data:`TC_MAX_TX` TX elements or fewer: the
+    tensor-core design, 80 points of 27 shapes; more: its wide design).
+    Everything else (float64, the one-pass bf16 mode, small codebooks,
+    panels past :data:`TC_WIDE_MAX_TX`, small panels with few beams or
+    paths) runs the SIMT design. :func:`beam_gain_fits` decides what the
+    kernel takes at all; this only picks the design.
     """
-    if not (mm_passes(mm_dtype) == 3 and dtype == torch.float32 and
-            n_beams >= TC_MIN_BEAMS and
-            tx_shape[0] * tx_shape[1] <= TC_MAX_TX):
+    if not _tensor_cores_take(tx_shape, n_beams, mm_dtype, dtype):
         return False
-    r = rx_shape[0] * rx_shape[1]
+    r, t = rx_shape[0] * rx_shape[1], tx_shape[0] * tx_shape[1]
+    if smem_bytes(rx_shape, tx_shape, n_beams, n_paths, n_k) > SMEM_LIMIT:
+        return True
     return _tc_ns(r, tx_shape, n_beams, n_k, n_paths, n_s) < _simt_ns(
-        r, tx_shape[0] * tx_shape[1], n_beams, n_k, n_paths, n_s)
+        r, t, n_beams, n_k, n_paths, n_s)
+
+
+def beam_gain_design(rx_shape, tx_shape, n_beams: int, n_k: int,
+                     n_paths: int, n_s: int, mm_dtype: str = "float32",
+                     dtype: torch.dtype = torch.float32) -> str:
+    """The key of :data:`DESIGNS` that a shape the kernel takes runs:
+    "tc" or "tc_wide" where :func:`tensor_core_route` takes the tensor
+    cores (by the panel's TX elements), else the SIMT design's mode
+    (:func:`beam_gain_mode`)."""
+    if tensor_core_route(rx_shape, tx_shape, n_beams, n_k, n_paths, n_s,
+                         mm_dtype, dtype):
+        t = tx_shape[0] * tx_shape[1]
+        return "tc" if t <= TC_MAX_TX else "tc_wide"
+    return beam_gain_mode(mm_dtype, dtype)
 
 
 def beam_gain_mode(mm_dtype: str = "float32",
@@ -298,7 +383,8 @@ def _launch(args, wr, wi, out, u, p, r1, r2, t1, t2, n_b, n_k, n_s, n_sa,
     code ``design`` (:data:`DESIGNS`); counts nothing (:func:`_beam_gain`
     counts the library's launches)."""
     dev = out.device
-    cw = torch.stack((wr.t(), wi.t().neg()), -1)    # conj(W), [T, B, 2]
+    with span("dm.codebook"):
+        cw = torch.stack((wr.t(), wi.t().neg()), -1)    # conj(W), [T, B, 2]
     with span("dm.kernel.beam_gain"), torch.cuda.device(dev):
         launch = _build.launcher("beamgain", 9, 11)
         rc = launch(*(x.data_ptr() for x in args), cw.data_ptr(),
@@ -331,21 +417,22 @@ def _beam_gain(args, wr, wi, rx_shape, tx_shape, n_k, out,
     if dev.type != "cuda":
         raise ValueError(f"fused_beam_gain runs on CUDA or CPU tensors, not "
                          f"{dev}")
-    if not beam_gain_fits((r1, r2), (t1, t2), n_b, p, n_k, f64):
+    if not beam_gain_fits((r1, r2), (t1, t2), n_b, p, n_k, f64, mm_dtype):
         raise ValueError(
             f"shape exceeds the kernel's shared memory: R={r1 * r2}, "
-            f"T={t1 * t2}, B={n_b}, K={n_k}, P={p}, {dtype} needs "
+            f"T={t1 * t2}, B={n_b}, K={n_k}, P={p}, {dtype}, matmul_dtype "
+            f"{mm_dtype!r} needs "
             f"{smem_bytes((r1, r2), (t1, t2), n_b, p, n_k, f64)} > "
-            f"{SMEM_LIMIT} bytes")
+            f"{SMEM_LIMIT} bytes; {TAKES}")
     if out is None:
         out = torch.empty(shape, dtype=dtype, device=dev)
-    tc = tensor_core_route((r1, r2), (t1, t2), n_b, n_k, p, n_s, mm_dtype,
-                           dtype)
+    design = beam_gain_design((r1, r2), (t1, t2), n_b, n_k, p, n_s,
+                              mm_dtype, dtype)
     _launch(args, wr, wi, out, u, p, r1, r2, t1, t2, n_b, n_k, n_s, n_sa,
-            DESIGNS["tc" if tc else mode])
+            DESIGNS[design])
     LAUNCHES += 1
-    TC_LAUNCHES += tc
-    _count(MODE_LAUNCHES, mode)
+    TC_LAUNCHES += design == "tc"
+    _count(MODE_LAUNCHES, "tc_wide" if design == "tc_wide" else mode)
     return out
 
 

@@ -222,18 +222,36 @@ def test_beam_gain_fits_is_the_shared_memory_bound():
     # a codebook that leaves no room for a warp of 32 paths: chunks of 8
     # (two 8 x 18 complex buffers, 2,304 bytes per warp)
     assert kb.smem_bytes((1, 1), (8, 8), 440, 25, 64) == 225_280 + 3 * 2_304
-    # conj(W) and one warp of 8: T*B <= 28,768
-    assert kb.beam_gain_fits((1, 1), (8, 8), 449, 25, 64)
+    # the SIMT plan: conj(W) and one warp of 8, T*B <= 28,768; past it the
+    # one-pass bf16 mode is refused
+    bf16 = dict(mm_dtype="bfloat16")
+    assert kb.beam_gain_fits((1, 1), (8, 8), 449, 25, 64, **bf16)
     assert kb.smem_bytes((1, 1), (8, 8), 449, 25, 64) == 229_888 + 2_304
-    assert not kb.beam_gain_fits((1, 1), (8, 8), 450, 25, 64)
+    assert not kb.beam_gain_fits((1, 1), (8, 8), 450, 25, 64, **bf16)
+    assert not kb.beam_gain_fits((1, 1), (8, 8), 450, 25, 64,
+                                 mm_dtype="default")
     assert kb.smem_bytes((1, 1), (8, 8), 450, 25, 64) > 232_448
+    # float32 at f32 grade past it: the tensor cores, up to T = 256 with
+    # any number of beams (the 16x16 panel's 256-beam grid among them)
+    assert kb.TC_WIDE_MAX_TX == 256
+    for mm in ("float32", "highest"):
+        assert kb.beam_gain_fits((1, 1), (8, 8), 450, 25, 64, mm_dtype=mm)
+        assert kb.beam_gain_fits((2, 2), (16, 16), 256, 100, 1024,
+                                 mm_dtype=mm)
+        assert kb.beam_gain_fits((1, 1), (16, 16), 4096, 25, 64,
+                                 mm_dtype=mm)
+    assert not kb.beam_gain_fits((1, 1), (16, 16), 256, 25, 64, **bf16)
+    # past the wide bound the SIMT plan alone: T = 288
+    assert kb.beam_gain_fits((1, 1), (16, 18), 99, 25, 64)
+    assert not kb.beam_gain_fits((1, 1), (16, 18), 100, 25, 64)
     assert not kb.beam_gain_fits((1, 1), (8, 8), 0, 25, 64)
     assert not kb.beam_gain_fits((1, 1), (8, 8), 16, 0, 64)
 
 
 def test_float64_shared_memory_bound():
     """The float64 instantiation's complex entries are 16 bytes, so conj(W)
-    and the warps' buffers take twice the bytes: T*B <= 14,240."""
+    and the warps' buffers take twice the bytes: T*B <= 14,240; the tensor
+    cores take no float64."""
     f64 = dict(f64=True)
     # headline: conj(W) 64 x 16 (16,384 bytes), 8 warps of 18,432
     assert kb.smem_bytes((1, 1), (8, 8), 16, 25, 64, **f64) == \
@@ -248,6 +266,7 @@ def test_float64_shared_memory_bound():
         1_280 + 8 * 18_432
     assert kb.beam_gain_fits((1, 1), (8, 8), 222, 25, 64, **f64)
     assert not kb.beam_gain_fits((1, 1), (8, 8), 223, 25, 64, **f64)
+    assert not kb.beam_gain_fits((1, 1), (16, 16), 256, 25, 64, **f64)
     assert kb.beam_gain_fits((1, 1), (8, 8), 223, 25, 64)
 
 
@@ -493,6 +512,41 @@ CROSSOVER_MS = {
     ((1, 1), (3, 5), 17, 37, 3, 32): (35.1556, 14.2919),
     ((1, 1), (8, 1), 1, 25, 1, 48): (3.1217, 2.6004),
     ((1, 1), (8, 1), 1, 25, 1, 96): (6.1980, 5.2742),
+    # past 64 TX elements the tensor cores' wide design (fitted on the
+    # t72, t128, t256 and two-slot shapes, the rest held out)
+    ((1, 1), (9, 8), 64, 25, 1, 32): (4.0283, 3.2512),
+    ((1, 1), (9, 8), 64, 25, 1, 64): (7.9858, 6.4577),
+    ((1, 1), (9, 8), 64, 25, 1, 128): (19.6927, 12.8642),
+    ((1, 1), (9, 8), 64, 25, 1, 256): (39.8591, 25.5214),
+    ((1, 1), (16, 8), 64, 25, 1, 32): (5.3862, 3.5566),
+    ((1, 1), (16, 8), 64, 25, 1, 64): (12.7664, 7.0631),
+    ((1, 1), (16, 8), 64, 25, 1, 100): (22.6608, 14.0408),
+    ((1, 1), (16, 8), 64, 25, 1, 128): (26.5155, 14.0590),
+    ((1, 1), (16, 8), 64, 25, 1, 224): (1499.5035, 24.3946),
+    ((1, 1), (16, 16), 64, 25, 1, 32): (10.4732, 5.5669),
+    ((1, 1), (16, 16), 64, 25, 1, 64): (20.4740, 11.0908),
+    ((1, 1), (16, 16), 64, 25, 1, 100): (65.7467, 21.9402),
+    ((1, 1), (16, 16), 64, 25, 1, 112): (1345.8605, 21.9679),
+    ((1, 1), (12, 8), 64, 40, 1, 32): (12.8873, 5.7493),
+    ((1, 1), (12, 8), 64, 40, 1, 64): (34.4211, 11.4159),
+    ((1, 1), (12, 8), 64, 40, 1, 128): (69.1006, 22.7008),
+    ((2, 1), (16, 8), 64, 25, 2, 32): (14.5140, 11.8344),
+    ((2, 1), (16, 8), 64, 25, 2, 64): (34.9796, 23.4599),
+    ((2, 1), (16, 8), 64, 25, 2, 128): (70.7814, 46.8880),
+    ((1, 1), (16, 16), 16, 25, 1, 32): (10.3906, 5.5417),
+    ((1, 1), (16, 16), 16, 25, 1, 64): (20.5816, 11.0259),
+    ((1, 1), (16, 16), 16, 25, 1, 112): (1344.8131, 21.9318),
+    ((1, 1), (16, 12), 64, 10, 1, 32): (7.4461, 4.5546),
+    ((1, 1), (16, 12), 64, 10, 1, 64): (14.6255, 8.9766),
+    ((1, 1), (16, 12), 64, 10, 1, 128): (53.5337, 17.9449),
+}
+
+# The wide design's ms alone where the SIMT design's shared memory does
+# not take the shape: (rx_shape, tx_shape, K, P, S, B): ms.
+CROSSOVER_WIDE_ONLY_MS = {
+    ((1, 1), (16, 8), 64, 25, 1, 256): 27.7270,
+    ((1, 1), (16, 16), 64, 25, 1, 128): 21.8264,
+    ((1, 1), (16, 16), 64, 25, 1, 256): 43.6105,
 }
 
 
@@ -502,35 +556,49 @@ CROSSOVER_MS = {
     (torch.float64, "float32"), (torch.float64, "highest")])
 def test_tensor_core_route_sweep(dtype, mm):
     """The route depends on dtype, mode and shape alone: only float32 at
-    f32 grade, B >= TC_MIN_BEAMS and T <= 64 may take the tensor cores, and
-    of those the shapes at which they are faster on the card: at every
-    shape of CROSSOVER_MS where one design is more than 10% faster, the
-    route picks it. beam_gain_fits and smem_bytes stay the SIMT plan's: the
-    route only picks the design of a shape that the kernel takes."""
+    f32 grade, B >= TC_MIN_BEAMS and T <= TC_WIDE_MAX_TX may take the
+    tensor cores (T <= 64 their first design, more the wide one), every
+    such shape past the SIMT plan does, and of the others the shapes at
+    which they are faster on the card: at every shape of CROSSOVER_MS
+    where one design is more than 10% faster, the route picks it.
+    smem_bytes stays the SIMT plan's, and beam_gain_fits is that plan's
+    bound widened by the tensor cores' shapes: the route only picks the
+    design of a shape that the kernel takes."""
     f64 = dtype == torch.float64
     f32_grade = dtype == torch.float32 and mm in ("float32", "highest")
     n_routed = 0
-    for tx in [(1, 1), (3, 5), (4, 4), (8, 8), (16, 4), (9, 8), (16, 16)]:
+    n_wide = 0
+    for tx in [(1, 1), (3, 5), (4, 4), (8, 8), (16, 4), (9, 8), (16, 16),
+               (16, 18)]:
         t = tx[0] * tx[1]
         for b in (1, 16, 48, kb.TC_MIN_BEAMS - 1, kb.TC_MIN_BEAMS, 65, 100,
-                  215, 449, 450):
-            gate = f32_grade and b >= kb.TC_MIN_BEAMS and t <= 64
+                  215, 256, 449, 450):
+            gate = f32_grade and b >= kb.TC_MIN_BEAMS and t <= 256
             for rx in [(1, 1), (2, 1), (2, 2)]:
                 for k in (1, 17, 64, 100):
                     for p in (1, 16, 25, 40):
+                        simt = kb.smem_bytes(rx, tx, b, p, k) <= 232_448
                         for n_s in (1, 4):
                             route = kb.tensor_core_route(rx, tx, b, k, p,
                                                          n_s, mm, dtype)
                             assert route in (False, True)
                             assert gate or not route, (tx, b, rx, k, p, n_s)
+                            assert route or simt or not gate
+                            design = kb.beam_gain_design(rx, tx, b, k, p,
+                                                         n_s, mm, dtype)
+                            assert design == (
+                                ("tc" if t <= 64 else "tc_wide") if route
+                                else kb.beam_gain_mode(mm, dtype))
                             n_routed += route and kb.beam_gain_fits(
-                                rx, tx, b, p, k, f64)
+                                rx, tx, b, p, k, f64, mm)
+                            n_wide += design == "tc_wide"
                         smem = kb.smem_bytes(rx, tx, b, p, k, f64)
                         assert smem == _simt_smem_bytes(t, b, f64)
-                        fits = kb.beam_gain_fits(rx, tx, b, p, k, f64)
-                        assert fits == (smem <= 232_448)
-    assert (n_routed > 0) == f32_grade
+                        fits = kb.beam_gain_fits(rx, tx, b, p, k, f64, mm)
+                        assert fits == (smem <= 232_448 or gate)
+    assert (n_routed > 0) == (n_wide > 0) == f32_grade
     assert kb.TC_MAX_TX == 64 and kb.TC_MIN_BEAMS == 32
+    assert kb.TC_WIDE_MAX_TX == 256
     for (rx, tx, k, p, n_s, b), (simt, tc) in CROSSOVER_MS.items():
         route = kb.tensor_core_route(rx, tx, b, k, p, n_s, mm, dtype)
         if not f32_grade or b < kb.TC_MIN_BEAMS:
@@ -541,6 +609,31 @@ def test_tensor_core_route_sweep(dtype, mm):
             assert not route, (rx, tx, k, p, n_s, b)
     with pytest.raises(ValueError, match="matmul_dtype"):
         kb.tensor_core_route((1, 1), (8, 8), 64, 64, 25, 1, "half", dtype)
+
+
+def test_wide_cost_model_follows_the_crossover():
+    """The wide design's cost model (``_tc_ns`` past 64 TX elements)
+    within 15% of its measured ms at every point of the crossover, so
+    that the route's margins hold; and the SIMT model past 64 TX elements
+    within 35% where the SIMT design ran (its plan of fewer warps and
+    chunks of 8 paths counted)."""
+    ms_per_ns = 131_072 / 1e6
+    points = {**{key: tc for key, (_, tc) in CROSSOVER_MS.items()},
+              **CROSSOVER_WIDE_ONLY_MS}
+    n = 0
+    for (rx, tx, k, p, n_s, b), ms in points.items():
+        t = tx[0] * tx[1]
+        if t <= kb.TC_MAX_TX:
+            continue
+        n += 1
+        r = rx[0] * rx[1]
+        model = kb._tc_ns(r, tx, b, k, p, n_s) * ms_per_ns
+        assert abs(model / ms - 1) < 0.15, (tx, b, model, ms)
+        if (rx, tx, k, p, n_s, b) in CROSSOVER_MS:
+            simt = CROSSOVER_MS[(rx, tx, k, p, n_s, b)][0]
+            model = kb._simt_ns(r, t, b, k, p, n_s) * ms_per_ns
+            assert abs(model / simt - 1) < 0.35, (tx, b, model, simt)
+    assert n == 28
 
 
 def _tf32(x):
@@ -672,6 +765,155 @@ def test_tensor_core_factoring_emulated(name):
         assert float((bad.double() - want).abs().max()) > 0.05 * scale
 
 
+def _wide_launch_emulated(args, wr, wi, out, u, p, r1, r2, t1, t2, n_b, n_k,
+                          n_s, n_sa, design, slip=None):
+    """The wide tensor-core design's tile plan in plain float32 torch, at
+    the sizes the wrapper launches it with, laid out as csrc/beamgain.cu
+    (namespace tcw) lays it out: items of one user and a tile of 32 beams,
+    taken by a grid of blocks in turn, each block staging a tile's
+    conj(W) (rows 16 v + g + 8 h: part h of beam 8 v + g) once for the
+    users it takes with it; per item, path chunk and output tile the fold
+    D = conj(W) . X summed over slices of 32 TX elements (X's columns
+    8 J + 2 e + h: part h of a_tx of path 4 J + e); each warpgroup
+    thread's A fragment of path-sum k-step j, (Er, Ei, -Ei, Er) from its
+    own accumulators; g's depths 8 j + d + 4 c (part c of path 4 j + d)
+    and columns 8 j + kl (subcarrier 16 (j / 2) + 2 (j % 2) + 4 (kl / 2)
+    + kl % 2); |y|^2 from rows ra and ra + 8 stored as four adjacent
+    subcarriers; every product 3xTF32. ``slip`` plants a fault: "depth"
+    swaps the fragments' a[1] and a[2], "conj" folds W instead of
+    conj(W), "slice" drops the last slice of a_tx."""
+    from deepmimo_tpu_torch.ops.kernels.render import response
+
+    gry, grz, gty, gtz, amp, psi, omega = args
+    assert design == kb.DESIGNS["tc_wide"]
+    t_, r_ = t1 * t2, r1 * r2
+    n_sl = -(-t_ // 32)
+    cw = torch.stack((wr.t(), wi.t().neg()), -1)     # as the wrapper passes
+    if slip == "conj":
+        cw = torch.stack((wr.t(), wi.t()), -1)
+    atx_r, atx_i = response(gty, gtz, t1, t2)               # [u, T, p]
+    arx_r, arx_i = response(gry, grz, r1, r2)               # [u, R, p]
+    w_, g_, t4_ = torch.meshgrid(torch.arange(4), torch.arange(8),
+                                 torch.arange(4), indexing="ij")
+    v_, g_, tt = w_.reshape(-1), g_.reshape(-1), t4_.reshape(-1)
+    ra = 16 * v_ + g_                                       # 128 threads
+    m = torch.arange(64)
+    row_beam, row_part = 8 * (m >> 4) + (m & 7), (m >> 3) & 1
+    n = torch.arange(64)
+    x_path, x_part = 4 * (n >> 3) + ((n & 7) >> 1), n & 1
+    dep = torch.arange(64)
+    g_path, g_part = 4 * (dep >> 3) + (dep & 3), (dep >> 2) & 1
+    g_col = 16 * (n >> 4) + 2 * ((n >> 3) & 1) + 4 * ((n & 7) >> 1) + \
+        (n & 1)
+    n_bt, n_kt, n_ch = -(-n_b // 32), -(-n_k // 64), -(-p // 32)
+    grid = 5
+    for blk in range(grid):
+        items = torch.arange(blk, n_bt * u, grid)
+        for bt in items.div(u, rounding_mode="floor").unique().tolist():
+            users = (items[items // u == bt] - bt * u)
+            b0 = 32 * bt
+            a = torch.zeros(64, 32 * n_sl)                  # conj(W) staged
+            keep = b0 + row_beam < n_b
+            bb = torch.clamp(b0 + row_beam, max=n_b - 1)
+            a[:, :t_] = torch.where(keep[:, None],
+                                    cw[:, bb, 0].t() * (row_part == 0)[:, None]
+                                    + cw[:, bb, 1].t() * (row_part == 1)[:,
+                                                                         None],
+                                    torch.zeros(()))
+            for r in range(r_):
+                for s in range(n_s):
+                    for k0 in range(0, n_k, 64):
+                        y = 0
+                        for c in range(n_ch):
+                            pc = torch.clamp(32 * c + x_path, max=p - 1)
+                            ok = (32 * c + x_path < p).float()
+                            x = torch.zeros(len(users), 32 * n_sl, 64)
+                            x[:, :t_] = torch.where(
+                                x_part == 0, atx_r[users][:, :, pc],
+                                atx_i[users][:, :, pc]) * ok
+                            d = 0
+                            for sl in range(n_sl - (slip == "slice")):
+                                z = slice(32 * sl, 32 * sl + 32)
+                                d = d + _mm3(a[:, z], x[:, z])
+                            a2 = torch.zeros(len(users), 64, 64)
+                            for j in range(8):
+                                c0, c1 = 8 * j + 2 * tt, 8 * j + 2 * tt + 1
+                                er = d[:, ra, c0] - d[:, ra + 8, c1]
+                                ei = d[:, ra, c1] + d[:, ra + 8, c0]
+                                frag = [er, ei, -ei, er]
+                                if slip == "depth":
+                                    frag = [er, -ei, ei, er]
+                                a2[:, ra, 8 * j + tt] = frag[0]
+                                a2[:, ra + 8, 8 * j + tt] = frag[1]
+                                a2[:, ra, 8 * j + tt + 4] = frag[2]
+                                a2[:, ra + 8, 8 * j + tt + 4] = frag[3]
+                            pg = torch.clamp(32 * c + g_path, max=p - 1)
+                            okg = (32 * c + g_path < p).float()
+                            am = amp[users][:, (s if n_sa > 1 else 0) * p:][
+                                :, pg] * okg
+                            ca_r = am * arx_r[users][:, r, pg]
+                            ca_i = am * arx_i[users][:, r, pg]
+                            kk = (k0 + g_col).float()
+                            ph = psi[users][:, s * p:][:, pg, None] - \
+                                omega[users][:, pg, None] * kk
+                            vr, vi = torch.cos(ph), torch.sin(ph)
+                            gr = ca_r[..., None] * vr - ca_i[..., None] * vi
+                            gi = ca_r[..., None] * vi + ca_i[..., None] * vr
+                            gm = torch.where((g_part == 1)[:, None], gi, gr)
+                            y = y + _mm3(a2, gm)             # [users, 64, 64]
+                        for i in range(4):
+                            for q in range(4):
+                                j, cc = 2 * i + (q >> 1), q & 1
+                                col = 8 * j + 2 * tt + cc
+                                yr, yi = y[:, ra, col], y[:, ra + 8, col]
+                                kl = 16 * i + 4 * tt + q
+                                b = b0 + 8 * v_ + g_
+                                ok2 = (b < n_b) & (k0 + kl < n_k)
+                                out[users[:, None], (r * n_b + b)[ok2],
+                                    (s * n_k + k0 + kl)[ok2]] = \
+                                    (yr * yr + yi * yi)[:, ok2]
+    return out
+
+
+# name: (rx_shape, tx_shape, B, K, U, P, S, per-slot amp)
+WIDE_EMU_CASES = {
+    "cell": ((1, 1), (16, 16), 256, 64, 3, 25, 1, False),
+    "t72_ragged": ((1, 1), (9, 8), 70, 17, 7, 37, 1, False),
+    "t128_rx_slots": ((2, 1), (16, 8), 40, 100, 2, 9, 2, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_EMU_CASES))
+def test_wide_design_tile_plan_emulated(name):
+    """The wide design's tile plan (tiles of 32 beams staged per block for
+    the users it takes, slices of 32 TX elements, path chunks and output
+    tiles), its layouts and signs, emulated in float32 at 3xTF32 at the
+    sizes the wrapper launches it with, against the plain version in
+    float64 whole within RTOL; a planted slip of the depth order, of the
+    conjugate or of a slice misses it by far."""
+    rx, tx, b, k, u, p, s, per_slot = WIDE_EMU_CASES[name]
+    arrs = [torch.from_numpy(a) for a in _scalars(u, p, s, per_slot,
+                                                  seed=31)]
+    wr, wi = (torch.from_numpy(x) for x in _codebook(b, tx[0] * tx[1], 32))
+    want = kb.beam_gain_reference(*(x.double() for x in (*arrs, wr, wi)),
+                                  rx, tx, k)
+    scale = float(want.max())
+    n_sa = arrs[4].shape[1] // p
+    assert kb.beam_gain_design(rx, tx, b, k, p, s) in ("tc_wide", "f32")
+
+    def launch(slip=None):
+        out = torch.full(want.shape, float("nan"))
+        return _wide_launch_emulated(arrs, wr, wi, out, u, p, *rx, *tx, b,
+                                     k, s, n_sa, kb.DESIGNS["tc_wide"], slip)
+
+    got = launch()
+    assert not torch.isnan(got).any()
+    assert float((got.double() - want).abs().max()) <= RTOL * scale
+    for slip in ("depth", "conj", "slice"):
+        bad = launch(slip)
+        assert float((bad.double() - want).abs().max()) > 0.05 * scale
+
+
 # ----------------------------------------------------------------------------
 # render_beam_gains and the dataset entry point
 # ----------------------------------------------------------------------------
@@ -747,11 +989,15 @@ def test_render_beam_gains_refuses(change):
 @pytest.mark.parametrize("polar", [False, True], ids=["single", "polar"])
 def test_beyond_shared_memory_plain_on_cpu_raises_on_card(polar,
                                                           monkeypatch):
-    """450 beams at the headline exceed the kernel's shared memory (conj(W)
-    and one warp): the fused backend runs the plain version on CPU tensors
+    """450 beams at the headline exceed the SIMT design's shared memory
+    (conj(W) and one warp), and the one-pass bf16 mode does not run on the
+    tensor cores: the fused backend runs the plain version on CPU tensors
     and refuses card tensors (the device check patched here); backend "xla"
-    runs the plain version on either."""
+    runs the plain version on either. At f32 grade the tensor cores take
+    them."""
     _, (pd, bs, ue, cfg) = _state("isotropic")
+    assert tch.beam_gain_eligible(cfg, 450)
+    cfg = cfg.replace(matmul_dtype="bfloat16")
     wr, wi = (torch.from_numpy(x) for x in _codebook(450, 64))
     assert not tch.beam_gain_eligible(cfg, 450)
     assert tch.beam_gain_eligible(cfg, 449)
@@ -771,7 +1017,7 @@ def test_beyond_shared_memory_plain_on_cpu_raises_on_card(polar,
     monkeypatch.setattr(tch, "_on_card", lambda dev: True)
     # the prologue kernel cannot run on these CPU tensors: its PyTorch ops
     monkeypatch.setattr(tch, "_prologue_route", lambda *a: False)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="shared memory.*'float32'"):
         fn(pd, bs, ue, cfg, *pol, wr, wi)
     assert torch.equal(fn(pd, bs, ue, xla, *pol, wr, wi), want)
     before = kb.LAUNCHES                # 16 beams fit: the kernel wrapper,
@@ -868,6 +1114,52 @@ def test_compute_beam_gains_codebook_errors_and_rx_filter(port_on_cpu):
         ds.compute_beam_gains(_params(dmt))
     with pytest.raises(ValueError, match="rx_filter"):
         ds.compute_beam_gains(_params(dmt, rx_filter=1), codebook=w)
+
+
+def test_compute_beam_gains_wide_panel_matches_benchmark_reference(
+        port_on_cpu, monkeypatch):
+    """A 16x16 panel with its 256-beam codebook (64 users, 8 subcarriers):
+    the route takes the kernel wrapper (the wide tensor-core design on a
+    card; its plain version on these CPU tensors), and the maps equal the
+    benchmark's plain float64 reference (chipbench/reference/channels.py
+    beam_gains, which forms H) within RTOL * max|G|."""
+    from chipbench.reference import channels as ref
+
+    d = _data(seed=9, n_ue=64, max_paths=12)
+    w = _bench_codebook(b=256, t=256, seed=6)
+    params = _params(dmt)
+    c = dmt.consts
+    params[c.PARAMSET_ANT_BS][c.PARAMSET_ANT_SHAPE] = np.array([16, 16])
+    params[c.PARAMSET_ANT_BS][c.PARAMSET_ANT_ROTATION] = np.array([0, 0, 0])
+    params[c.PARAMSET_OFDM][c.PARAMSET_OFDM_SC_SAMP] = np.arange(8)
+    cfg, _, _ = params.to_config(64, device="cpu")
+    assert tch.beam_gain_eligible(cfg, 256)
+    assert kb.beam_gain_design(cfg.ue_shape, cfg.bs_shape, 256, 8,
+                               cfg.num_paths, 1) == "tc_wide"
+    calls = []
+    real = kb.fused_beam_gain
+    monkeypatch.setattr(kb, "fused_beam_gain", lambda *a, **kw: (
+        calls.append(tuple(a[7].shape)), real(*a, **kw))[1])
+    got = dmt.Dataset(dict(d)).compute_beam_gains(params, codebook=w)
+    assert calls == [(256, 256)]
+    assert got.shape == (64, 1, 256, 8) and got.dtype == np.float32
+    cp = dict(bs_antenna=dict(shape=[16, 16], spacing=0.5,
+                              rotation=[0, 0, 0],
+                              radiation_pattern="isotropic"),
+              ue_antenna=dict(shape=[1, 1], spacing=0.5, rotation=[0, 0, 0],
+                              radiation_pattern="isotropic"),
+              ofdm=dict(subcarriers=512,
+                        selected_subcarriers=list(range(8)),
+                        bandwidth=float(params[c.PARAMSET_OFDM][
+                            c.PARAMSET_OFDM_BANDWIDTH]), rx_filter=0),
+              num_paths=12, freq_domain=1, enable_doppler=0,
+              enable_dual_polar=0)
+    p = ref.paths_to_tensors({k: v for k, v in d.items()
+                              if k not in ("rx_pos", "tx_pos")},
+                             slice(0, 64), "cpu")
+    want = ref.beam_gains(p, cp, w).numpy()
+    assert want.shape == got.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=RTOL * want.max())
 
 
 # ----------------------------------------------------------------------------
@@ -984,11 +1276,13 @@ def test_cuda_dataset_serving_loop_reuses_out(cuda):
 
 @pytest.mark.gpu
 def test_cuda_beyond_shared_memory_raises(cuda):
-    """450 beams at the headline exceed the kernel's shared memory: on the
+    """450 beams at the headline exceed the SIMT design's shared memory,
+    and the one-pass bf16 mode does not run on the tensor cores: on the
     card compute_beam_gains raises, with no launch, instead of forming H
     for the plain version; 449 beams with 351 paths launch the kernel."""
-    old = dmt.config.get("device")
+    old = dmt.config.get("device"), dmt.config.get("matmul_dtype")
     dmt.config.set("device", "cuda")
+    dmt.config.set("matmul_dtype", "bfloat16")
     try:
         ds = dmt.Dataset(_data(n_ue=8, max_paths=351))
         params = _params(dmt)
@@ -1004,7 +1298,8 @@ def test_cuda_beyond_shared_memory_raises(cuda):
         assert tuple(g.shape) == (8, 449, 64) and \
             bool(torch.isfinite(g).all())
     finally:
-        dmt.config.set("device", old)
+        dmt.config.set("device", old[0])
+        dmt.config.set("matmul_dtype", old[1])
 
 
 @pytest.mark.gpu
@@ -1053,16 +1348,17 @@ CUDA_TC_CASES = {
 
 def _cuda_run(cuda, shape, dtype=torch.float32):
     """The kernel and its plain version on the card; the launch counters'
-    steps (LAUNCHES, TC_LAUNCHES)."""
+    steps (LAUNCHES, TC_LAUNCHES), and MODE_LAUNCHES["tc_wide"]'s."""
     rx, tx, b, k, u, p, s, per_slot = shape
     arrs = _scalars(u, p, s, per_slot, seed=4)
     w = _codebook(b, tx[0] * tx[1], seed=5)
     args = [torch.from_numpy(a).to(dtype).to(cuda) for a in (*arrs, *w)]
-    before = kb.LAUNCHES, kb.TC_LAUNCHES
+    before = kb.LAUNCHES, kb.TC_LAUNCHES, kb.MODE_LAUNCHES.get("tc_wide", 0)
     got = kb.fused_beam_gain(*args, rx, tx, k)
     want = kb.beam_gain_reference(*args, rx, tx, k)
     torch.cuda.synchronize()
     steps = kb.LAUNCHES - before[0], kb.TC_LAUNCHES - before[1]
+    assert kb.MODE_LAUNCHES.get("tc_wide", 0) - before[2] == 0
     return got, want, steps
 
 
@@ -1083,8 +1379,9 @@ def test_cuda_tensor_core_design_matches_plain_version(cuda, name):
                          1, False), torch.float32),
     ("float64", ((1, 1), (8, 8), 64, 64, 1031, 25, 1, False),
      torch.float64),
-    # T = 128, past the staged codebook; chunks of 8 paths in the SIMT plan
-    ("wide_panel", ((1, 1), (16, 8), 220, 64, 37, 20, 2, True),
+    # T = 288, past both tensor-core designs' staged codebooks; chunks of 8
+    # paths in the SIMT plan
+    ("wide_panel", ((1, 1), (16, 18), 99, 64, 37, 20, 2, True),
      torch.float32),
     # the quickstart panel at 32 beams, and a small panel with few paths:
     # the SIMT design is the faster there
@@ -1099,3 +1396,83 @@ def test_cuda_simt_design_keeps_other_shapes(cuda, name, shape, dtype):
     assert steps == (1, 0)
     tol = 1e-9 if dtype == torch.float64 else RTOL
     assert float((got - want).abs().max()) <= tol * float(want.max())
+
+
+# name: (rx_shape, tx_shape, B, K, U, P, S, per-slot amp): the wide
+# tensor-core design, T from 72 to 256, beams from 32 to 256, one and two
+# path chunks, 1 and 4 RX elements and slots, ragged users
+CUDA_WIDE_CASES = {
+    "cell": ((1, 1), (16, 16), 256, 64, 12 * 257, 25, 1, False),
+    "t72_b32": ((1, 1), (9, 8), 32, 64, 1031, 25, 1, False),
+    "t72_b100_chunks": ((1, 1), (9, 8), 100, 64, 1031, 40, 1, False),
+    "t128_b100": ((1, 1), (16, 8), 100, 64, 132 * 16 + 13, 25, 1, False),
+    "t128_b256_rx_slots": ((2, 2), (16, 8), 256, 64, 517, 25, 4, True),
+    "t128_b32_chunks_slots": ((1, 1), (8, 16), 32, 100, 1031, 40, 4,
+                              True),
+    "t256_b32": ((1, 1), (16, 16), 32, 64, 1031, 25, 1, False),
+    "t256_b100_rx": ((2, 2), (16, 16), 100, 64, 1031, 25, 1, False),
+    "t256_b256_chunks_rx": ((2, 2), (16, 16), 256, 17, 261, 40, 1, False),
+    "t256_b256_slots": ((1, 1), (16, 16), 256, 64, 1031, 40, 4, True),
+    "one_user": ((1, 1), (16, 16), 256, 64, 1, 25, 1, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CUDA_WIDE_CASES))
+def test_cuda_wide_design_matches_plain_version(cuda, name):
+    """The wide tensor-core design, launched as the wrapper launches it,
+    against the plain version within RTOL * max|G|; where the route takes
+    it (past the SIMT plan, the cell among them), fused_beam_gain runs it
+    in one launch counted under MODE_LAUNCHES["tc_wide"] alone."""
+    rx, tx, b, k, u, p, s, per_slot = CUDA_WIDE_CASES[name]
+    arrs = _scalars(u, p, s, per_slot, seed=4)
+    w = _codebook(b, tx[0] * tx[1], seed=5)
+    args = [torch.from_numpy(a).to(cuda) for a in (*arrs, *w)]
+    want = kb.beam_gain_reference(*args, rx, tx, k)
+    got = torch.full_like(want, float("nan"))
+    n_sa = args[4].shape[1] // p
+    kb._launch(args[:7], args[7], args[8], got, u, p, *rx, *tx, b, k, s,
+               n_sa, kb.DESIGNS["tc_wide"])
+    torch.cuda.synchronize()
+    scale = float(want.max())
+    assert float((got - want).abs().max()) <= RTOL * scale
+    design = kb.beam_gain_design(rx, tx, b, k, p, s)
+    if kb.smem_bytes(rx, tx, b, p, k) > 232_448 or name == "cell":
+        assert design == "tc_wide"
+    if design == "tc_wide":
+        before = (kb.LAUNCHES, kb.TC_LAUNCHES, dict(kb.MODE_LAUNCHES))
+        routed = kb.fused_beam_gain(*args, rx, tx, k)
+        torch.cuda.synchronize()
+        assert (kb.LAUNCHES - before[0], kb.TC_LAUNCHES - before[1]) == \
+            (1, 0)
+        assert kb.MODE_LAUNCHES["tc_wide"] == \
+            before[2].get("tc_wide", 0) + 1
+        assert kb.MODE_LAUNCHES.get("f32", 0) == before[2].get("f32", 0)
+        assert torch.equal(routed, got)
+
+
+@pytest.mark.gpu
+def test_cuda_dataset_wide_panel_on_the_tensor_cores(cuda):
+    """compute_beam_gains at a 16x16 panel with its 256-beam codebook on
+    the card: no ValueError, one wide-design launch a call, the same maps
+    as on the CPU (the plain version) within RTOL * max|G|."""
+    w = _bench_codebook(b=256, t=256)
+    params = _params(dmt)
+    params[dmt.consts.PARAMSET_ANT_BS][dmt.consts.PARAMSET_ANT_SHAPE] = \
+        np.array([16, 16])
+    old = dmt.config.get("device")
+    try:
+        dmt.config.set("device", "cpu")
+        want = dmt.Dataset(_data(n_ue=300)).compute_beam_gains(
+            params, codebook=w, to_device=True)
+        dmt.config.set("device", "cuda")
+        before = kb.MODE_LAUNCHES.get("tc_wide", 0)
+        got = dmt.Dataset(_data(n_ue=300)).compute_beam_gains(
+            params, codebook=w, to_device=True)
+        torch.cuda.synchronize()
+    finally:
+        dmt.config.set("device", old)
+    assert kb.MODE_LAUNCHES["tc_wide"] == before + 1
+    assert tuple(got.shape) == tuple(want.shape) == (300, 256, 64)
+    err = float((got.cpu() - want).abs().max())
+    assert err <= RTOL * float(want.max())

@@ -5,7 +5,8 @@ the port's name for ``annotate``).
   ``record_function`` is entered by a whole ``compute_channels`` call.
 - Under a CPU ``torch.profiler``, a host-result ``compute_channels`` and a
   ``compute_beam_gains`` each record ``dm.entry``, ``dm.prologue`` and
-  ``dm.unpack`` once, in that order and one after another, and neither
+  ``dm.unpack`` once, in that order and one after another (the beam
+  gains' ``dm.codebook`` inside ``dm.entry``), and neither
   ``dm.h2d`` nor ``dm.d2h`` (nothing crosses a bus on the host); streamed
   over two user blocks, each block records its prologue and its unpack; a
   calibration step records ``dm.calib.forward`` (with ``dm.calib.loss``
@@ -161,6 +162,12 @@ def test_serving_call_records_its_stages_in_order(cpu, entry):
     getattr(ds, entry)(params, **kw)        # the caches filled, as served
     _, spans = _profiled(lambda: getattr(ds, entry)(params, **kw))
     names = [n for _, _, n in spans]
+    if entry == "compute_beam_gains":   # the codebook's planes, in the entry
+        assert names == [SERVING[0], "dm.codebook", *SERVING[1:]], names
+        (s0, e0, _), (s1, e1, _) = spans[:2]
+        assert s0 <= s1 and e1 <= e0
+        spans = [spans[0]] + spans[2:]
+        names = [n for _, _, n in spans]
     assert names == list(SERVING), names
     for (_, end, _), (start, _, _) in zip(spans, spans[1:]):
         assert end <= start                 # one after another, none nested
@@ -181,8 +188,13 @@ def test_dual_polar_call_records_polar_inside_prologue(cpu, entry):
     _, spans = _profiled(call)
     names = [n for _, _, n in spans]
     tail = [] if entry == "channels_device" else ["dm.unpack"]
-    assert names == ["dm.entry", "dm.prologue", "dm.polar"] + tail, names
+    book = ["dm.codebook"] if entry == "beam_gains" else []
+    assert names == ["dm.entry"] + book + ["dm.prologue", "dm.polar"] + \
+        tail, names
     by = {n: (s, e) for s, e, n in spans}
+    if book:
+        assert by["dm.entry"][0] <= by["dm.codebook"][0] and \
+            by["dm.codebook"][1] <= by["dm.entry"][1]
     pro, pol = by["dm.prologue"], by["dm.polar"]
     assert pro[0] <= pol[0] and pol[1] <= pro[1]
     assert by["dm.entry"][1] <= pro[0]
