@@ -19,7 +19,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
    the path sum within 3e-5 * max|H| (also at ``PS_WIDE_CASES``, past the
    old kernel's shared memory: a 16 x 16 BS at 1,024 subcarriers, and 300
    paths), the render's backward within
-   3e-4 * max|g| for each of its 7 gradients, the beam-gain kernel within
+   3e-4 * max|g| for each of its 7 gradients (``fused_render_bwd[tc]``,
+   its tensor-core design, in f32), the beam-gain kernel within
    3e-5 * max|G| at 8 shapes, from 5 users to 131,072 and up to 100 paths,
    256 subcarriers and 64 beams of a 16 x 16 panel, timed at the headline
    with 16 beams and with 64 (its tensor-core design) and at a 16 x 16
@@ -532,8 +533,10 @@ def largest_fitting_ms(torch, make_fn, u_max, reps):
 
 def phase_bwd_kernels(torch):
     """The render's backward kernel in each of MM_MODES vs its plain
-    version in the same mode at every KERNEL_CASES shape. Returns the
-    headline's metrics by mode."""
+    version in the same mode at every KERNEL_CASES shape, under the name of
+    the design that ran (``fused_render_bwd[tc]`` at f32 grade). Returns
+    the headline's metrics by design: "tc", and the one-pass mode's
+    "bf16_mm"."""
     from deepmimo_tpu_torch.ops.kernels import render as kr
     headline = {}
     for name, u, p, rx, tx, k, s, per_slot, packed in KERNEL_CASES:
@@ -546,7 +549,10 @@ def phase_bwd_kernels(torch):
         for mm in MM_MODES:
             key = kr.mode_key(mm)
             tol = GRAD_RTOL if key == "f32" else BF16_MM_RTOL
+            tc_before = kr.BWD_MODE_LAUNCHES.get("tc", 0)
             got = kr.fused_render_bwd(*args, ct, rx, tx, k, packed, mm)
+            design = ("tc" if kr.BWD_MODE_LAUNCHES.get("tc", 0) > tc_before
+                      else key)
             want = kr.fused_render_bwd_reference(*args, ct, rx, tx, k,
                                                  packed, mm)
             torch.cuda.synchronize()
@@ -560,12 +566,12 @@ def phase_bwd_kernels(torch):
                 worst = max(worst, err)
                 if not (math.isfinite(err) and err <= tol * scale + 1e-30):
                     raise AssertionError(
-                        f"fused_render_bwd {name} {key}: d{gname} disagrees "
-                        f"with its plain version (err {err:.3e}, max|g| "
-                        f"{scale:.3e})")
-            log(f"[kernel] {entry('fused_render_bwd', key)} {name}: U={u} "
-                f"P={p} rx={rx} tx={tx} K={k} S={s} packed={packed} rel err "
-                f"per grad: {', '.join(errs)} (limit {tol:g})")
+                        f"fused_render_bwd {name} {design}: d{gname} "
+                        f"disagrees with its plain version (err {err:.3e}, "
+                        f"max|g| {scale:.3e})")
+            log(f"[kernel] {entry('fused_render_bwd', design)} {name}: "
+                f"U={u} P={p} rx={rx} tx={tx} K={k} S={s} packed={packed} "
+                f"rel err per grad: {', '.join(errs)} (limit {tol:g})")
             del got, want
             if name == "headline":
                 ms = event_ms(torch, lambda: kr.fused_render_bwd(
@@ -575,11 +581,12 @@ def phase_bwd_kernels(torch):
                         *[a[:n] for a in args], ct[:n], rx, tx, k, packed,
                         mm), u, reps=3)
                 gbps = ct.numel() * 4 / (ms * 1e-3) / 1e9
-                log(f"[kernel] {entry('fused_render_bwd', key)} headline: "
-                    f"kernel {ms:.4f} ms ({gbps:.1f} GB/s of ct read), plain "
-                    f"{plain_ms:.4f} ms at {plain_u} users")
-                headline[key] = dict(max_abs_err=worst, ms=ms,
-                                     plain_ms=plain_ms, plain_users=plain_u)
+                log(f"[kernel] {entry('fused_render_bwd', design)} "
+                    f"headline: kernel {ms:.4f} ms ({gbps:.1f} GB/s of ct "
+                    f"read), plain {plain_ms:.4f} ms at {plain_u} users")
+                headline[design] = dict(max_abs_err=worst, ms=ms,
+                                        plain_ms=plain_ms,
+                                        plain_users=plain_u)
         del args, ct
         torch.cuda.empty_cache()
     return headline
@@ -4009,7 +4016,7 @@ def kernel_bounds(fma=False):
         "fused_render[bf16_mm]": (per_path + 4 * h_planes, 0, fwd),
         "fused_render[bf16_mm+bf16_out]": (per_path + 2 * h_planes, 0, fwd),
         # reads ct, writes 7 gradients
-        "fused_render_bwd": (2 * per_path + 4 * h_planes, bwd, 0),
+        "fused_render_bwd[tc]": (2 * per_path + 4 * h_planes, bwd, 0),
         "fused_render_bwd[bf16_mm]": (2 * per_path + 4 * h_planes, 0, bwd),
         # B = (amp a_rx) g (8 flops per (r, k, p)), then the path sum
         "fused_path_sum": (4 * u * p * (2 * r + 2 * t + 3) + 4 * k +
@@ -4144,14 +4151,17 @@ def phase_train(torch, dmt, fwd_ms, bwd_ms):
         dmt.AntennaPanel.make(device=DEV))
     _check_train_grads(torch, dmt, paths, target, cfg, GRAD_RTOL, "train")
 
-    # The training path, counted: one forward + one backward per step.
+    # The training path, counted: one forward + one backward per step, the
+    # backward on its tensor-core design.
     kr.LAUNCHES = kr.BWD_LAUNCHES = kr.TC_LAUNCHES = 0
+    kr.BWD_MODE_LAUNCHES.clear()
     losses, step_ms, peak = run_steps(
         torch, lambda p: sh.training_step_planes(p, paths, target, cfg,
                                                  lr=LR),
         params, TRAIN_STEPS, per_step=(1, 1, 0))
     launches = (_by_design(kr.LAUNCHES, kr.TC_LAUNCHES),
-                kr.BWD_LAUNCHES)
+                _modes(kr.BWD_MODE_LAUNCHES, "fused_render_bwd",
+                       {"tc": kr.BWD_LAUNCHES}))
     log(f"[train] {TRAIN_STEPS} training_step_planes steps, {CHUNK} users, "
         f"lr {LR}: losses {['%.7f' % x for x in losses]}")
     if not all(math.isfinite(x) for x in losses) or \
@@ -4165,7 +4175,7 @@ def phase_train(torch, dmt, fwd_ms, bwd_ms):
         f"(kernel times from phase 3); peak device memory "
         f"{peak / 2**30:.3f} GiB; launches fwd {sum(launches[0].values())} "
         f"({launches[0]['fused_render[tc]']} tensor-core), "
-        f"bwd {launches[1]}")
+        f"bwd {launches[1]['fused_render_bwd[tc]']} (tensor-core)")
     profile_cell(torch, "calibration planes", [
         lambda: sh.training_step_planes(params, paths, target, cfg, lr=LR)])
     first_loss = losses[0]
@@ -4283,11 +4293,11 @@ def main():
     polar, polar_bg, prologue_polar = phase_polar(torch, dmt)
     torch.cuda.empty_cache()
     paths, (train_fwd, train_bwd), planes_loss = phase_train(
-        torch, dmt, fwd["tc"]["ms"], bwd["f32"]["ms"])
+        torch, dmt, fwd["tc"]["ms"], bwd["tc"]["ms"])
     train_bf16 = phase_train_bf16(torch, dmt, paths, planes_loss)
     pallas_launches = phase_train_pallas(torch, dmt, paths, planes_loss)
-    launches.update({"fused_render_bwd": train_bwd,
-                     "fused_path_sum": pallas_launches,
+    launches.update(train_bwd)
+    launches.update({"fused_path_sum": pallas_launches,
                      "fused_beam_gain": bg_launches + polar_bg,
                      "fused_beam_gain[tc]": bg_tc_launches,
                      "fused_beam_gain[tc_wide]": bg_wide_launches,
@@ -4308,7 +4318,8 @@ def main():
 
     log(f"[launches] fused_render (mma.sync): {by_phase('fused_render')}; "
         f"fused_render[tc]: {by_phase('fused_render[tc]')}; "
-        f"fused_render_bwd: training {train_bwd}; fused_path_sum: pallas "
+        f"fused_render_bwd[tc]: training "
+        f"{train_bwd['fused_render_bwd[tc]']}; fused_path_sum: pallas "
         f"training {pallas_launches} + multi-device "
         f"{multidevice['fused_path_sum']}; fused_beam_gain: serving "
         f"{bg_launches} + dual-polar {polar_bg} + Doppler "

@@ -25,29 +25,33 @@ Source note.
 - What the design does about it: each product is a real GEMM per tile
   on the tensor cores in 3xTF32 (each operand split into tf32 hi and lo,
   lo*hi + hi*lo + hi*hi in FP32 accumulators, ~2^-21 relative; no
-  one-pass TF32 and no FP32-FMA main loop). The forward has two designs
-  behind one launcher, picked by :func:`tensor_core_route` from dtype,
-  mode and shape alone: float32 output at f32 grade on panels of 48 rows
-  or more (the headline's 8 x 8 among them) runs the path sum as
-  warpgroup GEMMs on ``wgmma``
+  one-pass TF32 and no FP32-FMA main loop). Each kernel has two designs
+  behind one launcher. The forward's, picked by
+  :func:`tensor_core_route` from dtype, mode and shape alone: float32
+  output at f32 grade on panels of 48 rows or more (the headline's 8 x 8
+  among them) runs the path sum as warpgroup GEMMs on ``wgmma``
   (``tc::render_fwd_kernel_tc``: E built once per user and row tile and
   kept for every slot and column tile, G by the beam gain's producer,
-  2.1 ms at the headline against 4.2); everything else, and the
-  backward, runs ``mma.sync`` m16n8k8, as below. ``TC_LAUNCHES`` counts
-  the launches of the ``wgmma`` design. Tiles of 64 rows
+  2.1 ms at the headline against 4.2); everything else runs ``mma.sync``
+  m16n8k8, as below. ``TC_LAUNCHES`` counts the launches of the
+  forward's ``wgmma`` design. The backward's, picked by the mode alone:
+  at f32 grade ``tc::render_bwd_kernel_tc``, one contraction on
+  ``wgmma`` (dE and its k-weighted twin from register A fragments of the
+  cotangent; the contraction over q becomes sums over the rows, sum_k dG
+  conj(U) = sum_q conj(E) dE), 4.1 ms at the headline where the
+  ``mma.sync`` design it replaced took 11.6; the one-pass bf16 mode on
+  ``mma.sync``. The ``mma.sync`` designs: tiles of 64 rows
   x 64 columns and chunks of 32 paths keep shared memory bounded, so the
   kernels take any Q, S*K and P. E and g come from per-tile tables
   (separable panel responses, a fine and a coarse OFDM table, as the TPU
   kernel's ``_panel_er_ei`` and ``_ofdm_tables``): 4x fewer ``sincosf``
-  than one per element, all with full range reduction. Both kernels are
+  than one per element, all with full range reduction. Every design is
   warp-specialised persistent blocks: producer warps stage a tile's
   operands into one of two stages while consumer warps run the mma on
   the other. The forward's operands are split once as they are staged
   and its accumulators go to HBM as 16-byte streaming stores; the
-  backward splits the cotangent tile once (both products read it, dG
-  transposed) and folds each tile's partial dE rows and dG columns
-  straight into per-path sums (the chains are linear), one owner lane
-  per path, no atomics.
+  backward folds each tile's partial products straight into per-path
+  sums (the chains are linear), one owner lane per path, no atomics.
   No TPU lane packing, bf16 hi/lo concat-dot or Chebyshev recurrence is
   carried over.
 - Modes, as the TPU kernels' ``mm_dtype`` and ``out_dtype``:
@@ -66,8 +70,9 @@ under autograd, the backward kernel; anything a kernel does not take
 raises. CPU tensors take the plain versions :func:`fused_render_reference`
 and :func:`fused_render_bwd_reference`. ``LAUNCHES`` and ``BWD_LAUNCHES``
 count kernel launches, ``MODE_LAUNCHES`` and ``BWD_MODE_LAUNCHES`` the
-launches of each mode (:func:`mode_key`; the forward's launches that
-took the ``wgmma`` design count under "tc" instead, as in ``TC_LAUNCHES``).
+launches of each mode (:func:`mode_key`; the launches that took a
+``wgmma`` design count under "tc" instead, the forward's also in
+``TC_LAUNCHES``).
 """
 from __future__ import annotations
 
@@ -83,7 +88,7 @@ LAUNCHES = 0
 #: Number of backward kernel launches (``csrc/render_bwd.cu``).
 BWD_LAUNCHES = 0
 #: Forward and backward launches of each mode, keyed by :func:`mode_key`,
-#: the forward's launches of the tensor-core design under "tc" instead.
+#: the launches of either kernel's tensor-core design under "tc" instead.
 MODE_LAUNCHES: dict = {}
 BWD_MODE_LAUNCHES: dict = {}
 #: Forward launches that took the tensor-core design
@@ -500,7 +505,7 @@ def fused_render_bwd(gry, grz, gty, gtz, amp, psi, omega, ct,
     if rc != 0:
         raise RuntimeError(f"render_bwd launch failed with CUDA error {rc}")
     BWD_LAUNCHES += 1
-    _count(BWD_MODE_LAUNCHES, mode_key(mm_dtype))
+    _count(BWD_MODE_LAUNCHES, "tc" if passes == 3 else mode_key(mm_dtype))
     return tuple(grads)
 
 
